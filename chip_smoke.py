@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --json DIR/chip_smoke.json   # also keep the record
@@ -10,21 +10,36 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   2. build   — compile src/repro_torch/csrc/*.cu (one nvcc per source, all
                in parallel) into build/repro_torch/, print the build time
   3. kernels — each CUDA kernel against its plain PyTorch version on the
-               card, bit for bit, at the main path's shapes plus ragged and
-               edge cases; CUDA-event times of kernel and plain version,
-               beside the least time the card could take (bytes moved /
-               3.35 TB/s, the H100 SXM's memory rate)
+               card at its paths' shapes plus ragged and edge cases: the
+               four simulator kernels bit for bit; flash_attention within
+               2e-5 (f32) / 2e-2 (bf16) and ssd_chunk_scan within 2e-4.
+               Device times of kernel and plain version (CUDA-graph
+               replay) beside the least time the card could take (bytes
+               at 3.35 TB/s or operations at the peak rate of their type,
+               whichever is larger) and, where one PyTorch call computes
+               the same function (SDPA for flash_attention), its time
   4. main path — perm_1024n_3t (the paper's 1024-node, three-tier fat
                tree) and alltoall_3t end to end through the kernels; launch
                counts reset just before each run and read just after; the
                final states equal to the plain-on-card and CPU runs
                field by field; the summaries equal to the JAX reference's
+  5. serving — qwen3-0.6b (28 layers) and mamba2-780m (48 layers) at full
+               width from a seeded init on the card, each serving two
+               requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
+               tokens) through serve.generate; launch counts reset just
+               before each generate and read just after (flash_attention
+               28 per qwen3 prefill, ssd_chunk_scan 48 per mamba2 prefill,
+               neither in decode); prefill logits and caches and the
+               teacher-forced logits and tokens against the same model
+               served through the plain versions on the card; time to
+               first token, decode tokens/s, peak memory and the device's
+               idle share while decoding
+  6. profile — where perm_1024n_3t's tick time goes
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
 power limit come on a line before them.
 """
-
 from __future__ import annotations
 
 import json
@@ -43,6 +58,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM peak HBM3 bandwidth
+BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12          # H100 SXM f32 peak outside the tensor cores
 
 # The JAX reference's summaries of the two main-path runs (seed 0), pinned
 # by tests/test_torch_engine.py against the JAX package on the CPU.
@@ -133,9 +150,9 @@ def device_ms(fn, per_graph=50, replays=20) -> float:
     return a.elapsed_time(b) / (per_graph * replays)
 
 
-def timings(kernel, plain) -> dict:
-    return dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
-                call_ms=call_ms(kernel), plain_call_ms=call_ms(plain))
+def timings(kernel, plain, iters=200, plain_per_graph=50) -> dict:
+    return dict(ms=device_ms(kernel), plain_ms=device_ms(plain, per_graph=plain_per_graph),
+                call_ms=call_ms(kernel, iters), plain_call_ms=call_ms(plain, iters))
 
 
 # ------------------------------------------------------------ 1. device
@@ -297,14 +314,13 @@ def run_path(name, device, backend):
     sim = sc.build(device=device)
     if device == "cuda":
         torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0                          # just before the run
+    reset_counts()                               # just before the run
     t0 = time.perf_counter()
     st = sim.run(sc.max_ticks)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}   # just after
+    launches = read_counts()                                      # just after
     summ = summarize(sim, st)
     steps = sim.stats["steps"]
     log(f"[main] {name:14s} {device:4s} {backend:6s}: {summ['ticks']} ticks "
@@ -347,6 +363,386 @@ def phase_main_path():
             f"runs ({len(list(leaves(st_k)))} leaves); summary equals the JAX reference")
         results[name] = dict(launches=launches, steps=steps, ticks=summ["ticks"],
                              wall=wall, wall_plain=wall_p, wall_cpu=wall_c)
+    return results
+
+
+# ------------------------------------------- 3b. kernels of the serving path
+
+# (b, hq, hkv, sq, sk, d, causal, window, dtype); the first is timed:
+# qwen3-0.6b's prefill at B=4, S=512 (GQA 16/8, head_dim 128, bf16)
+FLASH_CASES = (
+    (4, 16, 8, 512, 512, 128, True, 0, torch.bfloat16),
+    (2, 16, 8, 300, 300, 128, True, 0, torch.bfloat16),    # ragged prompt
+    (4, 16, 8, 512, 512, 128, True, 0, torch.float32),
+    (1, 2, 1, 100, 300, 64, True, 0, torch.float32),        # Sq != Sk
+    (1, 2, 2, 130, 70, 32, True, 0, torch.float32),         # rows with no key
+    (2, 4, 2, 1, 77, 16, True, 0, torch.float32),           # one query row
+    (1, 2, 1, 300, 300, 64, True, 50, torch.float32),       # sliding window
+    (1, 2, 2, 90, 200, 48, False, 40, torch.float32),
+)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (BH, L, P, N, chunk, B/C dtype); the first is timed: mamba2-780m's
+# prefill at B=4, S=512 (48 heads, head_dim 64, d_state 128, chunk 128)
+SSD_CASES = (
+    (192, 512, 64, 128, 128, torch.bfloat16),
+    (96, 384, 64, 128, 128, torch.bfloat16),     # B=2, S=300 padded to 384
+    (4, 100, 64, 128, 100, torch.float32),       # chunk < 128
+    (3, 96, 8, 16, 48, torch.float32),
+    (2, 64, 16, 32, 16, torch.float32),
+)
+SSD_TOL = 2e-4
+
+
+def attn_pairs(sq, sk, causal, window) -> int:
+    """(query, key) pairs the mask lets through: the products this call's
+    data needs."""
+    n = 0
+    for i in range(sq):
+        p = i + sk - sq
+        lo = max(0, p - window + 1) if window > 0 else 0
+        hi = min(p, sk - 1) if causal else sk - 1
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    b = nbytes / HBM_BYTES_PER_S
+    o = bf16_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S
+    return dict(bytes=nbytes, bf16_flops=bf16_flops, f32_flops=f32_flops,
+                bound_ms=max(b, o) * 1e3, bound_by="bytes" if b >= o else "operations")
+
+
+def serve_kernel_checks(dev):
+    """flash_attention and ssd_chunk_scan against their plain versions on
+    the card; returns their records (times at the serving path's shapes)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel as FK, ref as FR
+    from repro_torch.kernels.ssd_scan import kernel as SK, ref as SR
+
+    records = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def flash_inputs(b, hq, hkv, sq, sk, d, dt):
+        # the model's layout: [B, S, H, D] storage read through [B, H, S, D] views
+        q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dt).transpose(1, 2)
+        k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dt).transpose(1, 2)
+        v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dt).transpose(1, 2)
+        return q, k, v
+
+    errs = {}
+    for case in FLASH_CASES:
+        b, hq, hkv, sq, sk, d, causal, win, dt = case
+        q, k, v = flash_inputs(b, hq, hkv, sq, sk, d, dt)
+        out = FK.flash_attention(q, k, v, causal=causal, window=win)
+        ref = FR.flash_attention_ref(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != dt:
+            fail(f"flash_attention {case}: {tuple(out.shape)} {out.dtype}")
+        err = max_abs_err(out, ref)
+        if not err <= FLASH_TOL[dt]:
+            fail(f"flash_attention {case[:8]} {dt}: max abs error {err} against its "
+                 f"plain version (tolerance {FLASH_TOL[dt]})")
+        errs[dt] = max(errs.get(dt, 0.0), err)
+    b, hq, hkv, s, _, d, causal, win, dt = FLASH_CASES[0]
+    q, k, v = flash_inputs(b, hq, hkv, s, s, d, dt)
+    rec = dict(shape=f"q [{b}, {hq}, {s}, {d}], kv [{b}, {hkv}, {s}, {d}] bf16",
+               max_abs_err=errs[torch.bfloat16], max_abs_err_f32=errs[torch.float32],
+               **timings(lambda: FK.flash_attention(q, k, v, causal=True),
+                         lambda: FR.flash_attention_ref(q, k, v, causal=True),
+                         iters=20, plain_per_graph=2),
+               library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True)),
+               **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                       bf16_flops=4 * d * attn_pairs(s, s, True, 0) * b * hq))
+    records["flash_attention"] = rec
+
+    err = 0.0
+    for case in SSD_CASES:
+        bh, L, P, N, chunk, dt = case
+        x = torch.randn((bh, L, P), generator=g, device=dev) * 0.5
+        loga = -torch.randn((bh, L), generator=g, device=dev).abs() * 0.3
+        B = (torch.randn((bh, L, N), generator=g, device=dev) * 0.3).to(dt)
+        C = (torch.randn((bh, L, N), generator=g, device=dev) * 0.3).to(dt)
+        got = SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk)
+        want = SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        for name, a, r in zip(("y", "s", "t"), got, want):
+            e = max_abs_err(a, r)
+            if a.shape != r.shape or not e <= SSD_TOL:
+                fail(f"ssd_chunk_scan {case[:5]} {dt} {name}: max abs error {e} "
+                     f"(tolerance {SSD_TOL}), shapes {tuple(a.shape)} {tuple(r.shape)}")
+            err = max(err, e)
+        if case == SSD_CASES[0]:
+            args = (x, loga, B, C)
+    bh, L, P, N, chunk, dt = SSD_CASES[0]
+    nc, pairs = L // chunk, chunk * (chunk + 1) // 2
+    x, loga, B, C = args
+    records["ssd_chunk_scan"] = dict(
+        shape=f"x [{bh}, {L}, {P}] f32, B/C [{bh}, {L}, {N}] bf16, chunk {chunk}",
+        max_abs_err=err,
+        **timings(lambda: SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk),
+                  lambda: SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk),
+                  iters=20, plain_per_graph=5),
+        library_ms=None,
+        # C B^T takes the bf16 inputs; G x and (B o decay)^T x are f32 products
+        **bound(4 * x.numel() + 4 * loga.numel() + 2 * (B.numel() + C.numel())
+                + 4 * (bh * L * P + bh * nc * N * P + bh * nc),
+                bf16_flops=2 * N * pairs * bh * nc,
+                f32_flops=(2 * P * pairs + 2 * chunk * N * P) * bh * nc))
+
+    for name, rec in records.items():
+        lib = f"{rec['library_ms'] * 1e3:.1f} us" if rec["library_ms"] else "none"
+        log(f"[kernels] {name:15s} {rec['shape']}: max abs err {rec['max_abs_err']} "
+            f"against its plain version; device time: kernel {rec['ms'] * 1e3:.1f} us, "
+            f"plain {rec['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
+            f"{rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({rec['bytes']} B, "
+            f"{rec['bf16_flops']:.4g} bf16 + {rec['f32_flops']:.4g} f32 FLOP); a call "
+            f"with the host's work: kernel {rec['call_ms'] * 1e3:.1f} us, plain "
+            f"{rec['plain_call_ms'] * 1e3:.1f} us")
+    return records
+
+
+# --------------------------------------------------------- 5. serving
+
+SERVE_MODELS = (("qwen3-0.6b", "flash_attention"), ("mamba2-780m", "ssd_chunk_scan"))
+SERVE_REQUESTS = ((4, 512, 32), (2, 300, 32))    # (batch, prompt tokens, new tokens)
+# Kernel against plain on the card, same weights.  The kernels sum in
+# another order than the plain versions, so now and then a bf16 activation
+# rounds the other way (one bf16 ULP, 2^-8 relative).
+# - Layer by layer, from the same input (the plain path's residual
+#   stream): each layer's output and caches within 2e-2 of the largest
+#   value, as the CPU tests hold each layer against the JAX package.
+#   This is the check of the kernels inside the model.
+# - Whole depth: the residual stream carries every flip through every
+#   later layer, and this random-init model amplifies them (on an H100
+#   the two paths' caches drift ~1 % apart over qwen3-0.6b's 28 layers,
+#   ~3 % over mamba2-780m's 48; PERF.md).  The prefill and teacher-forced logits are held to
+#   max |d| / max |ref| <= 5e-2, the bound the JAX package allows between
+#   its own two serving paths (tests/test_models.py::
+#   test_decode_matches_forward), and a token counts as decided where the
+#   top-1 minus top-2 margin exceeds that bound.  The caches' whole-depth
+#   errors are printed beside them.
+SERVE_LAYER_TOL = 2e-2
+SERVE_MAX_TOL = 5e-2
+
+
+def rel_err(want, got) -> float:
+    want, got = want.float(), got.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def rel_l2(want, got) -> float:
+    want, got = want.double(), got.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def per_layer_errors(model, prompt, max_len):
+    """Every layer through the kernels and through the plain versions from
+    the same input (the plain path's residual stream); the worst error of
+    each output over the layers (max |d| / max |ref|)."""
+    from repro_torch.models import lm
+    x = model.embed[prompt.long()]
+    positions = torch.arange(prompt.shape[1], dtype=torch.int32,
+                             device=x.device).expand(prompt.shape)
+    worst = {}
+    for layer in model.layers:
+        model.backend = "kernel"
+        xk, ck = lm.prefill_layer(model, layer, x, positions, max_len)
+        model.backend = "plain"
+        x, cp = lm.prefill_layer(model, layer, x, positions, max_len)
+        for name, e in [("x", rel_err(x, xk))] + [(f"cache.{n}", rel_err(cp[n], ck[n]))
+                                                  for n in cp]:
+            worst[name] = max(worst.get(name, 0.0), e)
+    return worst
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def all_counters():
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    return {**counters(), "flash_attention": FK.flash_attention,
+            "ssd_chunk_scan": SK.ssd_chunk_scan}
+
+
+def reset_counts():
+    for fn in all_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in all_counters().items()}
+
+
+def decode_idle_share(model, prompt, max_len, steps=8):
+    """torch.profiler over ``steps`` greedy decode steps after a prefill:
+    wall time a step, device busy time a step, and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    vocab = model.cfg.vocab
+    logits, caches, cl = lm.prefill(model, prompt, max_len)
+    tok = logits[:, -1, :vocab].argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cl = cl + 1
+            logits, caches = lm.decode_step(model, tok, caches, cl)
+            tok = logits[:, -1, :vocab].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    return dict(wall_ms_per_step=wall / steps * 1e3,
+                busy_ms_per_step=busy / steps * 1e3,
+                idle_share=1 - busy / wall if busy else None,
+                kernels_per_step=sum(e.count for e in events) / steps,
+                top=[dict(name=e.key, us_per_step=dev_us(e) / steps,
+                          per_step=e.count / steps) for e in top])
+
+
+def serve_request(model, kname, b, s, new, dev):
+    from repro_torch.models import lm
+    from repro_torch.serve import engine
+    cfg = model.cfg
+    tag = f"{cfg.name} B={b} S={s} +{new}"
+    max_len = s + new + 1
+    prompt = torch.randint(0, cfg.vocab, (b, s), device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(1000 * b + s))
+
+    # prefill through the kernels and through the plain versions
+    model.backend = "kernel"
+    lk, ck, _ = lm.prefill(model, prompt, max_len)
+    model.backend = "plain"
+    lp, cp, _ = lm.prefill(model, prompt, max_len)
+    if lk.shape != (b, 1, cfg.padded_vocab) or not bool(torch.isfinite(lk).all()):
+        fail(f"{tag}: prefill logits {tuple(lk.shape)}, finite {bool(torch.isfinite(lk).all())}")
+    errs = {"logits.max": rel_err(lp, lk), "logits.l2": rel_l2(lp, lk)}
+    for name in ck[0]:
+        want = torch.stack([p[name] for p in cp])
+        got = torch.stack([k[name] for k in ck])
+        errs[f"cache.{name}.l2"] = rel_l2(want, got)
+        errs[f"cache.{name}.max"] = rel_err(want, got)
+    layer_errs = per_layer_errors(model, prompt, max_len)
+    log(f"[serve] {tag}: prefill, kernel against plain: whole depth {errs}; "
+        f"worst layer from the same input {layer_errs}")
+    bad = {k: v for k, v in layer_errs.items() if not v <= SERVE_LAYER_TOL}
+    if not errs["logits.max"] <= SERVE_MAX_TOL:
+        bad["logits.max"] = errs["logits.max"]
+    if bad:
+        fail(f"{tag}: prefill through the kernels differs from the plain versions "
+             f"{bad} (tolerance {SERVE_LAYER_TOL} a layer, {SERVE_MAX_TOL} for the "
+             f"logits)")
+
+    # time to first token: prefill + argmax, the median of three
+    ttft = {}
+    for backend in ("kernel", "plain"):
+        model.backend = backend
+        ts = sorted(timed(lambda: lm.prefill(model, prompt, max_len)[0][:, -1, :cfg.vocab]
+                          .argmax(-1))[1] for _ in range(3))
+        ttft[backend] = ts[1]
+
+    # the path: generate through the kernels, counts at 0 just before
+    model.backend = "kernel"
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    toks, gen_s = timed(lambda: engine.generate(model, prompt, max_new=new, max_len=max_len))
+    launches = read_counts()                                   # just after
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want[kname] = cfg.n_layers
+    if launches != want:
+        fail(f"{tag}: generate launched {launches}, expected {want} (one "
+             f"{kname} a layer in the prefill, none in decode)")
+    if toks.shape != (b, new) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        fail(f"{tag}: generated tokens {tuple(toks.shape)} outside [0, {cfg.vocab})")
+    reset_counts()
+    lm.decode_step(model, toks[:, :1], ck, torch.full((b,), s + 1, dtype=torch.int32,
+                                                      device=dev))
+    if any(read_counts().values()):
+        fail(f"{tag}: a decode step launched {read_counts()}")
+
+    model.backend = "plain"
+    reset_counts()
+    toks_p, gen_p = timed(lambda: engine.generate(model, prompt, max_new=new, max_len=max_len))
+    if any(read_counts().values()):
+        fail(f"{tag}: the plain backend launched kernels {read_counts()}")
+
+    # teacher-forced: both fed the kernel run's tokens
+    model.backend = "kernel"
+    fk = engine.teacher_forced_logits(model, prompt, toks, max_len=max_len)
+    model.backend = "plain"
+    fp = engine.teacher_forced_logits(model, prompt, toks, max_len=max_len)
+    errs["forced_logits.l2"] = rel_l2(fp, fk)
+    errs["forced_logits.max"] = rel_err(fp, fk)
+    top2 = fp.float().topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > SERVE_MAX_TOL * float(fp.float().abs().max())
+    agree_k = bool((fk.argmax(-1)[decided] == toks[decided]).all())
+    agree_p = bool((fp.argmax(-1)[decided] == toks[decided]).all())
+    if not (errs["forced_logits.max"] <= SERVE_MAX_TOL and agree_k and agree_p
+            and bool(decided.any())):
+        fail(f"{tag}: teacher-forced logits error {errs['forced_logits.max']} (tolerance "
+             f"{SERVE_MAX_TOL}); tokens agree where the margin decides: kernel "
+             f"{agree_k}, plain {agree_p} ({int(decided.sum())} of {decided.numel()} "
+             f"decided)")
+    same = int((toks_p == toks).all(dim=1).sum())
+    rate = {k: b * new / (g - ttft[k]) for k, g in (("kernel", gen_s), ("plain", gen_p))}
+    log(f"[serve] {tag}: launches {kname} {launches[kname]} (0 in decode); TTFT kernel "
+        f"{ttft['kernel'] * 1e3:.2f} ms, plain {ttft['plain'] * 1e3:.2f} ms; decode "
+        f"kernel {rate['kernel']:.1f} tok/s, plain {rate['plain']:.1f} tok/s; generate "
+        f"{gen_s:.3f} s (plain {gen_p:.3f} s); peak memory {peak / 2**30:.3f} GiB; "
+        f"errors vs plain {errs}; {int(decided.sum())}/{decided.numel()} tokens decided "
+        f"by the margin, all agree; {same}/{b} rows of greedy tokens identical")
+    return dict(launches=launches[kname], ttft_ms=ttft["kernel"] * 1e3,
+                ttft_plain_ms=ttft["plain"] * 1e3, decode_tok_s=rate["kernel"],
+                decode_tok_s_plain=rate["plain"], generate_s=gen_s,
+                generate_plain_s=gen_p, peak_bytes=peak, errors=errs,
+                decided=int(decided.sum()), tokens=decided.numel(),
+                rows_identical=same), prompt, max_len
+
+
+def phase_serving(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    results = {}
+    for arch, kname in SERVE_MODELS:
+        cfg = get_config(arch)
+        model, init_s = timed(lambda: lm.LM(
+            cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+        n = sum(p.numel() for p in model.parameters())
+        log(f"[serve] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"{n / 1e6:.1f} M parameters, seeded init on the card in {init_s:.2f} s")
+        for b, s, new in SERVE_REQUESTS:
+            rec, prompt, max_len = serve_request(model, kname, b, s, new, dev)
+            results[f"{arch} B={b} S={s}"] = rec
+            if (b, s, new) == SERVE_REQUESTS[0]:
+                model.backend = "kernel"
+                prof = decode_idle_share(model, prompt, max_len, steps=min(8, new))
+                rec["decode_profile"] = prof
+                log(f"[serve] {arch} B={b}: decode under torch.profiler: "
+                    f"{prof['wall_ms_per_step']:.2f} ms a step, device busy "
+                    f"{prof['busy_ms_per_step']:.3f} ms a step, idle share "
+                    f"{prof['idle_share']}, {prof['kernels_per_step']:.0f} device "
+                    f"kernels a step")
+                for e in prof["top"]:
+                    log(f"[serve]   {e['us_per_step']:9.1f} us/step  x{e['per_step']:6.1f}  "
+                        f"{e['name'][:90]}")
+        del model
+        torch.cuda.empty_cache()
     return results
 
 
@@ -422,6 +818,9 @@ def phase_profile():
 
 def main():
     name, smi_line = phase_device()
+    # f32 products and convolutions in full f32 (TF32 keeps ~3 digits)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build()
     from repro_torch.netsim import scenarios
@@ -434,13 +833,16 @@ def main():
                   N_rr=a2a.dims.N, FMAX_rr=a2a.dims.FMAX)
     log(f"[kernels] main-path shapes {shapes}")
     records = kernel_checks(dev, shapes)
+    records.update(serve_kernel_checks(dev))
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
         sys.exit(4)
     paths = phase_main_path()
     log(f"[kernels] launches: " + ", ".join(
         f"{k}: perm_1024n_3t {paths['perm_1024n_3t']['launches'][k]}, "
-        f"alltoall_3t {paths['alltoall_3t']['launches'][k]}" for k in records))
+        f"alltoall_3t {paths['alltoall_3t']['launches'][k]}" for k in counters()))
+    serving = phase_serving(dev)
+    first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
     replaces = {
         "cc_update": ("src/repro_torch/csrc/cc_update.cu",
@@ -451,15 +853,24 @@ def main():
                        "src/repro/kernels/ring_drain/kernel.py:56", "perm_1024n_3t"),
         "rr_pick": ("src/repro_torch/csrc/rr_pick.cu",
                     "src/repro/kernels/enqueue_arb/kernel.py:91", "alltoall_3t"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+                            "src/repro/kernels/flash_attn/kernel.py:65",
+                            f"serve qwen3-0.6b {first}"),
+        "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                           "src/repro/kernels/ssd_scan/kernel.py:51",
+                           f"serve mamba2-780m {first}"),
     }
     kernels = []
     for k, rec in records.items():
         src, rep, path = replaces[k]
+        launches = (serving[path[len("serve "):]]["launches"] if path.startswith("serve ")
+                    else paths[path]["launches"][k])
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
-            launches=paths[path]["launches"][k], launches_path=path,
+            launches=launches, launches_path=path,
             max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
-            bound_ms=rec["bound_ms"], bound_by="bytes", library_ms=None,
+            bound_ms=rec["bound_ms"], bound_by=rec.get("bound_by", "bytes"),
+            library_ms=rec.get("library_ms"),
             shape=rec["shape"], call_ms=rec["call_ms"],
             plain_call_ms=rec["plain_call_ms"]))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
@@ -475,7 +886,7 @@ def main():
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi_line,
                                        kernels=kernels, end_to_end=e2e,
-                                       profile=prof), indent=1))
+                                       serving=serving, profile=prof), indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

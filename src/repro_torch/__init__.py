@@ -1,10 +1,11 @@
-"""PyTorch/CUDA port of the SMaRTT packet simulator.
+"""PyTorch/CUDA port of the SMaRTT packet simulator and of the model zoo's
+serving path.
 
 Mirrors the layout of the JAX package (``netsim/``, ``core/``,
-``kernels/<name>/{ref,kernel,ops}.py``) so every counterpart is easy to
-find.  The hot-loop kernels are hand-written CUDA C++ for Hopper
-(``csrc/*.cu``), built at first use into ``build/repro_torch/`` at the
-repository root and bound with ``ctypes``.
+``models/``, ``configs/``, ``serve/``, ``kernels/<name>/{ref,kernel,ops}.py``)
+so every counterpart is easy to find.  The kernels are hand-written CUDA
+C++ for Hopper (``csrc/*.cu``), built at first use into
+``build/repro_torch/`` at the repository root and bound with ``ctypes``.
 
 Entry points run on the card unless the caller asks for the CPU::
 
@@ -12,4 +13,10 @@ Entry points run on the card unless the caller asks for the CPU::
     sim = scenarios.scenario("perm_1024n_3t").build()            # cuda
     sim = scenarios.scenario("tiny_perm4").build(device="cpu")   # plain
     st = sim.run(20_000)
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import generate
+    model = LM(get_config("qwen3-0.6b"), generator=g)            # cuda
+    tokens = generate(model, prompt, max_new=32, max_len=545)
 """

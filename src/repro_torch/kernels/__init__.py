@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the tick, each beside its plain version.
+"""Hand-written Hopper kernels (the simulator's tick and the serving
+path's prefill), each beside its plain version.
 
 Every ``kernels/<name>/`` holds ``ref.py`` (the plain PyTorch version,
 which the CPU tests run and the card compares against), ``kernel.py``

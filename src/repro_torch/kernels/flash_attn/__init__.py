@@ -1,0 +1,1 @@
+"""flash_attention kernel: plain version (ref), CUDA wrapper (kernel), dispatch (ops)."""

@@ -1,0 +1,53 @@
+"""Full SSD op = intra-chunk kernel + plain inter-chunk recurrence (the
+JAX package's ``ssd_scan/ops.py``: ``_inter_chunk`` stays plain there
+too; it is bandwidth-trivial beside the chunk products).
+
+``"kernel"`` launches the CUDA kernel for CUDA tensors and takes the
+plain version for CPU tensors; ``"plain"`` always takes the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan import kernel as K
+from repro_torch.kernels.ssd_scan import ref as R
+
+BACKENDS = ("kernel", "plain")
+
+
+def ssd_chunk_scan(x, loga, B, C, *, chunk: int, backend: str = "kernel"):
+    """Intra-chunk pass: ``(y_intra, s_chunk, t_chunk)`` (see ``ref.py``)."""
+    if backend not in BACKENDS:
+        raise KeyError(f"unknown SSD backend {backend!r}; have {BACKENDS}")
+    if build.use_kernel(backend, x):
+        return K.ssd_chunk_scan(x, loga, B, C, chunk=chunk)
+    return R.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk)
+
+
+def _inter_chunk(y_intra, s_chunk, t_chunk, loga, C_mat, chunk):
+    """Combine chunk states and add the cross-chunk correction.
+    Returns (y, final_state [BH, N, P])."""
+    BH, L, P = y_intra.shape
+    NC = L // chunk
+    S = torch.zeros(s_chunk.shape[:1] + s_chunk.shape[2:], device=y_intra.device)
+    prev = []
+    for c in range(NC):
+        prev.append(S)                       # the state *before* chunk c
+        S = t_chunk[:, c, None, None] * S + s_chunk[:, c]
+    prev_states = torch.stack(prev, dim=1)                  # [BH, NC, N, P]
+    # y_inter[t] = exp(L_t) * C_t @ S_prev(chunk(t))
+    Lc = torch.cumsum(loga.reshape(BH, NC, chunk).float(), dim=-1)
+    Cr = C_mat.reshape(BH, NC, chunk, -1).float()
+    y_inter = torch.einsum("bcin,bcnp->bcip", Cr, prev_states) * \
+        torch.exp(Lc)[..., None]
+    return y_intra + y_inter.reshape(BH, L, P), S
+
+
+def ssd_with_state(x, loga, B, C, *, chunk: int, backend: str = "kernel"):
+    """The chunked SSD (``ssd_jnp_with_state``): y ``[BH, L, P]`` and the
+    final state ``[BH, N, P]``, both f32."""
+    y_intra, s_chunk, t_chunk = ssd_chunk_scan(x, loga, B, C, chunk=chunk,
+                                               backend=backend)
+    return _inter_chunk(y_intra, s_chunk, t_chunk, loga, C, chunk)

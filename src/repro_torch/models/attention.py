@@ -1,0 +1,95 @@
+"""GQA self-attention (the JAX package's ``models/attention.py``, serving
+half): the q/k/v projection, prefill attention through the
+``flash_attention`` kernel, and single-token decode attention.
+
+``decode_attention`` stays plain PyTorch, as the JAX package computes it
+outside any Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """Parameters of one GQA attention block, in the JAX package's layout
+    (``wq [d, Hq*Dh]``, ``wk``/``wv [d, Hkv*Dh]``, ``wo [Hq*Dh, d]``)."""
+
+    def __init__(self, cfg, device, generator=None):
+        super().__init__()
+        d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        shapes = {"wq": (d, hq * dh), "wk": (d, hkv * dh), "wv": (d, hkv * dh),
+                  "wo": (hq * dh, d)}
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                L.dense_init(generator, *shape, device), requires_grad=False))
+        if cfg.attn_bias:
+            for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
+                self.register_parameter(name, nn.Parameter(
+                    torch.zeros(n, dtype=L.PARAM_DTYPE, device=device),
+                    requires_grad=False))
+        if cfg.qk_norm:
+            for name in ("q_norm", "k_norm"):
+                self.register_parameter(name, nn.Parameter(
+                    torch.ones(dh, dtype=torch.float32, device=device),
+                    requires_grad=False))
+
+
+def attn_qkv(p, cfg, x, kv_src, positions):
+    """Project to q, k, v (RoPE'd, normed); ``[B, S, H, Dh]`` each."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = x @ p.wq
+    k = kv_src @ p.wk
+    v = kv_src @ p.wv
+    if cfg.attn_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(*x.shape[:-1], hq, dh)
+    k = k.reshape(*kv_src.shape[:-1], hkv, dh)
+    v = v.reshape(*kv_src.shape[:-1], hkv, dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p.q_norm, cfg.rms_eps)
+        k = L.rmsnorm(k, p.k_norm, cfg.rms_eps)
+    if positions is not None:
+        cos, sin = L.rope_freqs(dh, cfg.rope_theta, positions)
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def gqa(q, k, v, *, causal: bool = True, window: int = 0, backend: str = "kernel"):
+    """Prefill attention, q ``[B, S, Hq, D]`` and k/v ``[B, S, Hkv, D]``
+    layout.  The kv heads are read in place by the kernel (the JAX
+    package repeats them first: the same function); the transposes are
+    views, which the kernel takes by their strides."""
+    out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=causal,
+                                    window=window, backend=backend)
+    return out.transpose(1, 2)
+
+
+def decode_attention(q1, k_cache, v_cache, cache_len, *, window: int = 0):
+    """Single-token decode: q1 ``[B, 1, H, D]``; caches ``[B, S, Hkv, D]``;
+    cache_len int ``[B]`` = valid prefix length (includes the new token).
+    The caches are used in their storage dtype, the scores and softmax in
+    f32, as in the JAX package."""
+    b, s, hkv, d = k_cache.shape
+    hq = q1.shape[2]
+    rep = hq // hkv
+    q = (q1[:, 0].float() * (d ** -0.5)).to(k_cache.dtype)
+    qr = q.reshape(b, hkv, rep, d)
+    s_ = torch.einsum("bgrd,bsgd->bgrs", qr, k_cache).float().reshape(b, hq, s)
+    pos = torch.arange(s, device=q1.device)[None, None, :]
+    mask = pos < cache_len[:, None, None]
+    if window > 0:
+        mask &= pos >= cache_len[:, None, None] - window
+    s_ = torch.where(mask, s_, NEG_INF)
+    p = torch.softmax(s_, dim=-1).to(v_cache.dtype)
+    pr = p.reshape(b, hkv, rep, s)
+    out = torch.einsum("bgrs,bsgd->bgrd", pr, v_cache).float().reshape(b, hq, d)
+    return out[:, None].to(q1.dtype)                          # [B, 1, H, D]

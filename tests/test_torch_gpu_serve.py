@@ -1,0 +1,147 @@
+"""PyTorch port on a CUDA card, serving slice: the ``flash_attention`` and
+``ssd_chunk_scan`` kernels against their plain PyTorch versions at the
+model shapes (qwen3-0.6b and mamba2-780m prefill) and at ragged ones
+(Sq != Sk, S=300, chunk < 128, a sliding window, strided views), and a
+reduced model served through the kernels against the same model served
+through the plain versions on the card.
+
+Tolerances: f32 attention 2e-5 and SSD 2e-4 (the order of the sums
+differs only); bf16 attention 2e-2 (one bf16 rounding of the output).
+
+Every test is marked ``gpu`` and skips without a card; whether there is
+one is decided inside the fixture.  This file imports no JAX, so it runs
+on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_serve.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attn import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attn import ref as FR  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as SK  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as SR  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+FLASH_F32_TOL = 2e-5
+FLASH_BF16_TOL = 2e-2
+SSD_TOL = 2e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+# (b, hq, hkv, sq, sk, d, causal, window, dtype)
+FLASH_CASES = [
+    (4, 16, 8, 512, 512, 128, True, 0, torch.bfloat16),     # qwen3-0.6b prefill
+    (2, 16, 8, 300, 300, 128, True, 0, torch.bfloat16),     # ragged prompt
+    (4, 16, 8, 512, 512, 128, True, 0, torch.float32),
+    (1, 2, 2, 128, 128, 64, True, 64, torch.float32),
+    (1, 2, 1, 100, 300, 16, True, 0, torch.float32),
+    (1, 2, 2, 130, 70, 32, True, 0, torch.float32),
+    (2, 4, 2, 1, 77, 16, True, 0, torch.float32),
+    (1, 2, 1, 300, 300, 64, True, 50, torch.float32),
+    (1, 2, 2, 70, 130, 16, False, 0, torch.float32),
+    (1, 2, 2, 90, 200, 48, False, 40, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    b, hq, hkv, sq, sk, d, causal, win, dt = case
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk)
+    # the model's layout: [B, S, H, D] storage read through transposed views
+    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(dt).transpose(1, 2)
+    k = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dt).transpose(1, 2)
+    v = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dt).transpose(1, 2)
+    n0 = FK.flash_attention.launches
+    out = FK.flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches == n0 + 1
+    ref = FR.flash_attention_ref(q, k, v, causal=causal, window=win)
+    assert out.dtype == dt and out.shape == ref.shape
+    tol = FLASH_F32_TOL if dt == torch.float32 else FLASH_BF16_TOL
+    assert _err(out, ref) <= tol
+    if dt == torch.float32:
+        assert _err(out, FR.attention_ref(q, k, v, causal=causal, window=win)) <= tol
+
+
+# (BH, L, P, N, chunk, B/C dtype)
+SSD_CASES = [
+    (192, 512, 64, 128, 128, torch.bfloat16),   # mamba2-780m prefill, B=4, S=512
+    (96, 384, 64, 128, 128, torch.bfloat16),    # B=2, S=300 padded to 3 chunks
+    (2, 64, 16, 32, 16, torch.float32),
+    (1, 128, 64, 128, 32, torch.float32),
+    (3, 96, 8, 16, 48, torch.float32),
+    (4, 100, 64, 128, 100, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_chunk_scan_kernel_matches_plain(cuda, case):
+    bh, L, P, N, chunk, dt = case
+    g = torch.Generator(device=cuda).manual_seed(L + N)
+    x = torch.randn((bh, L, P), generator=g, device=cuda) * 0.5
+    loga = -torch.randn((bh, L), generator=g, device=cuda).abs() * 0.3
+    B = (torch.randn((bh, L, N), generator=g, device=cuda) * 0.3).to(dt)
+    C = (torch.randn((bh, L, N), generator=g, device=cuda) * 0.3).to(dt)
+    n0 = SK.ssd_chunk_scan.launches
+    got = SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SK.ssd_chunk_scan.launches == n0 + 1
+    for a, b in zip(got, SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk)):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert _err(a, b) <= SSD_TOL
+
+
+def test_wrappers_refuse_bad_operands(cuda):
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        FK.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        FK.flash_attention(q, q.half(), q)
+    x = torch.zeros((2, 64, 16), device=cuda)
+    la = torch.zeros((2, 64), device=cuda)
+    b = torch.zeros((2, 64, 8), device=cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        SK.ssd_chunk_scan(x, la, b, b, chunk=48)
+    with pytest.raises(ValueError, match="on cpu"):
+        SK.ssd_chunk_scan(x, la.cpu(), b, b, chunk=16)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-780m"])
+def test_reduced_model_serves_through_the_kernels(cuda, arch):
+    """generate through the kernels: one kernel launch per layer in the
+    prefill, none in decode; prefill logits within 2e-2 (relative to the
+    largest) of the plain versions' on the card."""
+    cfg = get_config(arch, reduced=True)
+    model = lm.LM(cfg, generator=torch.Generator(device=cuda).manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab, (2, 37), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    fn = FK.flash_attention if arch.startswith("qwen3") else SK.ssd_chunk_scan
+    other = SK.ssd_chunk_scan if fn is FK.flash_attention else FK.flash_attention
+    fn.launches = other.launches = 0
+    toks = engine.generate(model, prompt, max_new=5, max_len=43)
+    torch.cuda.synchronize()
+    assert (fn.launches, other.launches) == (cfg.n_layers, 0)
+    assert toks.shape == (2, 5) and toks.device.type == "cuda"
+    got, _, _ = lm.prefill(model, prompt, 43)
+    model.backend = "plain"
+    want, _, _ = lm.prefill(model, prompt, 43)
+    assert fn.launches == 2 * cfg.n_layers      # generate, then one prefill
+    err = _err(got.float(), want.float()) / float(want.float().abs().max())
+    assert err <= 2e-2

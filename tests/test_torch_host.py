@@ -160,6 +160,15 @@ def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def test_import_hygiene_covers_every_slice():
+    """The scan below reaches the simulator's packages and the serving
+    slice's (``models/``, ``configs/``, ``serve/``, the two new kernels)."""
+    rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in _port_files()[:-1]}
+    for pkg in ("netsim", "core", "kernels", "models", "configs", "serve",
+                "kernels/flash_attn", "kernels/ssd_scan"):
+        assert any(r.startswith(pkg + "/") for r in rel), pkg
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_nothing_of_the_reference(path):
     tree = ast.parse(path.read_text())
