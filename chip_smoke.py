@@ -11,7 +11,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                in parallel) into build/repro_torch/, print the build time
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card at its paths' shapes plus ragged and edge cases: the
-               four simulator kernels bit for bit; flash_attention within
+               five simulator kernels bit for bit; flash_attention within
                2e-5 (f32) / 2e-2 (bf16) and ssd_chunk_scan within 2e-4.
                Device times of kernel and plain version (CUDA-graph
                replay) beside the least time the card could take (bytes
@@ -23,6 +23,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                counts reset just before each run and read just after; the
                final states equal to the plain-on-card and CPU runs
                field by field; the summaries equal to the JAX reference's
+  4b. red_mark — the first 300 ticks of perm_1024n_3t on the card, the
+               red_mark kernel beside every tick's departures: its marks
+               equal to the flip departures applies (fabric.red_marks on
+               the active queues), its admitted counts equal to what the
+               arrivals phase enqueues into each queue, its trims to the
+               trims the tick counts
+  4c. comparison — the paper's comparison paths through the kernels:
+               perm_1024n_3t under swift, mprdma and eqds (EQDS grants
+               through rr_pick), incast_256x1_3t under eqds, the failover
+               runs corefail_128n_3t (without and with the recovery knobs)
+               and flap_128n_3t, and the collective allreduce_ring_128n_3t
+               (32 512 flows behind the dependency gate).  Each runs whole
+               through the kernels, launch counts reset just before and
+               read just after (cc_update for SMaRTT only, rr_pick where
+               grants or several flows a sender need it); the summary
+               equal to the JAX reference's; the final state equal to the
+               plain-on-card run and to the CPU port's, each over the
+               prefix of ticks COMPARISON_RUNS states
   5. serving — qwen3-0.6b (28 layers) and mamba2-780m (48 layers) at full
                width from a seeded init on the card, each serving two
                requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
@@ -70,7 +88,65 @@ REFERENCE = {
     "alltoall_3t": dict(ticks=401, n_done=992, fct_max=417,
                         fct_mean=221.60685483870967, trims=0, retx=0,
                         timeouts=0, acks=7877),
+    # the comparison runs (phase 4c), pinned by tests/test_torch_pins_*.py
+    "perm_1024n_3t/swift": dict(ticks=567, n_done=1024, fct_max=583,
+                                fct_mean=361.171875, trims=12536, retx=12536,
+                                timeouts=0, acks=65532),
+    "perm_1024n_3t/mprdma": dict(ticks=507, n_done=1024, fct_max=523,
+                                 fct_mean=255.7119140625, trims=12390,
+                                 retx=12390, timeouts=0, acks=65529),
+    "perm_1024n_3t/eqds": dict(ticks=279, n_done=1024, fct_max=295,
+                               fct_mean=197.875, trims=23850, retx=23850,
+                               timeouts=0, acks=65344),
+    "incast_256x1_3t/eqds": dict(ticks=2055, n_done=256, fct_max=2071,
+                                 fct_mean=1677.36328125, trims=9729,
+                                 retx=9729, timeouts=0, acks=2031),
+    "corefail_128n_3t": dict(ticks=6000, n_done=127, fct_max=1863,
+                             fct_mean=1009.1023622047244, trims=4246,
+                             retx=4386, timeouts=145, acks=32660,
+                             blackholed=146, delivered_bytes_fault=71446528.0),
+    "corefail_128n_3t/recovery": dict(ticks=3616, n_done=128, fct_max=3632,
+                                      fct_mean=1044.6953125, trims=4219,
+                                      retx=4332, timeouts=113, acks=32751,
+                                      blackholed=113,
+                                      delivered_bytes_fault=71888896.0),
+    "flap_128n_3t": dict(ticks=4363, n_done=128, fct_max=4379,
+                         fct_mean=1071.4609375, trims=4226, retx=4479,
+                         timeouts=253, acks=32767, blackholed=253,
+                         delivered_bytes_fault=39952384.0),
+    "allreduce_ring_128n_3t": dict(ticks=3877, n_done=32512, fct_max=3893,
+                                   fct_mean=1961.375, trims=0, retx=0,
+                                   timeouts=0, acks=258888, cct=3893),
 }
+
+# The comparison runs: (key in REFERENCE, scenario, overrides, kernels on
+# the path, plain-on-card prefix, CPU prefix).  Every run goes whole
+# through the kernels; its final state is held to the plain-on-card run
+# over the whole run (prefix None) or its first `prefix` ticks, and to the
+# CPU port over its first `cpu prefix` ticks (the CPU is 2-20x slower).
+# The fault prefixes cross the first failure (corefail: t = 500; flap:
+# its first down stretch starts at t = 500).
+RECOVERY = dict(rto_backoff_max=2, evict_on_timeout=True)   # benchmarks/failover.py
+COMPARISON_RUNS = (
+    ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"),
+     ("enqueue_rank", "ring_drain"), None, 150),
+    ("perm_1024n_3t/mprdma", "perm_1024n_3t", dict(algo="mprdma"),
+     ("enqueue_rank", "ring_drain"), None, 150),
+    ("perm_1024n_3t/eqds", "perm_1024n_3t", dict(algo="eqds"),
+     ("enqueue_rank", "ring_drain", "rr_pick"), None, 150),
+    ("incast_256x1_3t/eqds", "incast_256x1_3t", dict(algo="eqds"),
+     ("enqueue_rank", "ring_drain", "rr_pick"), 300, 300),
+    ("corefail_128n_3t", "corefail_128n_3t", {},
+     ("cc_update", "enqueue_rank", "ring_drain"), 540, 540),
+    ("corefail_128n_3t/recovery", "corefail_128n_3t", RECOVERY,
+     ("cc_update", "enqueue_rank", "ring_drain"), 540, 540),
+    ("flap_128n_3t", "flap_128n_3t", {},
+     ("cc_update", "enqueue_rank", "ring_drain"), 540, 540),
+    ("allreduce_ring_128n_3t", "allreduce_ring_128n_3t", {},
+     ("cc_update", "enqueue_rank", "ring_drain", "rr_pick"), 100, 100),
+)
+RED_MARK_TICKS = 300      # phase 4b: queues load and trims begin by then
+PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
 
 
 def log(*a):
@@ -196,6 +272,7 @@ def kernel_checks(dev, shapes):
     from repro_torch.kernels import cases
     from repro_torch.kernels.cc_update import kernel as CK, ref as CR
     from repro_torch.kernels.enqueue_arb import kernel as EK, ref as ER
+    from repro_torch.kernels.red_mark import kernel as RK, ref as RR
     from repro_torch.kernels.ring_drain import kernel as DK, ref as DR
 
     def on(a):
@@ -284,6 +361,33 @@ def kernel_checks(dev, shapes):
         **timings(lambda: EK.rr_pick(elig, rr, kmax=K),
                   lambda: ER.rr_pick_ref(elig, rr, kmax=K)))
 
+    # ---- red_mark (the thresholds as device scalars for the plain
+    # version: CUDA divides by a Python scalar as a multiply by its
+    # reciprocal; the kernel takes them by value)
+    Q = shapes["NQ"]
+    kmin, kmax = cases.RED_KMIN, cases.RED_KMAX
+    kmin_d, kmax_d = (torch.tensor(v, dtype=torch.float32, device=dev)
+                      for v in (kmin, kmax))
+    err = 0.0
+    for (q_, tick, salt, lo, hi), seed in (
+            ((1, 0, 0xECD, kmin, kmax), 1), ((5, 17, 0xECD, kmin, kmax), 2),
+            ((130, 65535, -7, 5.2, 20.8), 3), ((Q, 120000, 0xECD, kmin, kmax), 4),
+            ((Q, 2 ** 24 + 1, 2 ** 24 + 3, kmin, kmax), 5),
+            ((Q, 99, 0xECD, 20.0, 20.0), 6)):
+        c = cases.red_mark_case(q_, seed)
+        qs, ar = on(c["q_size"]), on(c["arrivals"])
+        lo_d, hi_d = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (lo, hi))
+        k = RK.red_mark(qs, ar, cap=c["cap"], kmin=lo, kmax=hi, tick=tick, salt=salt)
+        r = RR.red_mark_ref(qs, ar, c["cap"], lo_d, hi_d, tick, salt)
+        err = max(err, check("red_mark", k, r, f"[{q_}] tick={tick}"))
+    c = cases.red_mark_case(Q, 7)
+    qs, ar, cap = on(c["q_size"]), on(c["arrivals"]), c["cap"]
+    records["red_mark"] = dict(
+        shape=f"[{Q}]", max_abs_err=err, bytes=Q * 17,
+        **timings(lambda: RK.red_mark(qs, ar, cap=cap, kmin=kmin, kmax=kmax, tick=77,
+                                      salt=0xECD),
+                  lambda: RR.red_mark_ref(qs, ar, cap, kmin_d, kmax_d, 77, 0xECD)))
+
     for name, rec in records.items():
         rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         log(f"[kernels] {name:12s} {rec['shape']:>11s}: bit-equal to plain "
@@ -301,29 +405,34 @@ def kernel_checks(dev, shapes):
 def counters():
     from repro_torch.kernels.cc_update import kernel as CK
     from repro_torch.kernels.enqueue_arb import kernel as EK
+    from repro_torch.kernels.red_mark import kernel as RK
     from repro_torch.kernels.ring_drain import kernel as DK
     return {"cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
-            "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick}
+            "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick,
+            "red_mark": RK.red_mark}
 
 
-def run_path(name, device, backend):
+def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
+    """Run a scenario (with config ``overrides``) on ``device`` through the
+    ``backend``, to completion or ``max_ticks``; launch counts reset just
+    before the run and read just after."""
     from repro_torch.netsim import scenarios
     from repro_torch.netsim.metrics import summarize
     sc = scenarios.scenario(name, cc_backend=backend, fabric_backend=backend,
-                            transport_backend=backend)
+                            transport_backend=backend, **overrides)
     sim = sc.build(device=device)
     if device == "cuda":
         torch.cuda.synchronize()
     reset_counts()                               # just before the run
     t0 = time.perf_counter()
-    st = sim.run(sc.max_ticks)
+    st = sim.run(sc.max_ticks if max_ticks is None else max_ticks)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()                                      # just after
     summ = summarize(sim, st)
     steps = sim.stats["steps"]
-    log(f"[main] {name:14s} {device:4s} {backend:6s}: {summ['ticks']} ticks "
+    log(f"[main] {tag or name:14s} {device:4s} {backend:6s}: {summ['ticks']} ticks "
         f"({steps} executed) in {wall:.3f} s = {summ['ticks'] / wall:.1f} ticks/s; "
         f"fct_max {summ['fct_max']} fct_mean {summ['fct_mean']} "
         f"trims {summ['trims']}; launches {launches}")
@@ -363,6 +472,132 @@ def phase_main_path():
             f"runs ({len(list(leaves(st_k)))} leaves); summary equals the JAX reference")
         results[name] = dict(launches=launches, steps=steps, ticks=summ["ticks"],
                              wall=wall, wall_plain=wall_p, wall_cpu=wall_c)
+    return results
+
+
+# ------------------------------------------------------- 4b. red_mark
+
+
+def phase_red_mark(dev):
+    """perm_1024n_3t's first RED_MARK_TICKS ticks on the card, phase by
+    phase, with the red_mark kernel beside each tick's departures and
+    arrivals: its mark must equal the flip departures applies
+    (``fabric.red_marks`` on the active queues), its admitted counts the
+    packets arrivals enqueues into each queue, its trims the tick's trims.
+    Counts reset just before the drive and read just after."""
+    from repro_torch.kernels.red_mark.ops import red_mark_op
+    from repro_torch.netsim import fabric, scenarios
+    sc = scenarios.scenario("perm_1024n_3t")
+    sim = sc.build(device=dev)
+    d, c = sim.dims, sim.consts
+    NQ, L = d.NQ, d.L
+    kmax = c.kmin + c.kspan
+    if float(c.kspan) != max(float(kmax) - float(c.kmin), 1e-6):
+        fail("red_mark: kspan differs from the kernel's max(kmax - kmin, 1e-6)")
+    st = sim.init()
+    marked = trimmed = 0
+    torch.cuda.synchronize()
+    reset_counts()                                           # just before
+    t0 = time.perf_counter()
+    for t in range(RED_MARK_TICKS):
+        clk = sim.clock0._replace(t=t)
+        for name, phase in sim.phases:
+            if name == "departures":
+                q = st.q_size[:NQ]
+                flip = fabric.red_marks(d, c, st, t) & (q > 0)
+                mark, _, _ = red_mark_op(q, torch.zeros_like(q), cap=d.CAP, kmin=c.kmin,
+                                         kmax=kmax, tick=t, salt=0xECD + st.salt)
+                if not torch.equal(mark, flip):
+                    fail(f"red_mark: marks differ from departures' flip at tick {t} "
+                         f"({int((mark != flip).sum())} queues)")
+                marked += int(mark.sum())
+            if name == "arrivals":
+                # this tick's enqueue attempts per queue, after departures
+                earr = st.infl[t % L][c.enq_ids]
+                dq = earr[:, 1][(earr[:, 0] == 1) & (earr[:, 1] >= 0)]
+                arr_q = torch.bincount(dq.long(), minlength=NQ)[:NQ].to(torch.int32)
+                q1, n_trim = st.q_size[:NQ].clone(), int(st.m.n_trim)
+                _, admit, trim = red_mark_op(q1, arr_q, cap=d.CAP, kmin=c.kmin, kmax=kmax,
+                                             tick=t, salt=0xECD + st.salt)
+            st = phase(c, st, clk)
+            if name == "arrivals":
+                if not torch.equal(admit, st.q_size[:NQ] - q1) or \
+                        int(trim.sum()) != int(st.m.n_trim) - n_trim:
+                    fail(f"red_mark: admitted / trimmed counts differ from the "
+                         f"arrivals phase at tick {t}")
+                trimmed += int(trim.sum())
+        st = st._replace(now=st.now + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()["red_mark"]                     # just after
+    if launches != 2 * RED_MARK_TICKS or not marked or not trimmed:
+        fail(f"red_mark: {launches} launches, {marked} marks, {trimmed} trims "
+             f"over {RED_MARK_TICKS} ticks")
+    log(f"[red_mark] perm_1024n_3t ticks 0-{RED_MARK_TICKS - 1} on the card: the "
+        f"kernel's marks equal departures' flip on every queue of every tick "
+        f"({marked} marks), its admitted and trimmed counts equal the arrivals "
+        f"phase's ({trimmed} trims); {launches} launches; {wall:.2f} s")
+    return dict(launches=launches, marks=marked, trims=trimmed, wall=wall)
+
+
+# ----------------------------------------------------- 4c. comparison runs
+
+
+def phase_comparison(smartt_ticks_per_s):
+    """The paper's comparison paths (COMPARISON_RUNS), each whole through
+    the kernels on the card, held to the JAX reference's summary and, over
+    the stated prefixes, to the plain-on-card run and the CPU port."""
+    results = {}
+    for key, name, ov, on_path, prefix, cpu_prefix in COMPARISON_RUNS:
+        sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel", tag=key, **ov)
+        steps = sim.stats["steps"]
+        want = {k: (steps if k in on_path else 0) for k in launches}
+        if launches != want:
+            fail(f"{key}: launches {launches}, expected {want} over {steps} executed ticks")
+        ref = REFERENCE[key]
+        if "cct" in ref:
+            fin = torch.as_tensor(sim.wl.t_start, dtype=torch.int64) + \
+                torch.from_numpy(summ["fct_ticks"]).long()
+            summ["cct"] = int(fin.max()) - int(sim.wl.t_start.min())
+        for k, v in ref.items():
+            if summ[k] != v:
+                fail(f"{key}: {k} = {summ[k]}, the JAX reference gives {v}")
+        for n, a in leaves(st_k):
+            if a.is_floating_point() and not bool(torch.isfinite(a).all()):
+                fail(f"{key}: non-finite values in {n}")
+        # the same run through the plain versions on the card, and the CPU
+        # port, each against a kernel run to the same tick
+        kern = {None: st_k}
+        for p in {prefix, cpu_prefix}:
+            if p not in kern:
+                kern[p] = run_path(name, "cuda", "kernel", max_ticks=p,
+                                   tag=f"{key}[:{p}]", **ov)[1]
+        _, st_p, summ_p, launches_p, wall_p = run_path(
+            name, "cuda", "plain", max_ticks=prefix, tag=key, **ov)
+        if any(launches_p.values()):
+            fail(f"{key}: the plain backend launched kernels {launches_p}")
+        _, st_c, _, _, wall_c = run_path(name, "cpu", "kernel", max_ticks=cpu_prefix,
+                                         tag=key, **ov)
+        for other, p, label in ((st_p, prefix, "plain on the card"),
+                                (st_c, cpu_prefix, "CPU")):
+            bad = [n for (n, a), (_, b) in zip(leaves(kern[p]), leaves(other))
+                   if not bit_equal(a, b)]
+            if bad:
+                fail(f"{key}: state at tick {int(other.now)} differs from the {label} "
+                     f"run in {bad}")
+        plain_ticks = summ_p["ticks"]
+        rate = summ["ticks"] / wall
+        log(f"[compare] {key}: summary equals the JAX reference; final state "
+            f"bit-equal to the plain-on-card run ({'whole' if prefix is None else f'first {prefix} ticks'}) "
+            f"and the CPU port (first {cpu_prefix} ticks); {rate:.1f} ticks/s through "
+            f"the kernels (SMaRTT perm_1024n_3t {smartt_ticks_per_s:.1f}), plain "
+            f"{plain_ticks / wall_p:.1f}; launches {launches}")
+        results[key] = dict(launches=launches, steps=steps, ticks=summ["ticks"],
+                            wall=wall, ticks_per_s=rate,
+                            plain_ticks=plain_ticks, plain_ticks_per_s=plain_ticks / wall_p,
+                            cpu_ticks=cpu_prefix, cpu_ticks_per_s=cpu_prefix / wall_c,
+                            blackholed=summ["blackholed"],
+                            delivered_bytes_fault=summ["delivered_bytes_fault"])
     return results
 
 
@@ -748,7 +983,8 @@ def phase_serving(dev):
 
 def phase_profile():
     """Where perm_1024n_3t's time goes on the card: each phase's wall time
-    with a synchronize after it (a whole run; this scenario never leaps),
+    with a synchronize after it over the first PROFILE_TICKS ticks (the
+    queues load and trims start within them; this scenario never leaps),
     then a torch.profiler window of 200 ticks for the device's busy share
     and its kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -760,7 +996,7 @@ def phase_profile():
     per = {name: 0.0 for name, _ in sim.phases}
     t = 0
     torch.cuda.synchronize()
-    while t < sc.max_ticks and not bool(st.done.all()):
+    while t < PROFILE_TICKS and not bool(st.done.all()):
         clk = sim.clock0._replace(t=t)
         for name, phase in sim.phases:
             t0 = time.perf_counter()
@@ -770,9 +1006,10 @@ def phase_profile():
         st = st._replace(now=st.now + 1)
         t += 1
     total = sum(per.values())
+    per_tick = {k: v / t * 1e3 for k, v in per.items()}     # ms a tick
     log(f"[profile] perm_1024n_3t phases over {t} ticks (synchronized after "
         f"each phase): " + ", ".join(
-            f"{k} {v / t * 1e3:.3f} ms/tick ({100 * v / total:.1f}%)"
+            f"{k} {per_tick[k]:.3f} ms/tick ({100 * v / total:.1f}%)"
             for k, v in per.items()))
 
     st = sim.init()
@@ -804,7 +1041,7 @@ def phase_profile():
     for e in top:
         log(f"[profile]   {dev_us(e) / ticks:9.3f} us/tick  x{e.count / ticks:5.2f}  "
             f"{e.key[:90]}")
-    return dict(phase_ms_per_tick={k: v / t * 1e3 for k, v in per.items()},
+    return dict(phase_ms_per_tick=per_tick,
                 wall_ms_per_tick=wall / ticks * 1e3,
                 device_busy_ms_per_tick=busy / ticks * 1e3,
                 idle_share=1 - busy / wall if busy else None,
@@ -837,11 +1074,22 @@ def main():
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
         sys.exit(4)
-    paths = phase_main_path()
+    spent = {"build+kernels": time.perf_counter() - t0}
+
+    def timed_phase(name, fn, *a):
+        t1 = time.perf_counter()
+        out = fn(*a)
+        spent[name] = time.perf_counter() - t1
+        return out
+
+    paths = timed_phase("main", phase_main_path)
     log(f"[kernels] launches: " + ", ".join(
         f"{k}: perm_1024n_3t {paths['perm_1024n_3t']['launches'][k]}, "
         f"alltoall_3t {paths['alltoall_3t']['launches'][k]}" for k in counters()))
-    serving = phase_serving(dev)
+    red = timed_phase("red_mark", phase_red_mark, dev)
+    smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
+    comparison = timed_phase("comparison", phase_comparison, smartt_rate)
+    serving = timed_phase("serving", phase_serving, dev)
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
     replaces = {
@@ -853,6 +1101,9 @@ def main():
                        "src/repro/kernels/ring_drain/kernel.py:56", "perm_1024n_3t"),
         "rr_pick": ("src/repro_torch/csrc/rr_pick.cu",
                     "src/repro/kernels/enqueue_arb/kernel.py:91", "alltoall_3t"),
+        "red_mark": ("src/repro_torch/csrc/red_mark.cu",
+                     "src/repro/kernels/red_mark/kernel.py:42",
+                     f"red_mark check (perm_1024n_3t, ticks 0-{RED_MARK_TICKS - 1})"),
         "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
                             "src/repro/kernels/flash_attn/kernel.py:65",
                             f"serve qwen3-0.6b {first}"),
@@ -864,6 +1115,7 @@ def main():
     for k, rec in records.items():
         src, rep, path = replaces[k]
         launches = (serving[path[len("serve "):]]["launches"] if path.startswith("serve ")
+                    else red["launches"] if k == "red_mark"
                     else paths[path]["launches"][k])
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
@@ -878,14 +1130,21 @@ def main():
                    plain_ticks_per_s=v["ticks"] / v["wall_plain"],
                    cpu_ticks_per_s=v["ticks"] / v["wall_cpu"])
            for k, v in paths.items()}
+    for k, v in comparison.items():
+        e2e[k] = dict(ticks=v["ticks"], executed=v["steps"], ticks_per_s=v["ticks_per_s"],
+                      plain_ticks_per_s=v["plain_ticks_per_s"],
+                      plain_over_ticks=v["plain_ticks"],
+                      cpu_ticks_per_s=v["cpu_ticks_per_s"], cpu_over_ticks=v["cpu_ticks"])
     log(f"[main] end to end: {json.dumps(e2e)}")
-    prof = phase_profile()
-    log(f"[done] total {time.perf_counter() - t0:.1f} s")
+    prof = timed_phase("profile", phase_profile)
+    log(f"[done] total {time.perf_counter() - t0:.1f} s; by phase " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in spent.items()))
     if "--json" in sys.argv[1:]:
         out = Path(sys.argv[sys.argv.index("--json") + 1])
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi_line,
                                        kernels=kernels, end_to_end=e2e,
+                                       red_mark_check=red, comparison=comparison,
                                        serving=serving, profile=prof), indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,27 +2,30 @@
 
 Backends:
   ``kernel`` — the hand-written CUDA ``kernels/cc_update`` kernel for a
-               CUDA state; the plain version for a CPU state (that is how
-               the CPU tests run).  The default.
+               CUDA state and its plain version for a CPU state (that is
+               how the CPU tests run).  The default.  Only SMaRTT has a
+               kernel, as in the reference (whose Pallas backend covers
+               SMaRTT alone); for every other algorithm ``kernel`` runs
+               its plain update on any device.
   ``plain``  — the plain PyTorch update on any device (the card's
                reference run compares the kernel against it).
-
-Only SMaRTT is ported so far.  The reference's baselines are listed so
-that asking for one fails with a ``KeyError`` that names what is missing
-instead of silently running something else.
 """
 
 from __future__ import annotations
 
+from repro_torch.core import baselines
 from repro_torch.core.smartt import smartt_update
 
 ALGORITHMS = {
     "smartt": smartt_update,
+    "swift": baselines.swift_update,
+    "mprdma": baselines.mprdma_update,
+    "bbr": baselines.bbr_update,
+    "eqds": baselines.eqds_update,
+    "eqds_smartt": baselines.eqds_smartt_update,
+    "ecn_only": baselines.ecn_only_update,
+    "delay_only": baselines.delay_only_update,
 }
-
-# the reference's other algorithms, still to be ported
-UNPORTED = ("swift", "mprdma", "bbr", "eqds", "eqds_smartt", "ecn_only",
-            "delay_only")
 
 # algorithms whose transmission is gated by receiver credits
 CREDIT_BASED = {"eqds", "eqds_smartt"}
@@ -44,14 +47,10 @@ KERNEL_ALGORITHMS = {
 
 
 def get(name: str, cc_backend: str = "kernel"):
-    if name in UNPORTED:
-        raise KeyError(
-            f"CC algorithm {name!r} is not ported to repro_torch yet; "
-            f"ported: {sorted(ALGORITHMS)}")
     if name not in ALGORITHMS:
         raise KeyError(f"unknown CC algorithm {name!r}; have {sorted(ALGORITHMS)}")
     if cc_backend == "plain":
         return ALGORITHMS[name]
     if cc_backend == "kernel":
-        return KERNEL_ALGORITHMS[name]
+        return KERNEL_ALGORITHMS.get(name, ALGORITHMS[name])
     raise KeyError(f"unknown cc backend {cc_backend!r}; have {BACKENDS}")

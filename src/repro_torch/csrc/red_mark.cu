@@ -1,0 +1,78 @@
+// RED dequeue-marking coin flip and trim admission over every port queue
+// (paper Sec. 2.1 and 3.3).
+//
+// Replaces the TPU kernel src/repro/kernels/red_mark/kernel.py:42
+// `red_mark` (pl.pallas_call at :57), whose body is
+// repro/kernels/red_mark/ref.py:9 `red_mark_ref`.
+//
+// Bound on an H100: memory, nominally.  Per queue it reads two i32 and
+// writes a bool and two i32 (17 B): about 39 KB at perm_1024n_3t's
+// Q = 2304, or 0.012 us at 3.35 TB/s.  Launch latency sets its time.
+//
+// Design: one thread per queue; the (8, 128) tile padding of the TPU
+// kernel is dropped and the global queue index is the thread's own.  The
+// splitmix32 hash runs natively in uint32 (the reference's lanes,
+// repro/netsim/hashing.py:38-44): the first lane tick * 131071 + q wraps
+// modulo 2^32 as the reference's i32 product does, computed unsigned
+// because signed overflow is undefined in C++.  uint32 -> f32 rounds to
+// nearest, as astype(float32) does.  The probability is an IEEE divide
+// (built without --use_fast_math, and --fmad=false contracts nothing), so
+// every decision is bit-equal to the plain PyTorch version.  tick and salt
+// arrive as i32, as the reference's ref takes them (its Pallas kernel packs
+// them into an f32 row, which rounds them from 2^24 on).
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+__device__ __forceinline__ uint32_t mix32(uint32_t x) {
+    x ^= x >> 16;
+    x *= 0x85EBCA6Bu;
+    x ^= x >> 13;
+    x *= 0xC2B2AE35u;
+    x ^= x >> 16;
+    return x;
+}
+
+__device__ __forceinline__ uint32_t hash2(uint32_t a, uint32_t b) {
+    return mix32(a * 0x9E3779B9u + mix32(b));
+}
+
+__global__ void red_mark_kernel(const int* __restrict__ q_size,
+                                const int* __restrict__ arrivals,
+                                bool* __restrict__ mark,
+                                int* __restrict__ admit,
+                                int* __restrict__ trim,
+                                int n, int cap, float kmin, float kmax,
+                                uint32_t tick, uint32_t salt) {
+    const int q = blockIdx.x * blockDim.x + threadIdx.x;
+    if (q >= n) return;
+    const int qs = q_size[q];
+    const float span = fmax_t(kmax - kmin, 1e-6f);
+    const float p = fmin_t(fmax_t(((float)qs - kmin) / span, 0.0f), 1.0f);
+    const uint32_t h = mix32(hash2(tick * 131071u + (uint32_t)q, salt));
+    const float u = __uint2float_rn(h) * (1.0f / 4294967296.0f);
+    mark[q] = (u < p) && (qs > 0);
+    const int space = cap - qs > 0 ? cap - qs : 0;
+    const int a = arrivals[q];
+    const int ad = a < space ? a : space;
+    admit[q] = ad;
+    trim[q] = a - ad;
+}
+
+}  // namespace
+
+REPRO_EXPORT int repro_red_mark(const int* q_size, const int* arrivals,
+                                bool* mark, int* admit, int* trim, int n,
+                                int cap, float kmin, float kmax, int tick,
+                                int salt, void* stream) {
+    constexpr int kThreads = 256;
+    if (n > 0) {
+        red_mark_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                          (cudaStream_t)stream>>>(
+            q_size, arrivals, mark, admit, trim, n, cap, kmin, kmax,
+            (uint32_t)tick, (uint32_t)salt);
+    }
+    return (int)cudaGetLastError();
+}

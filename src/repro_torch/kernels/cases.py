@@ -7,7 +7,7 @@ seed and returns plain numpy arrays (i32 / f32 / bool), with values
 chosen so that every branch of the kernel is taken: ACKs that match and
 miss their slot, trims, timeouts that fire, spurious retransmissions,
 QuickAdapt and FastIncrease, same-destination ranks past the free space,
-rows with nothing eligible.
+rows with nothing eligible, queues above their capacity.
 """
 
 from __future__ import annotations
@@ -126,3 +126,18 @@ def ring_drain_case(F: int, W: int, maxw: int, seed: int) -> dict:
     return dict(t=t, rto=rto, started=started, has_ack=has_ack,
                 ack_seq=ack_seq, lbits=lbits, bitmap=bitmap,
                 sent0=sent0, sent1=sent1, sent2=sent2)
+
+
+# red_mark thresholds of the simulator's queues (CAP = 40 packets on the
+# three-tier trees: kmin = 0.2 * CAP, kmax = 0.8 * CAP)
+RED_CAP, RED_KMIN, RED_KMAX = 40, 8.0, 32.0
+
+
+def red_mark_case(Q: int, seed: int, cap: int = RED_CAP) -> dict:
+    """[Q] occupancies (empty queues, ones between the thresholds, full
+    ones and some above ``cap``) and this tick's arrivals."""
+    rng = np.random.default_rng(seed)
+    q_size = rng.integers(0, cap + 6, Q).astype(np.int32)
+    q_size[rng.random(Q) < 0.15] = 0
+    arrivals = rng.integers(0, 7, Q).astype(np.int32)
+    return dict(q_size=q_size, arrivals=arrivals, cap=cap)

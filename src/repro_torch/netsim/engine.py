@@ -8,7 +8,7 @@ phases, each ``(Dims, Consts, SimState, Clock) -> SimState``:
   1. departures : ``fabric.departures``  (dequeue, RED mark, route, wire)
   2. arrivals   : ``fabric.arrivals``    (enqueue/trim/drop or deliver/ACK)
   3. control    : ``transport.control``  (ACK/trim/timeout -> CC + LB)
-  4. grants     : ``sender.grants``      (EQDS pull credits; SMaRTT: none)
+  4. grants     : ``sender.grants``      (EQDS pull credits; else none)
   5. sends      : ``sender.sends``       (arbitration, admission, emission)
   6. metrics    : ``metrics.account``    (occupancy accounting)
 
@@ -108,7 +108,7 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
                                                       enqueue=enqueue)),
         ("control", lambda c, st, k: transport.control(dims, c, cc_update, st,
                                                        k, drain=drain)),
-        ("grants", lambda c, st, k: sender.grants(dims, c, st, k)),
+        ("grants", lambda c, st, k: sender.grants(dims, c, st, k, arb=arb)),
         ("sends", lambda c, st, k: sender.sends(dims, c, st, k, arb=arb)),
         ("metrics", lambda c, st, k: metrics.account(dims, c, st, k)),
     )
@@ -119,10 +119,11 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
 
 def _leap(sim: Sim, st: SimState, now: int, max_ticks: int):
     """Jump ``now`` to the next event horizon, with the closed-form
-    occupancy accounting (``metrics.leap_account``).  Returns the state
-    and the leap distance.  A zero leap is skipped: it would add
-    ``0 * occupancy = +0.0`` to ``q_sum``, which leaves it bitwise
-    unchanged."""
+    occupancy accounting (``metrics.leap_account``).  The horizon stops
+    at the fault schedule's next transition (``fabric.horizon``), so no
+    leap crosses one.  Returns the state and the leap distance.  A zero
+    leap is skipped: it would add ``0 * occupancy = +0.0`` to ``q_sum``,
+    which leaves it bitwise unchanged."""
     d = min(int(sim.horizon(st, now)), max_ticks - now)
     if d <= 0:
         return st, 0

@@ -1,7 +1,7 @@
 """Phases 1-2 of the tick — the switching fabric.
 
   1. ``departures``: dequeue head per port, RED dequeue-marking, route,
-     place on the wire
+     blackhole on failed links, place on the wire
   2. ``arrivals``:  packets landing now -> enqueue (trim/drop on overflow)
      or deliver (receiver dedupe, ACK generation)
 
@@ -22,8 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.netsim import hashing
-from repro_torch.netsim.metrics import isum
+from repro_torch.netsim import faults, hashing
+from repro_torch.netsim.metrics import GOODPUT_BINS, isum
 from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState, pkt_size
 
 I32 = torch.int32
@@ -59,26 +59,46 @@ def route_first_hop(dims: Dims, consts: Consts, ent):
     return torch.where(consts.f_down, consts.f_dn_q, consts.f_up_base + h)
 
 
+def red_marks(dims: Dims, consts: Consts, st: SimState, t: int):
+    """RED marking at dequeue (paper Sec. 2.1 / 3.5): the coin flip of
+    every port at tick ``t``, bool [NQ], before the ``active`` guard.
+    The first hash lane t * 131071 + q wraps in i32 in the reference; the
+    hash takes it mod 2**32, so computing it in int64 gives the same bits.
+
+    The same function as the ``red_mark`` kernel's mark
+    (``kernels/red_mark``) wherever ``kspan`` equals that kernel's
+    ``max(kmax - kmin, 1e-6)``, with the salt ``0xECD + st.salt``."""
+    qsz = st.q_size[:dims.NQ].to(F32)
+    pmark = torch.clamp((qsz - consts.kmin) / consts.kspan, 0.0, 1.0)
+    return hashing.uniform01(consts.qidx.to(torch.int64) + t * 131071,
+                             st.salt + 0xECD) < pmark
+
+
 def departures(dims: Dims, consts: Consts, st: SimState, clk: Clock) -> SimState:
     """Phase 1: one head-of-line packet per active port onto the wire."""
     t = clk.t
+    m = st.m
     NQ, CAP, L = dims.NQ, dims.CAP, dims.L
     B = dims.QE                                       # core/edge port split
 
     qidx = consts.qidx
-    active = st.q_size[:NQ] > 0                       # no faults: svc = True
+    # fault schedule: per-port service period at tick t (1 = healthy,
+    # 0 = dead, k > 1 = serve when t % k == 0), only where a schedule exists
+    faulty = bool(dims.FK or dims.flapped)
+    active = st.q_size[:NQ] > 0
+    if faulty:
+        per = faults.port_period(dims, consts, t)
+        svc = torch.where(per > 1, torch.remainder(t, per.clamp_min(1)) == 0, True)
+        active = active & svc
     head = st.q_head[:NQ]
     hf = st.q_fields[qidx, head]                      # [NQ, 5]
     d_flow, d_seq, d_ent, d_ecn, d_ts = hf.unbind(1)
-    # RED marking at dequeue (paper Sec. 2.1 / 3.5).  The first hash lane
-    # t * 131071 + q wraps in i32 in the reference; the hash takes it mod
-    # 2**32, so computing it in int64 gives the same bits.
-    qsz = st.q_size[:NQ].to(F32)
-    pmark = torch.clamp((qsz - consts.kmin) / consts.kspan, 0.0, 1.0)
-    mark = hashing.uniform01(qidx.to(torch.int64) + t * 131071,
-                             st.salt + 0xECD) < pmark
-    d_ecn = d_ecn | (mark & active).to(I32)
-    emit = active                                     # nothing blackholes
+    d_ecn = d_ecn | (red_marks(dims, consts, st, t) & active).to(I32)
+    emit = active
+    if faulty:
+        black = (per == 0) & active                   # dead link: blackhole
+        emit = active & ~black
+        m = m._replace(n_black=m.n_black + isum(black))
     next_q = route_from_queue(dims, consts, d_flow, d_ent)
     q_head = st.q_head.clone()
     q_head[:NQ] = torch.where(active, torch.remainder(head + 1, CAP), head)
@@ -92,7 +112,7 @@ def departures(dims: Dims, consts: Consts, st: SimState, clk: Clock) -> SimState
     infl = st.infl
     infl[(t + clk.lat_core) % L, :B] = payload[:B]
     infl[(t + clk.lat_edge) % L, B:NQ] = payload[B:]
-    return st._replace(q_head=q_head, q_size=q_size, infl=infl)
+    return st._replace(q_head=q_head, q_size=q_size, infl=infl, m=m)
 
 
 def arrivals(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
@@ -148,9 +168,23 @@ def arrivals(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
     ack_ring = st.ack_ring
     ack_ring[(t + clk.ret) % R] = ack_payload
     dbytes = isum(psz_f).to(F32)
+    # recovery metrics, only where a fault schedule exists: binned goodput
+    # history and the bytes delivered while the schedule is active (both
+    # accrue on delivery ticks only, so they are leap-exact)
+    goodput_hist = m.goodput_hist
+    delivered_bytes_fault = m.delivered_bytes_fault
+    if dims.FK or dims.flapped:
+        gbin = torch.div(consts.goodput_bin.new_full((), t), consts.goodput_bin,
+                         rounding_mode="floor").clamp_max(GOODPUT_BINS - 1)
+        goodput_hist = goodput_hist + torch.where(
+            torch.arange(GOODPUT_BINS, dtype=I32, device=dev) == gbin, dbytes, 0.0)
+        delivered_bytes_fault = delivered_bytes_fault + torch.where(
+            faults.fault_active(dims, consts, t), dbytes, 0.0)
     m = m._replace(
         delivered_pkts=m.delivered_pkts + isum(deliver),
         delivered_bytes=m.delivered_bytes + dbytes,
+        goodput_hist=goodput_hist,
+        delivered_bytes_fault=delivered_bytes_fault,
     )
 
     # ---- enqueues, on the compact [EQ] axis of enqueue-capable emitters ----
@@ -179,6 +213,12 @@ def arrivals(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
     rflow = torch.where(rej, e_flow, NF)
     rej_pkt = pkt_size(dims, consts, e_flow, e_seq)
     rej_bytes_i = torch.where(rej, rej_pkt, 0)
+    trim_seen = st.trim_seen
+    if dims.credit_based:
+        # receiver-side trim visibility (EQDS: trimmed headers reach the
+        # receiver, which re-schedules the pull — paper Sec. 2.2); whole
+        # packet sizes, so the f32 sums are exact in any order
+        trim_seen = trim_seen.index_add(0, rflow, rej_bytes_i.to(F32))
     if dims.trimming:
         W, WW = dims.W, dims.WW
         # one packed update feeds the delayed trim ledger (count, bytes and
@@ -204,16 +244,21 @@ def arrivals(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
     return st._replace(
         infl=infl, bitmap=bitmap, goodput=goodput, done=done, fct=fct,
         ack_ring=ack_ring, q_fields=q_fields, q_size=q_size,
-        trim_ring=trim_ring, m=m,
+        trim_seen=trim_seen, trim_ring=trim_ring, m=m,
     )
 
 
 def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     """Ticks until phases 1-2 next do work (DESIGN.md Sec. 6.3): 0 while
     any port holds a packet, else the earliest occupied wire slot's
-    landing distance ``(s - t) mod L``."""
+    landing distance ``(s - t) mod L``; with a fault schedule, never past
+    its next transition (no leap crosses a fail/degrade/repair/flap
+    edge)."""
     busy = torch.any(st.q_size[:dims.NQ] > 0)
     live = torch.any(st.infl[:, :, 0] == 1, dim=1)                 # [L]
     dist = torch.remainder(consts.iota_l - clk.t, dims.L)
     h_wire = torch.min(torch.where(live, dist, HORIZON_INF))
-    return torch.where(busy, 0, h_wire)
+    h = torch.where(busy, 0, h_wire)
+    if dims.FK or dims.flapped:
+        h = torch.minimum(h, faults.transition_horizon(dims, consts, clk.t))
+    return h

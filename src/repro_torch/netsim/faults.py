@@ -32,13 +32,12 @@ to live in ``Consts`` and be evaluated branch-free every tick:
   ticks then ``cycle - up`` ticks at ``period`` (0 = dead while down).
   At most one flap per port.
 
-This is the host half of the reference ``netsim/faults.py``: schedule
-types, lowering, validation and table compilation.  ``state.derive``
-compiles every configuration's (possibly empty) schedule, so the tables'
-shapes and the ``FK``/``flapped`` statics match the reference leaf by
-leaf.  The per-tick evaluation (``port_period``, ``fault_active``,
-``transition_horizon``) is not ported yet, so ``state.derive`` refuses a
-non-empty schedule instead of running it without its faults.
+The module is the reference's ``netsim/faults.py``: the host half
+(schedule types, lowering, validation, table compilation, and the numpy
+mirrors the recovery metrics use) and the per-tick evaluation
+(``port_period``, ``fault_active``, ``transition_horizon``), which runs on
+the tables' device from the host's tick ``t`` (a Python int) and gives
+the reference's periods bit for bit.
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 HORIZON_INF = 1 << 30
 
@@ -231,3 +231,138 @@ def compile_tables(sched: FaultSchedule, topo,
                           fl_cycle=fl_cycle, fl_up=fl_up,
                           fl_period=fl_period, FK=FK,
                           flapped=bool(sched.flaps))
+
+
+# ---- per-tick evaluation (consts carries the tables; dims the shape) ----
+
+def port_period(dims, consts, t: int):
+    """[NQ] service period of every port at absolute tick ``t`` (1 =
+    healthy, 0 = dead, k > 1 = degraded).  Table times are relative to
+    ``consts.fault_start``."""
+    tr = t - consts.fault_start
+    if dims.FK:
+        cnt = torch.sum(tr >= consts.ft_time, dim=1, dtype=torch.int32)
+        idx = (cnt - 1).clamp_min(0)       # tr < 0 -> healthy column 0
+        per = torch.gather(consts.ft_period, 1, idx[:, None].long())[:, 0]
+    else:
+        per = torch.ones((dims.NQ,), dtype=torch.int32, device=consts.fl_up.device)
+    if dims.flapped:
+        has = consts.fl_cycle > 0
+        cyc = consts.fl_cycle.clamp_min(1)
+        ph = torch.remainder(tr - consts.fl_start, cyc)
+        in_win = has & (tr >= consts.fl_start) & (tr < consts.fl_end)
+        down = in_win & (ph >= consts.fl_up)
+        per = torch.where(down, consts.fl_period, per)
+    return per
+
+
+def fault_active(dims, consts, t: int):
+    """0-d bool tensor: any port not healthy at tick ``t``."""
+    return torch.any(port_period(dims, consts, t) != 1)
+
+
+def transition_horizon(dims, consts, t: int):
+    """Ticks until the next schedule transition strictly after ``t`` (at
+    least 1) — the leap clamp.  Over ``[t, t + horizon)`` every port's
+    period is constant, so no leap crosses a fail/degrade/repair/flap
+    edge."""
+    tr = t - consts.fault_start
+    h = torch.full((), HORIZON_INF, dtype=torch.int32, device=tr.device)
+    if dims.FK:
+        dt = torch.where(consts.ft_time > tr, consts.ft_time - tr, HORIZON_INF)
+        h = torch.minimum(h, torch.min(dt))
+    if dims.flapped:
+        has = consts.fl_cycle > 0
+        cyc = consts.fl_cycle.clamp_min(1)
+        ph = torch.remainder(tr - consts.fl_start, cyc)
+        to_bound = torch.where(ph < consts.fl_up, consts.fl_up - ph, cyc - ph)
+        before = has & (tr < consts.fl_start)
+        inside = has & (tr >= consts.fl_start) & (tr < consts.fl_end)
+        d = torch.where(
+            before, consts.fl_start - tr,
+            torch.where(inside, torch.minimum(to_bound, consts.fl_end - tr),
+                        HORIZON_INF))
+        h = torch.minimum(h, torch.min(d))
+    return h.clamp_min(1)
+
+
+# ---- host-side mirrors (recovery metrics) ----
+
+def np_port_period(cf: CompiledFaults, fault_start: int, t: int):
+    """Numpy mirror of :func:`port_period` (same definition, exact)."""
+    tr = t - fault_start
+    if cf.FK:
+        idx = np.maximum((tr >= cf.ft_time).sum(axis=1) - 1, 0)
+        per = np.take_along_axis(cf.ft_period, idx[:, None], axis=1)[:, 0]
+    else:
+        per = np.ones(cf.ft_time.shape[0], np.int32)
+    if cf.flapped:
+        has = cf.fl_cycle > 0
+        cyc = np.maximum(cf.fl_cycle, 1)
+        ph = (tr - cf.fl_start) % cyc
+        in_win = has & (tr >= cf.fl_start) & (tr < cf.fl_end)
+        per = np.where(in_win & (ph >= cf.fl_up), cf.fl_period, per)
+    return per
+
+
+def _breakpoints(cf: CompiledFaults, fault_start: int, ticks: int):
+    """Sorted absolute ticks in [0, ticks) where activity may change."""
+    pts = {0}
+    for tt in np.unique(cf.ft_time):
+        at = int(tt) + fault_start
+        if 0 <= at < ticks and tt < HORIZON_INF:
+            pts.add(at)
+    if cf.flapped:
+        for q in np.where(cf.fl_cycle > 0)[0]:
+            cyc, up = int(cf.fl_cycle[q]), int(cf.fl_up[q])
+            s = int(cf.fl_start[q]) + fault_start
+            e = min(int(cf.fl_end[q]) + fault_start, ticks)
+            k = s
+            while k < e:
+                for b in (k, k + up):
+                    if 0 <= b < min(e, ticks):
+                        pts.add(b)
+                k += cyc
+            if 0 <= e < ticks:
+                pts.add(e)
+    return sorted(pts)
+
+
+def fault_ticks(cf: CompiledFaults, fault_start: int, ticks: int) -> int:
+    """Exact count of ticks in [0, ticks) with any port unhealthy (activity
+    is constant between breakpoints)."""
+    if not (cf.FK or cf.flapped) or ticks <= 0:
+        return 0
+    pts = _breakpoints(cf, fault_start, ticks) + [ticks]
+    total = 0
+    for a, b in zip(pts[:-1], pts[1:]):
+        if np.any(np_port_period(cf, fault_start, a) != 1):
+            total += b - a
+    return int(total)
+
+
+def repair_times(cf: CompiledFaults, fault_start: int, ticks: int) -> list:
+    """Absolute ticks in (0, ticks) where the fabric goes from
+    fault-active to all-healthy — the anchors for time-to-recover."""
+    if not (cf.FK or cf.flapped) or ticks <= 0:
+        return []
+    pts = _breakpoints(cf, fault_start, ticks)
+    out, prev = [], False
+    for a in pts:
+        act = bool(np.any(np_port_period(cf, fault_start, a) != 1))
+        if prev and not act and a > 0:
+            out.append(int(a))
+        prev = act
+    return out
+
+
+def first_fault_time(cf: CompiledFaults, fault_start: int,
+                     ticks: int) -> int:
+    """First absolute tick in [0, ticks) with any port unhealthy (-1 if
+    the schedule never activates inside the run)."""
+    if not (cf.FK or cf.flapped) or ticks <= 0:
+        return -1
+    for a in _breakpoints(cf, fault_start, ticks):
+        if np.any(np_port_period(cf, fault_start, a) != 1):
+            return int(a)
+    return -1

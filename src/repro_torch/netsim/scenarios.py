@@ -1,13 +1,10 @@
 """Declarative scenario catalogue: named, frozen (config, workload,
 max_ticks) bundles — the string-addressable entry points (DESIGN.md Sec. 7).
 
-The names, trees and workloads are the reference's
-(``repro/netsim/scenarios.py``), limited to the scenarios the port can
-run: those with fault schedules (``perm_512n_3t_degraded``,
-``corefail_128n_3t``, ``flap_128n_3t``, ``switchkill_128n_3t``) and those
-with dependency tables (the collectives) wait for their modules::
+The names, trees, workloads, fault schedules and tick budgets are the
+reference's (``repro/netsim/scenarios.py``), all 29 of them::
 
-    sc = scenario("perm_1024n_3t")
+    sc = scenario("perm_1024n_3t", algo="swift")   # same grid, another CC
     sim = sc.build()                      # on the card
     st = sim.run(sc.max_ticks)
 """
@@ -17,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.netsim import workloads
+from repro_torch.netsim import collectives, faults, workloads
 from repro_torch.netsim.state import SimConfig
 from repro_torch.netsim.units import FatTreeConfig, LinkConfig
 from repro_torch.netsim.workloads import Workload
@@ -191,9 +188,78 @@ register("alltoall_3t", lambda: _std(
     workloads.alltoall(TREE_512_3T, size_bytes=32 * KiB, window=4,
                        nodes=32, spread=True),
     200_000))
+register("perm_512n_3t_degraded", lambda: _std(
+    "perm_512n_3t_degraded", TREE_512_3T,
+    workloads.permutation(TREE_512_3T, size_bytes=256 * KiB, seed=7),
+    120_000).with_(faults=(("t1_up", 0, 0, 0), ("t2_down", 1, 2, 2)),
+                   fault_start=0))
 register("perm_128n_3t", lambda: _std(
     "perm_128n_3t", TREE_128_3T,
     workloads.permutation(TREE_128_3T, size_bytes=256 * KiB, seed=7),
+    120_000))
+
+# failover scenarios: fault timelines on the 128-node three-tier tree,
+# run with and without the failure-recovery transport knobs.  1 MiB flows
+# so the kill lands mid-flight, after the REPS explore phase.
+register("corefail_128n_3t", lambda: _std(
+    "corefail_128n_3t", TREE_128_3T,
+    workloads.permutation(TREE_128_3T, size_bytes=1 * MiB, seed=7),
+    6_000).with_(faults=faults.FaultSchedule(events=(
+        # both core uplinks of T1 switch 0 die at t=500 and are repaired
+        # 10 ticks before the budget — less than one forward traversal
+        faults.FaultEvent(t=500, kind="t1_up", i=0, j=0, period=0),
+        faults.FaultEvent(t=500, kind="t1_up", i=0, j=1, period=0),
+        faults.FaultEvent(t=5_990, kind="t1_up", i=0, j=0, period=1),
+        faults.FaultEvent(t=5_990, kind="t1_up", i=0, j=1, period=1)))))
+register("flap_128n_3t", lambda: _std(
+    "flap_128n_3t", TREE_128_3T,
+    workloads.permutation(TREE_128_3T, size_bytes=1 * MiB, seed=7),
+    8_000).with_(faults=faults.FaultSchedule(flaps=(
+        # rack 0's uplink 0 flaps 300 down / 300 up for five cycles
+        faults.Flap(kind="t0_up", i=0, j=0, up=300, cycle=600,
+                    t=200, t_end=3_200, period=0),))))
+register("switchkill_128n_3t", lambda: _std(
+    "switchkill_128n_3t", TREE_128_3T,
+    workloads.permutation(TREE_128_3T, size_bytes=1 * MiB, seed=7),
+    8_000).with_(faults=faults.FaultSchedule(events=(
+        # T1 switch 1 (switch id racks + 1) dies whole at t=500 — every
+        # port it owns blackholes — and comes back at t=3000
+        faults.FaultEvent(t=500, kind="switch", i=17, period=0),
+        faults.FaultEvent(t=3_000, kind="switch", i=17, period=1)))))
+
+# dependency-driven collectives (DESIGN.md Sec. 11): the chunk DAG gates
+# each flow on its parents' delivered bytes
+register("tiny_allreduce_ring", lambda: _std(
+    "tiny_allreduce_ring", TREE_3T_TINY,
+    collectives.ring_allreduce(TREE_3T_TINY, chunk_bytes=8 * KiB, nodes=8),
+    20_000))
+register("tiny_allgather", lambda: _std(
+    "tiny_allgather", TREE_TINY,
+    collectives.all_gather(TREE_TINY, chunk_bytes=16 * KiB, nodes=4),
+    20_000))
+register("tiny_pipeline", lambda: _std(
+    "tiny_pipeline", TREE_TINY,
+    collectives.pipeline(TREE_TINY, stage_bytes=8 * KiB, stages=3,
+                         microbatches=4),
+    20_000))
+register("allreduce_ring_128n_3t", lambda: _std(
+    "allreduce_ring_128n_3t", TREE_128_3T,
+    collectives.ring_allreduce(TREE_128_3T, chunk_bytes=32 * KiB, nodes=128),
+    120_000))
+register("allreduce_tree_128n_3t", lambda: _std(
+    "allreduce_tree_128n_3t", TREE_128_3T,
+    collectives.tree_allreduce(TREE_128_3T, msg_bytes=128 * KiB, nodes=128,
+                               branching=2),
+    120_000))
+register("allgather_64n_3t", lambda: _std(
+    "allgather_64n_3t", TREE_128_3T,
+    collectives.all_gather(TREE_128_3T, chunk_bytes=64 * KiB, nodes=64,
+                           spread=True),
+    120_000))
+register("pipeline_32n", lambda: _std(
+    "pipeline_32n", TREE_FLAT,
+    collectives.pipeline(TREE_FLAT, stage_bytes=64 * KiB, stages=32,
+                         microbatches=8),
     120_000))
 
 # sparse/large-message scenarios (event-horizon leap targets, DESIGN 6.3)

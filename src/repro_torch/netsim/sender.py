@@ -1,15 +1,15 @@
 """Phases 4-5 of the tick — the host NICs.
 
-  4. ``grants``: EQDS receiver-side pull credits — a no-op for the
-     window-based SMaRTT, the one algorithm ported so far
-  5. ``sends``:  per-sender round-robin flow arbitration, window
-     admission, REPS entropy assignment, emission onto the wire,
+  4. ``grants``: EQDS receiver-side pull-credit generation (round-robin
+     over demanding flows per receiver, through the ``rr_pick`` kernel;
+     a no-op unless the algorithm is credit-based)
+  5. ``sends``:  per-sender round-robin flow arbitration, window/credit/
+     pacing admission, REPS entropy assignment, emission onto the wire,
      sent-ring bookkeeping
 
-``horizon`` reduces the same admission predicate to "ticks until a NIC
-next acts" (DESIGN.md Sec. 6.3).  The credit-based and paced branches of
-the reference belong to algorithms that are not ported yet
-(``core/registry.py`` refuses them), so they are absent here.
+Static branch selectors (credit_based / paced / lb_mode / window) come
+from ``Dims``.  ``horizon`` reduces the same admission/demand predicates
+to "ticks until a NIC or a receiver next acts" (DESIGN.md Sec. 6.3).
 """
 
 from __future__ import annotations
@@ -25,12 +25,6 @@ I32 = torch.int32
 F32 = torch.float32
 
 
-def _no_credit_or_pacing(dims: Dims):
-    if dims.credit_based or dims.paced:
-        raise NotImplementedError(
-            "credit-based and paced algorithms are not ported to repro_torch")
-
-
 def activated(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     """The activation predicate (DESIGN.md Sec. 11): a flow is live once
     ``t >= t_start``, it is unfinished, and — when the workload carries a
@@ -44,16 +38,45 @@ def activated(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     return act
 
 
-def grants(dims: Dims, consts: Consts, st: SimState, clk: Clock) -> SimState:
-    """Phase 4: EQDS receiver credit grants — nothing to do for SMaRTT."""
-    _no_credit_or_pacing(dims)
-    return st
+def _grant_demand(dims: Dims, consts: Consts, st: SimState, clk: Clock):
+    """Flows whose receiver owes pull credit (EQDS): outstanding credit
+    window above received + known-lost bytes — self-clocks, and re-grants
+    for trimmed packets (the receiver sees trimmed headers) so
+    retransmissions never starve."""
+    return activated(dims, consts, st, clk) & (
+        st.granted - st.goodput.to(F32) - st.trim_seen[:dims.NF]
+        < consts.credit_window)
+
+
+def grants(dims: Dims, consts: Consts, st: SimState, clk: Clock, *, arb) -> SimState:
+    """Phase 4: EQDS receiver credit grants (paper Sec. 2.2): each receiver
+    grants one MTU of credit to one demanding flow, picked round-robin by
+    ``arb`` (the backend-resolved ``rr_pick``) over its ``[N, FRMAX]``
+    flow table.  The credit ring slot is updated in place."""
+    if not dims.credit_based:
+        return st
+    NF, FRMAX = dims.NF, dims.FRMAX
+    demand = _grant_demand(dims, consts, st, clk)
+    dm = torch.cat([demand, demand.new_zeros(1)])[consts.flows_by_recv]   # [N, FR]
+    has_g, sel = arb(dm, st.rr_recv, FRMAX)
+    gflow = torch.where(has_g, consts.flows_by_recv[consts.node_ids, sel], NF)
+    credit = torch.where(has_g, float(dims.mtu), 0.0)
+    # the grant return delay is the constant `ret`, so all grants of this
+    # tick land in one ring slot; a flow has one receiver, so every real
+    # grant lands on its own column (the idle ones add 0.0 to column NF)
+    credit_ring = st.credit_ring
+    credit_ring[(clk.t + clk.ret) % dims.R].index_add_(0, gflow, credit)
+    granted = torch.cat([st.granted, st.granted.new_zeros(1)]).index_add_(
+        0, gflow, credit)[:NF]
+    rr_recv = torch.where(has_g, torch.remainder(sel + 1, FRMAX), st.rr_recv)
+    return st._replace(credit_ring=credit_ring, granted=granted, rr_recv=rr_recv)
 
 
 def admission(dims: Dims, consts: Consts, st: SimState, clk: Clock):
-    """Send admission for every flow at the current tick.  Returns
-    ``(elig, has_retx, seq_emit, nsize)``."""
-    _no_credit_or_pacing(dims)
+    """Send admission for every flow at the current tick, *excluding* rate
+    pacing (``sends`` folds in the freshly accrued pacing budget; the leap
+    ``horizon`` runs only for unpaced configurations, where this is the
+    full admission).  Returns ``(elig, has_retx, seq_emit, nsize)``."""
     NF, W, FMAX, window = dims.NF, dims.W, dims.FMAX, dims.window
     mtu_i = dims.mtu
     flow_ids = consts.flow_ids
@@ -80,6 +103,8 @@ def admission(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     nsize = (consts.size - seq_emit * mtu_i).clamp(0, mtu_i).to(F32)
     win_ok = st.unacked + nsize <= cc.cwnd
     elig = started & (has_retx | new_ok) & win_ok & (nsize > 0)
+    if dims.credit_based:
+        elig = elig & ((cc.credits >= nsize) | (cc.spec_budget >= nsize))
     return elig, has_retx, seq_emit, nsize
 
 
@@ -95,8 +120,15 @@ def sends(dims: Dims, consts: Consts, st: SimState, clk: Clock, *, arb) -> SimSt
     FMAX = dims.FMAX
     flow_ids = consts.flow_ids
     dev = st.now.device
+    cc = st.cc
+
+    pace = st.pace_accum
+    if dims.paced:
+        pace = torch.clamp_max(pace + cc.pacing_rate, 4.0 * float(dims.mtu))
 
     elig, has_retx, seq_emit, nsize = admission(dims, consts, st, clk)
+    if dims.paced:
+        elig = elig & (pace >= nsize)
 
     # per-sender round-robin arbitration (one packet per NIC per tick)
     elig_p = torch.cat([elig, elig.new_zeros(1)])
@@ -150,19 +182,35 @@ def sends(dims: Dims, consts: Consts, st: SimState, clk: Clock, *, arb) -> SimSt
     next_seq = st.next_seq + is_new_send.to(I32)
     m = m._replace(n_retx=m.n_retx + isum(emit_mask & has_retx))
 
+    spend = torch.where(emit_mask, nsize, 0.0)
+    if dims.credit_based:
+        use_credit = cc.credits >= nsize
+        cc = cc._replace(
+            credits=cc.credits - spend * use_credit,
+            spec_budget=cc.spec_budget - spend * ~use_credit,
+        )
+    if dims.paced:
+        pace = pace - spend
+
     return st._replace(
-        infl=infl, sent=sent,
-        next_seq=next_seq, rr_send=rr_send, lb=lb, m=m,
+        infl=infl, sent=sent, next_seq=next_seq, rr_send=rr_send,
+        pace_accum=pace, cc=cc, lb=lb, m=m,
     )
 
 
 def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     """Ticks until phases 4-5 next do work (DESIGN.md Sec. 6.3): 0 while
-    any flow passes send admission, else the nearest flow-start deadline
-    (between events nothing else can flip admission)."""
+    any flow passes send admission or — for credit-based algorithms — any
+    receiver owes a grant, else the nearest flow-start deadline (between
+    events nothing else can flip either predicate).  Never called for
+    paced configurations (``Dims.leap`` is off there: the pacing budget
+    accrues every tick)."""
     t = clk.t
     elig, _, _, _ = admission(dims, consts, st, clk)
     h = torch.where(torch.any(elig), 0, HORIZON_INF)
+    if dims.credit_based:
+        h = torch.minimum(h, torch.where(
+            torch.any(_grant_demand(dims, consts, st, clk)), 0, HORIZON_INF))
     unstarted = t < consts.t_start
     h_start = torch.min(torch.where(unstarted, consts.t_start - t, HORIZON_INF))
     return torch.minimum(h, h_start)

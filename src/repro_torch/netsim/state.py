@@ -87,9 +87,11 @@ class SimConfig:
     start_cwnd_mult: float = 1.25    # initial window as fraction of BDP
     kmin_frac: float = 0.2           # RED thresholds as fraction of port buffer
     kmax_frac: float = 0.8
-    # fault injection: a faults.FaultSchedule or the legacy tuples.  The
-    # per-tick fault evaluation is not ported yet: derive() refuses a
-    # non-empty schedule.
+    # fault injection (Fig. 7): a faults.FaultSchedule (timeline of
+    # fail/degrade/repair events plus periodic flapping), or the legacy
+    # static tuples ((kind, i, j, period), ...) which lower to one-event
+    # schedules — period 2 = half-rate link, period 0 = dead link
+    # (blackholes traffic).  Schedule times are relative to fault_start.
     faults: tuple = ()
     fault_start: int = 0
     rto_backoff_max: int = 0         # capped exponential RTO backoff:
@@ -363,11 +365,6 @@ def derive(cfg: SimConfig, wl: Workload, device="cuda"):
     # ---- fault schedule compilation (host half of faults.py) ----
     sched = faults_schedule.lower(cfg.faults)
     cf = faults_schedule.compile_tables(sched, topo, cfg.fault_start)
-    if sched:
-        raise NotImplementedError(
-            "fault schedules are not ported to repro_torch yet (the per-tick "
-            "port_period / fault_active / transition_horizon evaluation is "
-            "missing); run this configuration with the JAX package")
     if cfg.rto_backoff_max < 0:
         raise ValueError(
             f"rto_backoff_max must be >= 0, got {cfg.rto_backoff_max}")

@@ -37,7 +37,7 @@ def effective_rto(dims: Dims, consts: Consts, st: SimState):
 
 def control(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
             drain) -> SimState:
-    """Phase 3: ACK / trim / timeout events -> transport state, CC update
+    """Phase 3: ACK / trim / timeout / credit events -> transport state, CC update
     (``cc_update`` resolved by the registry), LB update.
 
     ``drain`` is the backend-resolved sent-ring drain callable
@@ -138,7 +138,8 @@ def control(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
 
 def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     """Ticks until phase 3 next does work (DESIGN.md Sec. 6.3): the nearest
-    live control-ring slot, or the first armed timeout's fire tick
+    live control-ring slot (ACK, trim, and for credit-based algorithms the
+    credit ring), or the first armed timeout's fire tick
     (``floor(rto) + 1`` ticks after the send), whichever comes first."""
     t = clk.t
     NF, R = dims.NF, dims.R
@@ -148,6 +149,9 @@ def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     if dims.trimming:
         live_trim = torch.any(st.trim_ring[:, :NF, 0] > 0, dim=1)
         h = torch.minimum(h, torch.min(torch.where(live_trim, dist, HORIZON_INF)))
+    if dims.credit_based:
+        live_cred = torch.any(st.credit_ring[:, :NF] != 0.0, dim=1)
+        h = torch.minimum(h, torch.min(torch.where(live_cred, dist, HORIZON_INF)))
     started = (t >= consts.t_start) & ~st.done
     armed = (st.sent[0, :NF] == 1) & started[:, None]              # [NF, W]
     fire = (st.sent[2, :NF]

@@ -21,6 +21,8 @@ from repro_torch.kernels.cc_update import kernel as CK  # noqa: E402
 from repro_torch.kernels.cc_update import ref as CR  # noqa: E402
 from repro_torch.kernels.enqueue_arb import kernel as EK  # noqa: E402
 from repro_torch.kernels.enqueue_arb import ref as ER  # noqa: E402
+from repro_torch.kernels.red_mark import kernel as RK  # noqa: E402
+from repro_torch.kernels.red_mark import ref as RR  # noqa: E402
 from repro_torch.kernels.ring_drain import kernel as DK  # noqa: E402
 from repro_torch.kernels.ring_drain import ref as DR  # noqa: E402
 from repro_torch.netsim import scenarios  # noqa: E402
@@ -97,6 +99,20 @@ def test_ring_drain_kernel_bit_equal(cuda, shape, seed):
         assert _bit_equal(k, r)
 
 
+@pytest.mark.parametrize("Q,tick,salt,kmin,kmax", [
+    (1, 0, 0xECD, 8.0, 32.0), (130, 65535, -7, 5.2, 20.8),
+    (NQ, 120000, 0xECD, 8.0, 32.0), (NQ, 2 ** 24 + 1, 2 ** 24 + 3, 8.0, 32.0),
+    (NQ, 99, 0xECD, 20.0, 20.0)])
+def test_red_mark_kernel_bit_equal(cuda, Q, tick, salt, kmin, kmax):
+    c = cases.red_mark_case(Q, seed=Q + tick)
+    qs, ar = _on(c["q_size"], cuda), _on(c["arrivals"], cuda)
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=cuda) for v in (kmin, kmax))
+    got = RK.red_mark(qs, ar, cap=c["cap"], kmin=kmin, kmax=kmax, tick=tick, salt=salt)
+    for k, r in zip(got, RR.red_mark_ref(qs, ar, c["cap"], lo, hi, tick, salt)):
+        assert _bit_equal(k, r)
+    assert got[0].any() or Q == 1
+
+
 def test_kernel_wrappers_refuse_bad_operands(cuda):
     c = cases.rr_pick_case(8, 4, 0)
     e, rr = _on(c["elig"], cuda), _on(c["rr"], cuda)
@@ -137,3 +153,38 @@ def test_scenario_through_kernels_equals_cpu(cuda, name):
             yield p, t
     for (n, x), (_, y) in zip(leaves(a), leaves(b)):
         assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), n
+
+
+@pytest.mark.parametrize("name,overrides,ticks,on_path", [
+    ("incast8_16n", dict(algo="eqds"), None, ("enqueue_rank", "ring_drain", "rr_pick")),
+    ("corefail_128n_3t", {}, 700, ("cc_update", "enqueue_rank", "ring_drain")),
+], ids=["eqds", "corefail"])
+def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks, on_path):
+    """EQDS (credit grants through rr_pick, no cc_update kernel) and a
+    fault schedule (corefail_128n_3t to tick 700, past the failure at
+    500) through the kernels on the card end in the CPU port's state."""
+    sc = scenarios.scenario(name, **overrides)
+    ticks = ticks or sc.max_ticks
+    sim = sc.build(device=cuda)
+    fns = {"cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
+           "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick}
+    for fn in fns.values():
+        fn.launches = 0
+    st = sim.run(ticks)
+    torch.cuda.synchronize()
+    steps = sim.stats["steps"]
+    assert {k: fn.launches for k, fn in fns.items()} == \
+        {k: steps if k in on_path else 0 for k in fns}
+    ref = sc.build(device="cpu").run(ticks)
+    a, b = tstate.to_numpy(st), tstate.to_numpy(ref)
+    for x, y in zip(_leaf_list(a), _leaf_list(b)):
+        assert x[1].dtype == y[1].dtype and x[1].tobytes() == y[1].tobytes(), x[0]
+    if name == "corefail_128n_3t":
+        assert int(st.m.n_black) > 0 and float(st.m.delivered_bytes_fault) > 0
+
+
+def _leaf_list(t, p=""):
+    if hasattr(t, "_fields"):
+        return [x for n, v in zip(t._fields, t)
+                for x in _leaf_list(v, f"{p}.{n}" if p else n)]
+    return [(p, t)]

@@ -2,7 +2,7 @@
 routing tables, workload arrays, Dims, Consts and initial SimState equal
 the JAX reference's byte for byte (the salts by value: uint32 there, int64
 here); the splitmix32 hashes hit the golden values; the port imports no
-JAX and nothing of the JAX package; and asking for what is not ported
+JAX and nothing of the JAX package; and asking for what does not exist
 raises instead of running something else."""
 
 import ast
@@ -64,7 +64,8 @@ def test_port_registers_the_main_path_scenarios():
     need = {"tiny_perm4", "tiny_incast3", "tiny_3t", "tiny_sparse",
             "perm_128n_3t", "perm_512n_3t", "perm_1024n_3t", "alltoall_3t"}
     assert need <= set(tscen.names())
-    assert set(tscen.names()) <= set(jscen.names())
+    # the whole registry: the fault and collective scenarios too
+    assert set(tscen.names()) == set(jscen.names())
 
 
 @pytest.mark.parametrize("name", tscen.names())
@@ -199,9 +200,18 @@ def test_build_defaults_to_cuda_and_refuses_without_it():
 
 @pytest.mark.parametrize("algo", ["swift", "bbr", "eqds", "eqds_smartt"])
 def test_unported_algorithm_raises(algo):
-    sc = tscen.scenario("tiny_perm4", algo=algo)
-    with pytest.raises(KeyError, match="not ported"):
-        sc.build(device="cpu")
+    """Every algorithm of the reference is ported now: each builds, and the
+    ``kernel`` backend of a baseline (which has no kernel, as in the
+    reference) resolves to its plain update.  A name the registry does not
+    know still raises."""
+    from repro_torch.core import registry
+    assert registry.get(algo, "kernel") is registry.ALGORITHMS[algo]
+    assert registry.get(algo, "plain") is registry.ALGORITHMS[algo]
+    sim = tscen.scenario("tiny_perm4", algo=algo).build(device="cpu")
+    assert sim.dims.credit_based == algo.startswith("eqds")
+    assert sim.dims.paced == (algo == "bbr") and sim.dims.leap == (algo != "bbr")
+    with pytest.raises(KeyError, match="unknown CC algorithm"):
+        tscen.scenario("tiny_perm4", algo=algo + "_v2").build(device="cpu")
 
 
 def test_unknown_backend_raises():
@@ -216,14 +226,25 @@ def test_unknown_backend_raises():
     tfaults.FaultSchedule(events=(tfaults.FaultEvent(t=5, kind="t0_up", i=0),)),
 ])
 def test_fault_schedule_raises(faults):
+    """A fault schedule (legacy tuples or a timeline) builds and runs as in
+    the reference; one that names a port the tree lacks raises."""
     sc = tscen.scenario("tiny_3t", faults=faults)
-    with pytest.raises(NotImplementedError, match="fault"):
-        sc.build(device="cpu")
+    sim = sc.build(device="cpu")
+    assert sim.dims.FK == 2
+    js = jscen.scenario("tiny_3t", faults=jfaults.lower(faults) if isinstance(
+        faults, tuple) else jfaults.FaultSchedule(events=tuple(
+            jfaults.FaultEvent(**dataclasses.asdict(e)) for e in faults.events)))
+    jsim = js.build()
+    want, got = jsim.run(400), sim.run(400)
+    for n in ("n_black", "n_trim", "n_to", "delivered_pkts", "delivered_bytes_fault"):
+        assert float(getattr(want.m, n)) == float(getattr(got.m, n)), n
+    np.testing.assert_array_equal(np.asarray(want.fct), got.fct.numpy())
+    with pytest.raises(ValueError):
+        tscen.scenario("tiny_3t", faults=(("t1_up", 99, 0, 0),)).build(device="cpu")
 
 
 def test_fault_tables_compile_like_the_reference():
-    """The host half is ported whole: a schedule compiles to the same
-    tables as in the reference (only running it is refused)."""
+    """A schedule compiles to the same tables as in the reference."""
     sched_t = tfaults.FaultSchedule(
         events=(tfaults.FaultEvent(t=5, kind="t1_up", i=1, j=1, period=0),
                 tfaults.FaultEvent(t=9, kind="switch", i=5, period=2)),

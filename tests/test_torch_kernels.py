@@ -33,6 +33,7 @@ from repro_torch.kernels.cc_update import ref as tcc  # noqa: E402
 from repro_torch.kernels.enqueue_arb import ops as tarb_ops  # noqa: E402
 from repro_torch.kernels.enqueue_arb import ref as tarb  # noqa: E402
 from repro_torch.kernels.ring_drain import ref as tdrain  # noqa: E402
+from test_torch_engine import one_torch_thread  # noqa: E402,F401 (autouse)
 
 ULP_BUDGET = 2
 

@@ -13,6 +13,7 @@ import pytest
 pytest.importorskip("torch")
 
 from test_torch_engine import assert_run_parity  # noqa: E402
+from test_torch_engine import one_torch_thread  # noqa: E402,F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

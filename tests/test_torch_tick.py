@@ -21,6 +21,7 @@ from repro.netsim import metrics as jmetrics  # noqa: E402
 from repro.netsim import scenarios as jscen  # noqa: E402
 from repro_torch.netsim import scenarios as tscen  # noqa: E402
 from repro_torch.netsim import state as tstate  # noqa: E402
+from test_torch_engine import one_torch_thread  # noqa: E402,F401 (autouse)
 
 ULP_BUDGET = 2
 MAX_PAIRS = 24
@@ -59,12 +60,12 @@ def _features(st, st1):
     }
 
 
-def _reference_pairs(name, forced=()):
+def _reference_pairs(name, forced=(), **overrides):
     """Run the reference tick by tick (leaping idle stretches as its run
     loop does) and keep up to MAX_PAIRS eventful (t, state_t, state_t+1,
     horizon_t) as numpy — the first tick of every event kind, then evenly
-    spread eventful ticks."""
-    sc = jscen.scenario(name)
+    spread eventful ticks, and every tick in ``forced``."""
+    sc = jscen.scenario(name, **overrides)
     sim = jengine.build(sc.cfg, sc.wl)
     step, horizon = jax.jit(sim.step), jax.jit(sim.horizon)
     st = sim.init()
@@ -72,8 +73,10 @@ def _reference_pairs(name, forced=()):
     t = 0
     while t < sc.max_ticks and not bool(jnp.all(st.done)):
         h = int(horizon(st))
-        if sim.dims.leap and h > 0:
-            d = min(h, sc.max_ticks - t)
+        if sim.dims.leap and h > 0 and t not in forced:
+            # a leap stops at the next forced tick, which is then stepped
+            # (stepping an idle tick equals leaping over it)
+            d = min([h, sc.max_ticks - t] + [f - t for f in forced if f > t])
             occ = jnp.sum(st.q_size[:-1])
             st = st._replace(now=st.now + d,
                              m=jmetrics.leap_account(st.m, jnp.int32(d), occ))
@@ -97,12 +100,13 @@ def _reference_pairs(name, forced=()):
                  sorted(picked, key=lambda e: e[1])]
 
 
-@pytest.mark.parametrize("name", ["tiny_incast3", "tiny_perm4", "tiny_3t",
-                                  "tiny_sparse", "perm_128n_3t"])
-def test_one_tick_from_reference_state(name):
-    jsim, pairs = _reference_pairs(name, FORCED.get(name, ()))
+def check_one_tick(name, forced=(), **overrides):
+    """The port's tick (and horizon) from each of the reference's chosen
+    states; returns the event kinds seen and the largest f32 difference
+    at the forced ticks."""
+    jsim, pairs = _reference_pairs(name, forced, **overrides)
     assert pairs, name
-    tsim = tscen.scenario(name).build(device="cpu")
+    tsim = tscen.scenario(name, **overrides).build(device="cpu")
     if name == "tiny_sparse":
         assert tsim.dims.FMAX > 1          # the rr_pick arbitration runs
     kinds = set()
@@ -120,12 +124,20 @@ def test_one_tick_from_reference_state(name):
                 u = _ulp(a, b)
                 worst[n] = max(worst.get(n, 0), u)
                 assert u <= ULP_BUDGET, (name, t, n, u)
-                if t in FORCED.get(name, ()):
+                if t in forced:
                     at_forced = max(at_forced, u)
             else:
                 np.testing.assert_array_equal(a, b, err_msg=f"{name} t={t} {n}")
-    print(f"{name}: {len(pairs)} ticks {[p[0] for p in pairs]}, events {sorted(kinds)}, "
-          f"largest f32 difference (ULP) {({k: v for k, v in worst.items() if v})}")
+    print(f"{name} {overrides}: {len(pairs)} ticks {[p[0] for p in pairs]}, events "
+          f"{sorted(kinds)}, largest f32 difference (ULP) "
+          f"{({k: v for k, v in worst.items() if v})}")
+    return kinds, at_forced, [p[0] for p in pairs]
+
+
+@pytest.mark.parametrize("name", ["tiny_incast3", "tiny_perm4", "tiny_3t",
+                                  "tiny_sparse", "perm_128n_3t"])
+def test_one_tick_from_reference_state(name):
+    kinds, at_forced, _ = check_one_tick(name, FORCED.get(name, ()))
     if name == "perm_128n_3t":
         assert {"trim", "retx", "qa_fire", "ack", "deliver"} <= kinds
         # one ULP where XLA:CPU fuses the multiply-add (a CPU with FMA),
