@@ -12,12 +12,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card at its paths' shapes plus ragged and edge cases: the
                five simulator kernels bit for bit; flash_attention within
-               2e-5 (f32) / 2e-2 (bf16) and ssd_chunk_scan within 2e-4.
+               2e-5 (f32, the SIMT kernel) / 2e-2 (bf16, the tensor-core
+               kernel; every masking and ragged case in both dtypes, the
+               launch counted on the dtype's kernel, a misaligned bf16
+               view refused) and ssd_chunk_scan within 2e-4.
                Device times of kernel and plain version (CUDA-graph
                replay) beside the least time the card could take (bytes
                at 3.35 TB/s or operations at the peak rate of their type,
                whichever is larger) and, where one PyTorch call computes
-               the same function (SDPA for flash_attention), its time
+               the same function (SDPA for flash_attention), its time;
+               for flash_attention also the SIMT kernel's time on the
+               same bf16 inputs (variant="simt"), the earlier design
   4. main path — perm_1024n_3t (the paper's 1024-node, three-tier fat
                tree) and alltoall_3t end to end through the kernels; launch
                counts reset just before each run and read just after; the
@@ -46,12 +51,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
                tokens) through serve.generate; launch counts reset just
                before each generate and read just after (flash_attention
-               28 per qwen3 prefill, ssd_chunk_scan 48 per mamba2 prefill,
-               neither in decode); prefill logits and caches and the
-               teacher-forced logits and tokens against the same model
-               served through the plain versions on the card; time to
-               first token, decode tokens/s, peak memory and the device's
-               idle share while decoding
+               28 per qwen3 prefill, all on the tensor-core kernel;
+               ssd_chunk_scan 48 per mamba2 prefill; neither in decode);
+               prefill logits and caches and the teacher-forced logits
+               and tokens against the same model served through the
+               plain versions on the card; time to first token, decode
+               tokens/s, peak memory and the device's idle share while
+               decoding
   6. profile — where perm_1024n_3t's tick time goes
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
@@ -60,6 +66,7 @@ power limit come on a line before them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -258,7 +265,8 @@ def phase_build():
     log(f"[build] {len(list(build.CSRC.glob('*.cu')))} sources -> "
         f"{info['path'].relative_to(ROOT)} in {info['seconds']:.2f} s")
     for line in info["log"].splitlines():
-        if "registers" in line or line.startswith("=="):
+        if any(w in line for w in ("registers", "spill", "Compiling entry")) \
+                or line.startswith("=="):
             log(f"[build]   {line.strip()}")
     build.library()
 
@@ -604,10 +612,18 @@ def phase_comparison(smartt_ticks_per_s):
 # ------------------------------------------- 3b. kernels of the serving path
 
 # (b, hq, hkv, sq, sk, d, causal, window, dtype); the first is timed:
-# qwen3-0.6b's prefill at B=4, S=512 (GQA 16/8, head_dim 128, bf16)
+# qwen3-0.6b's prefill at B=4, S=512 (GQA 16/8, head_dim 128, bf16).
+# bf16 goes to the tensor-core kernel (flash_attn_tc.cu), f32 to the SIMT
+# kernel (flash_attn.cu); every masking and ragged case runs in both.
 FLASH_CASES = (
     (4, 16, 8, 512, 512, 128, True, 0, torch.bfloat16),
     (2, 16, 8, 300, 300, 128, True, 0, torch.bfloat16),    # ragged prompt
+    (1, 2, 1, 100, 300, 64, True, 0, torch.bfloat16),       # Sq != Sk
+    (1, 2, 2, 130, 70, 32, True, 0, torch.bfloat16),        # rows with no key
+    (2, 4, 2, 1, 77, 16, True, 0, torch.bfloat16),          # one query row
+    (1, 2, 1, 300, 300, 64, True, 50, torch.bfloat16),      # sliding window
+    (1, 2, 2, 90, 200, 48, False, 40, torch.bfloat16),
+    (2, 4, 2, 200, 200, 96, True, 0, torch.bfloat16),       # D = 96, padded to 128
     (4, 16, 8, 512, 512, 128, True, 0, torch.float32),
     (1, 2, 1, 100, 300, 64, True, 0, torch.float32),        # Sq != Sk
     (1, 2, 2, 130, 70, 32, True, 0, torch.float32),         # rows with no key
@@ -671,7 +687,14 @@ def serve_kernel_checks(dev):
     for case in FLASH_CASES:
         b, hq, hkv, sq, sk, d, causal, win, dt = case
         q, k, v = flash_inputs(b, hq, hkv, sq, sk, d, dt)
+        kind = "tc" if dt == torch.bfloat16 else "simt"
+        before = (FK.flash_attention.launches_tc, FK.flash_attention.launches_simt)
         out = FK.flash_attention(q, k, v, causal=causal, window=win)
+        moved = (FK.flash_attention.launches_tc - before[0],
+                 FK.flash_attention.launches_simt - before[1])
+        if moved != ((1, 0) if kind == "tc" else (0, 1)):
+            fail(f"flash_attention {case[:8]} {dt}: launches (tc, simt) moved by "
+                 f"{moved}, expected one {kind} launch")
         ref = FR.flash_attention_ref(q, k, v, causal=causal, window=win)
         torch.cuda.synchronize()
         if out.shape != ref.shape or out.dtype != dt:
@@ -679,15 +702,34 @@ def serve_kernel_checks(dev):
         err = max_abs_err(out, ref)
         if not err <= FLASH_TOL[dt]:
             fail(f"flash_attention {case[:8]} {dt}: max abs error {err} against its "
-                 f"plain version (tolerance {FLASH_TOL[dt]})")
+                 f"plain version (tolerance {FLASH_TOL[dt]}, {kind} kernel)")
         errs[dt] = max(errs.get(dt, 0.0), err)
+    # a view the tensor-core kernel does not take is refused, not rerouted
+    q, k, v = flash_inputs(1, 2, 2, 64, 64, 72, torch.bfloat16)
+    n0 = FK.flash_attention.launches
+    try:
+        FK.flash_attention(q[..., 1:65], k[..., :64], v[..., :64])
+    except ValueError as e:
+        log(f"[kernels] flash_attention refuses a misaligned bf16 view: {e}")
+    else:
+        fail("flash_attention took a bf16 view whose rows are not 16-byte aligned")
+    if FK.flash_attention.launches != n0:
+        fail("flash_attention launched on a misaligned bf16 view")
     b, hq, hkv, s, _, d, causal, win, dt = FLASH_CASES[0]
     q, k, v = flash_inputs(b, hq, hkv, s, s, d, dt)
+    simt = FK.flash_attention(q, k, v, causal=True, variant="simt")
+    simt_err = max_abs_err(simt, FR.flash_attention_ref(q, k, v, causal=True))
+    if not simt_err <= FLASH_TOL[dt]:
+        fail(f"flash_attention (simt) {FLASH_CASES[0][:8]} {dt}: max abs error "
+             f"{simt_err} (tolerance {FLASH_TOL[dt]})")
     rec = dict(shape=f"q [{b}, {hq}, {s}, {d}], kv [{b}, {hkv}, {s}, {d}] bf16",
                max_abs_err=errs[torch.bfloat16], max_abs_err_f32=errs[torch.float32],
                **timings(lambda: FK.flash_attention(q, k, v, causal=True),
                          lambda: FR.flash_attention_ref(q, k, v, causal=True),
                          iters=20, plain_per_graph=2),
+               simt_ms=device_ms(lambda: FK.flash_attention(q, k, v, causal=True,
+                                                            variant="simt"), per_graph=10),
+               simt_max_abs_err=simt_err,
                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=True, enable_gqa=True)),
                **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
@@ -737,6 +779,9 @@ def serve_kernel_checks(dev):
             f"{rec['bf16_flops']:.4g} bf16 + {rec['f32_flops']:.4g} f32 FLOP); a call "
             f"with the host's work: kernel {rec['call_ms'] * 1e3:.1f} us, plain "
             f"{rec['plain_call_ms'] * 1e3:.1f} us")
+    log(f"[kernels] flash_attention  the SIMT kernel (flash_attn.cu) on the same bf16 "
+        f"inputs: {records['flash_attention']['simt_ms'] * 1e3:.1f} us, max abs err "
+        f"{records['flash_attention']['simt_max_abs_err']}")
     return records
 
 
@@ -744,6 +789,7 @@ def serve_kernel_checks(dev):
 
 SERVE_MODELS = (("qwen3-0.6b", "flash_attention"), ("mamba2-780m", "ssd_chunk_scan"))
 SERVE_REQUESTS = ((4, 512, 32), (2, 300, 32))    # (batch, prompt tokens, new tokens)
+TTFT_REPEATS = 11
 # Kernel against plain on the card, same weights.  The kernels sum in
 # another order than the plain versions, so now and then a bf16 activation
 # rounds the other way (one bf16 ULP, 2^-8 relative).
@@ -802,6 +848,26 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+@contextlib.contextmanager
+def attention_variant(variant):
+    """Route the model's flash_attention calls (the ``"kernel"`` backend)
+    to one kernel, ``"tc"`` or ``"simt"``; ``None`` leaves the choice to
+    the dtype."""
+    from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
+    fn = FO.flash_attention
+
+    def routed(q, k, v, *, causal=True, window=0, backend="kernel"):
+        if backend != "kernel":
+            fail(f"attention_variant({variant!r}) routes the kernel backend only")
+        return FK.flash_attention(q, k, v, causal=causal, window=window, variant=variant)
+    if variant is not None:
+        FO.flash_attention = routed
+    try:
+        yield
+    finally:
+        FO.flash_attention = fn
+
+
 def all_counters():
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -810,12 +876,19 @@ def all_counters():
 
 
 def reset_counts():
+    from repro_torch.kernels.flash_attn import kernel as FK
     for fn in all_counters().values():
         fn.launches = 0
+    FK.reset_launches()
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in all_counters().items()}
+    """Launches by kernel, and flash_attention's by variant ("tc" bf16,
+    "simt" f32)."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    fa = FK.flash_attention
+    return {**{k: fn.launches for k, fn in all_counters().items()},
+            "flash_attention:tc": fa.launches_tc, "flash_attention:simt": fa.launches_simt}
 
 
 def decode_idle_share(model, prompt, max_len, steps=8):
@@ -883,13 +956,23 @@ def serve_request(model, kname, b, s, new, dev):
              f"{bad} (tolerance {SERVE_LAYER_TOL} a layer, {SERVE_MAX_TOL} for the "
              f"logits)")
 
-    # time to first token: prefill + argmax, the median of three
-    ttft = {}
-    for backend in ("kernel", "plain"):
-        model.backend = backend
-        ts = sorted(timed(lambda: lm.prefill(model, prompt, max_len)[0][:, -1, :cfg.vocab]
-                          .argmax(-1))[1] for _ in range(3))
-        ttft[backend] = ts[1]
+    # time to first token: prefill + argmax, the median of TTFT_REPEATS,
+    # the backends in turns; for qwen3 also through the SIMT attention
+    # kernel (the earlier design), so the two kernels' TTFT share one
+    # call's host (host-bound: its spread is wider than 28 launches'
+    # difference, so the samples are many and interleaved)
+    ways = ("kernel", "plain") + (("simt",) if kname == "flash_attention" else ())
+    ts = {w: [] for w in ways}
+    for _ in range(TTFT_REPEATS):
+        for w in ways:
+            model.backend = "plain" if w == "plain" else "kernel"
+            with attention_variant("simt" if w == "simt" else None):
+                ts[w].append(timed(lambda: lm.prefill(model, prompt, max_len)[0]
+                                   [:, -1, :cfg.vocab].argmax(-1))[1])
+    ts = {w: sorted(v) for w, v in ts.items()}
+    ttft = {w: v[len(v) // 2] for w, v in ts.items()}
+    quart = {w: (round(v[len(v) // 4] * 1e3, 2), round(v[(3 * len(v)) // 4] * 1e3, 2))
+             for w, v in ts.items()}
 
     # the path: generate through the kernels, counts at 0 just before
     model.backend = "kernel"
@@ -900,6 +983,8 @@ def serve_request(model, kname, b, s, new, dev):
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in launches}
     want[kname] = cfg.n_layers
+    if kname == "flash_attention":              # bf16: every launch on the tensor cores
+        want["flash_attention:tc"] = cfg.n_layers
     if launches != want:
         fail(f"{tag}: generate launched {launches}, expected {want} (one "
              f"{kname} a layer in the prefill, none in decode)")
@@ -936,14 +1021,21 @@ def serve_request(model, kname, b, s, new, dev):
              f"decided)")
     same = int((toks_p == toks).all(dim=1).sum())
     rate = {k: b * new / (g - ttft[k]) for k, g in (("kernel", gen_s), ("plain", gen_p))}
-    log(f"[serve] {tag}: launches {kname} {launches[kname]} (0 in decode); TTFT kernel "
-        f"{ttft['kernel'] * 1e3:.2f} ms, plain {ttft['plain'] * 1e3:.2f} ms; decode "
+    simt = (f" (tensor-core {launches['flash_attention:tc']})" if "simt" in ttft else "")
+    simt_ttft = (f" (attention on the SIMT kernel {ttft['simt'] * 1e3:.2f} ms)"
+                 if "simt" in ttft else "")
+    log(f"[serve] {tag}: launches {kname} {launches[kname]}{simt}, 0 in decode; TTFT "
+        f"kernel {ttft['kernel'] * 1e3:.2f} ms{simt_ttft}, plain "
+        f"{ttft['plain'] * 1e3:.2f} ms (quartiles, ms: {quart}); decode "
         f"kernel {rate['kernel']:.1f} tok/s, plain {rate['plain']:.1f} tok/s; generate "
         f"{gen_s:.3f} s (plain {gen_p:.3f} s); peak memory {peak / 2**30:.3f} GiB; "
         f"errors vs plain {errs}; {int(decided.sum())}/{decided.numel()} tokens decided "
         f"by the margin, all agree; {same}/{b} rows of greedy tokens identical")
     return dict(launches=launches[kname], ttft_ms=ttft["kernel"] * 1e3,
-                ttft_plain_ms=ttft["plain"] * 1e3, decode_tok_s=rate["kernel"],
+                ttft_plain_ms=ttft["plain"] * 1e3,
+                ttft_simt_ms=ttft["simt"] * 1e3 if "simt" in ttft else None,
+                ttft_quartiles_ms=quart,
+                decode_tok_s=rate["kernel"],
                 decode_tok_s_plain=rate["plain"], generate_s=gen_s,
                 generate_plain_s=gen_p, peak_bytes=peak, errors=errs,
                 decided=int(decided.sum()), tokens=decided.numel(),
@@ -1104,7 +1196,7 @@ def main():
         "red_mark": ("src/repro_torch/csrc/red_mark.cu",
                      "src/repro/kernels/red_mark/kernel.py:42",
                      f"red_mark check (perm_1024n_3t, ticks 0-{RED_MARK_TICKS - 1})"),
-        "flash_attention": ("src/repro_torch/csrc/flash_attn.cu",
+        "flash_attention": ("src/repro_torch/csrc/flash_attn_tc.cu",
                             "src/repro/kernels/flash_attn/kernel.py:65",
                             f"serve qwen3-0.6b {first}"),
         "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_scan.cu",
@@ -1124,7 +1216,9 @@ def main():
             bound_ms=rec["bound_ms"], bound_by=rec.get("bound_by", "bytes"),
             library_ms=rec.get("library_ms"),
             shape=rec["shape"], call_ms=rec["call_ms"],
-            plain_call_ms=rec["plain_call_ms"]))
+            plain_call_ms=rec["plain_call_ms"],
+            **({"simt_ms": rec["simt_ms"], "simt_source": "src/repro_torch/csrc/flash_attn.cu"}
+               if "simt_ms" in rec else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    ticks_per_s=v["ticks"] / v["wall"],
                    plain_ticks_per_s=v["ticks"] / v["wall_plain"],

@@ -1,12 +1,19 @@
-"""ctypes wrapper of the CUDA ``flash_attention`` kernel (``csrc/flash_attn.cu``).
+"""ctypes wrapper of the CUDA ``flash_attention`` kernels.
+
+The dtype decides which kernel takes a call (:func:`variant`), one rule
+with no fallback: f32 goes to the SIMT kernel (``csrc/flash_attn.cu``),
+bf16 to the tensor-core kernel (``csrc/flash_attn_tc.cu``), which takes a
+head dim that is a multiple of 8 and rows that are 16-byte aligned; bf16
+operands it does not take raise ``ValueError``.
 
 The wrapper checks every operand (device, dtype, shape, a unit innermost
-stride: the kernel takes the other strides, so ``gqa``'s ``[B, S, H, D]``
--> ``[B, H, S, D]`` transposes reach it without a copy), allocates the
+stride: the kernels take the other strides, so ``gqa``'s ``[B, S, H, D]``
+-> ``[B, H, S, D]`` transposes reach them without a copy), allocates the
 output as a ``[B, Hq, Sq, D]`` view of ``[B, Sq, Hq, D]`` storage (so the
 caller's transpose back is free), launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in
-``flash_attention.launches``.
+``flash_attention.launches``, and by kernel in ``launches_tc`` and
+``launches_simt``.
 """
 
 from __future__ import annotations
@@ -19,11 +26,15 @@ from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 D_MAX = 128
+TC_ALIGN = 8            # elements: 16 bytes of bf16, one cp.async chunk
+VARIANTS = ("tc", "simt")
 _LL = ctypes.c_longlong
+_LAUNCHERS = {"tc": "repro_flash_attention_tc", "simt": "repro_flash_attention"}
 
 
 class _Args(ctypes.Structure):
-    """Mirror of ``struct FlashArgs`` (field order is the C order)."""
+    """Mirror of ``struct FlashArgs`` (field order is the C order), the
+    argument struct of both kernels."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "o")]
                 + [(f"{t}_s{a}", _LL) for t in "qkvo" for a in "bhs"]
                 + [(n, ctypes.c_int) for n in ("b", "hq", "hkv", "sq", "sk", "d",
@@ -31,16 +42,51 @@ class _Args(ctypes.Structure):
                 + [("scale", ctypes.c_float)])
 
 
-def _fn():
-    fn = build.library().repro_flash_attention
+def _fn(kind: str):
+    fn = getattr(build.library(), _LAUNCHERS[kind])
     fn.argtypes = [_Args, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """Launch the kernel on CUDA tensors; q ``[B, Hq, Sq, D]``, k/v
-    ``[B, Hkv, Sk, D]``, f32 or bf16, ``D <= 128``, ``Hq % Hkv == 0``."""
+def _check_tc(q, k, v) -> None:
+    """Raise ``ValueError`` unless the tensor-core kernel takes the
+    operands: bf16, head dim a multiple of 8, every row 16-byte aligned
+    (pointer and the b, h, s strides) with a unit innermost stride."""
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core kernel takes bf16, got {q.dtype}")
+    if q.shape[-1] % TC_ALIGN:
+        raise ValueError(f"head dim {q.shape[-1]}: the tensor-core kernel takes a "
+                         f"multiple of {TC_ALIGN}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.data_ptr() % 16 or t.stride(-1) != 1
+                or any(s % TC_ALIGN for s in t.stride()[:-1])):
+            raise ValueError(f"{name}: rows not 16-byte aligned for the tensor-core "
+                             f"kernel (address {t.data_ptr()} mod 16 = "
+                             f"{t.data_ptr() % 16}, strides {t.stride()})")
+
+
+def variant(q, k, v) -> str:
+    """The kernel that takes ``flash_attention(q, k, v)``: ``"simt"`` for
+    f32, ``"tc"`` for bf16 (after :func:`_check_tc`, which raises
+    ``ValueError`` if the tensor-core kernel does not take the operands)."""
+    if q.dtype == torch.bfloat16:
+        _check_tc(q, k, v)
+        return "tc"
+    return "simt"
+
+
+_by_dtype = variant     # flash_attention's keyword of the same name shadows it
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    variant: str | None = None):
+    """Launch a kernel on CUDA tensors; q ``[B, Hq, Sq, D]``, k/v
+    ``[B, Hkv, Sk, D]``, f32 or bf16, ``D <= 128``, ``Hq % Hkv == 0``.
+
+    ``variant`` (``"tc"`` or ``"simt"``) names the kernel; left ``None``,
+    the dtype decides (:func:`variant`).  Only the card's checks name it,
+    to time the SIMT kernel on bf16 beside the tensor-core one."""
     dev = q.device
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k: expected [B, H, S, D], got {tuple(q.shape)}, "
@@ -55,6 +101,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     ptrs = dict(q=build.require(q, "q", q.dtype, (b, hq, sq, d), dev, last_dim_only=True),
                 k=build.require(k, "k", q.dtype, (b, hkv, sk, d), dev, last_dim_only=True),
                 v=build.require(v, "v", q.dtype, (b, hkv, sk, d), dev, last_dim_only=True))
+    if variant not in (None, *VARIANTS):
+        raise ValueError(f"variant {variant!r}: expected one of {VARIANTS} or None")
+    if variant == "tc":
+        _check_tc(q, k, v)
+    kind = variant or _by_dtype(q, k, v)
     build.on_card(dev, "flash_attention")
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
     strides = {f"{n}_s{a}": t.stride(i) for n, t in zip("qkvo", (q, k, v, out))
@@ -63,9 +114,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                  **strides, b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d,
                  causal=int(bool(causal)), window=int(window),
                  dtype=DTYPES[q.dtype], scale=d ** -0.5)
-    build.check(_fn()(args, build.stream(dev)), "flash_attention")
+    build.check(_fn(kind)(args, build.stream(dev)), f"flash_attention ({kind})")
     flash_attention.launches += 1
+    setattr(flash_attention, f"launches_{kind}",
+            getattr(flash_attention, f"launches_{kind}") + 1)
     return out
 
 
-flash_attention.launches = 0
+def reset_launches() -> None:
+    """Set the total and both per-kernel counts to 0."""
+    flash_attention.launches = flash_attention.launches_tc = \
+        flash_attention.launches_simt = 0
+
+
+reset_launches()

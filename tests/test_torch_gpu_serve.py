@@ -6,7 +6,8 @@ reduced model served through the kernels against the same model served
 through the plain versions on the card.
 
 Tolerances: f32 attention 2e-5 and SSD 2e-4 (the order of the sums
-differs only); bf16 attention 2e-2 (one bf16 rounding of the output).
+differs only); bf16 attention 2e-2 (one bf16 rounding of the output, and
+of P before P·V in the tensor-core kernel).
 
 Every test is marked ``gpu`` and skips without a card; whether there is
 one is decided inside the fixture.  This file imports no JAX, so it runs
@@ -45,7 +46,9 @@ def _err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
-# (b, hq, hkv, sq, sk, d, causal, window, dtype)
+# (b, hq, hkv, sq, sk, d, causal, window, dtype); bf16 goes to the
+# tensor-core kernel, f32 to the SIMT kernel, so each masking and ragged
+# case runs in both
 FLASH_CASES = [
     (4, 16, 8, 512, 512, 128, True, 0, torch.bfloat16),     # qwen3-0.6b prefill
     (2, 16, 8, 300, 300, 128, True, 0, torch.bfloat16),     # ragged prompt
@@ -57,6 +60,15 @@ FLASH_CASES = [
     (1, 2, 1, 300, 300, 64, True, 50, torch.float32),
     (1, 2, 2, 70, 130, 16, False, 0, torch.float32),
     (1, 2, 2, 90, 200, 48, False, 40, torch.float32),
+    (1, 2, 2, 128, 128, 64, True, 64, torch.bfloat16),
+    (1, 2, 1, 100, 300, 16, True, 0, torch.bfloat16),       # Sq != Sk
+    (1, 2, 1, 100, 300, 64, True, 0, torch.bfloat16),
+    (1, 2, 2, 130, 70, 32, True, 0, torch.bfloat16),        # rows with no key
+    (2, 4, 2, 1, 77, 16, True, 0, torch.bfloat16),          # one query row
+    (1, 2, 1, 300, 300, 64, True, 50, torch.bfloat16),      # sliding window
+    (1, 2, 2, 70, 130, 16, False, 0, torch.bfloat16),
+    (1, 2, 2, 90, 200, 48, False, 40, torch.bfloat16),
+    (2, 4, 2, 200, 200, 96, True, 0, torch.bfloat16),       # D = 96, padded to 128
 ]
 
 
@@ -68,16 +80,44 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(dt).transpose(1, 2)
     k = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dt).transpose(1, 2)
     v = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dt).transpose(1, 2)
-    n0 = FK.flash_attention.launches
+    fa = FK.flash_attention
+    n0 = (fa.launches, fa.launches_tc, fa.launches_simt)
     out = FK.flash_attention(q, k, v, causal=causal, window=win)
     torch.cuda.synchronize()
-    assert FK.flash_attention.launches == n0 + 1
+    tc = dt == torch.bfloat16
+    assert FK.variant(q, k, v) == ("tc" if tc else "simt")
+    assert (fa.launches, fa.launches_tc, fa.launches_simt) == \
+        (n0[0] + 1, n0[1] + tc, n0[2] + (not tc))
     ref = FR.flash_attention_ref(q, k, v, causal=causal, window=win)
     assert out.dtype == dt and out.shape == ref.shape
     tol = FLASH_F32_TOL if dt == torch.float32 else FLASH_BF16_TOL
     assert _err(out, ref) <= tol
     if dt == torch.float32:
         assert _err(out, FR.attention_ref(q, k, v, causal=causal, window=win)) <= tol
+
+
+def test_flash_attention_simt_variant_on_bf16(cuda):
+    """The SIMT kernel still takes bf16 when asked by name (the card's
+    timing of the earlier design), within the same tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((2, 200, h, 128), generator=g, device=cuda)
+               .to(torch.bfloat16).transpose(1, 2) for h in (8, 4, 4))
+    n0 = FK.flash_attention.launches_simt
+    out = FK.flash_attention(q, k, v, causal=True, variant="simt")
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches_simt == n0 + 1
+    assert _err(out, FR.flash_attention_ref(q, k, v, causal=True)) <= FLASH_BF16_TOL
+
+
+def test_flash_attention_tc_refuses_misaligned_views(cuda):
+    """bf16 operands the tensor-core kernel does not take raise ValueError
+    and launch nothing: no fallback to the SIMT kernel."""
+    x = torch.zeros((1, 64, 2, 72), dtype=torch.bfloat16, device=cuda).transpose(1, 2)
+    n0 = FK.flash_attention.launches
+    for q, k in ((x[..., 1:65], x[..., :64]), (x[..., :20], x[..., :20])):
+        with pytest.raises(ValueError, match="tensor-core kernel"):
+            FK.flash_attention(q, k, k)
+    assert FK.flash_attention.launches == n0
 
 
 # (BH, L, P, N, chunk, B/C dtype)
@@ -134,10 +174,13 @@ def test_reduced_model_serves_through_the_kernels(cuda, arch):
                            generator=torch.Generator(device=cuda).manual_seed(1))
     fn = FK.flash_attention if arch.startswith("qwen3") else SK.ssd_chunk_scan
     other = SK.ssd_chunk_scan if fn is FK.flash_attention else FK.flash_attention
+    FK.reset_launches()
     fn.launches = other.launches = 0
     toks = engine.generate(model, prompt, max_new=5, max_len=43)
     torch.cuda.synchronize()
     assert (fn.launches, other.launches) == (cfg.n_layers, 0)
+    if fn is FK.flash_attention:                # bf16: all on the tensor cores
+        assert (fn.launches_tc, fn.launches_simt) == (cfg.n_layers, 0)
     assert toks.shape == (2, 5) and toks.device.type == "cuda"
     got, _, _ = lm.prefill(model, prompt, 43)
     model.backend = "plain"
