@@ -15,14 +15,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                2e-5 (f32, the SIMT kernel) / 2e-2 (bf16, the tensor-core
                kernel; every masking and ragged case in both dtypes, the
                launch counted on the dtype's kernel, a misaligned bf16
-               view refused) and ssd_chunk_scan within 2e-4.
+               view refused) and ssd_chunk_scan within 2e-4 (B/C in
+               group form; bf16 on the tensor-core kernel, f32 on the
+               SIMT kernel, the launch counted on the dtype's kernel, a
+               misaligned bf16 view refused).
                Device times of kernel and plain version (CUDA-graph
                replay) beside the least time the card could take (bytes
                at 3.35 TB/s or operations at the peak rate of their type,
                whichever is larger) and, where one PyTorch call computes
                the same function (SDPA for flash_attention), its time;
-               for flash_attention also the SIMT kernel's time on the
-               same bf16 inputs (variant="simt"), the earlier design
+               for flash_attention and ssd_chunk_scan also the SIMT
+               kernel's time on the same bf16 inputs (variant="simt"),
+               the earlier design
   4. main path — perm_1024n_3t (the paper's 1024-node, three-tier fat
                tree) and alltoall_3t end to end through the kernels; launch
                counts reset just before each run and read just after; the
@@ -51,8 +55,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
                tokens) through serve.generate; launch counts reset just
                before each generate and read just after (flash_attention
-               28 per qwen3 prefill, all on the tensor-core kernel;
-               ssd_chunk_scan 48 per mamba2 prefill; neither in decode);
+               28 per qwen3 prefill, ssd_chunk_scan 48 per mamba2
+               prefill, all on the tensor-core kernels; neither in
+               decode); TTFT in turns through the kernels, the SIMT
+               kernel and the plain versions;
                prefill logits and caches and the teacher-forced logits
                and tokens against the same model served through the
                plain versions on the card; time to first token, decode
@@ -84,6 +90,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM peak HBM3 bandwidth
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+TF32_FLOP_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak
 F32_FLOP_PER_S = 67e12          # H100 SXM f32 peak outside the tensor cores
 
 # The JAX reference's summaries of the two main-path runs (seed 0), pinned
@@ -632,14 +639,21 @@ FLASH_CASES = (
     (1, 2, 2, 90, 200, 48, False, 40, torch.float32),
 )
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# (BH, L, P, N, chunk, B/C dtype); the first is timed: mamba2-780m's
-# prefill at B=4, S=512 (48 heads, head_dim 64, d_state 128, chunk 128)
+# (BH, BG, L, P, N, chunk, B/C dtype): B/C [BG, L, N] in group form (head
+# row bh reads group row bh // (BH // BG)).  bf16 goes to the tensor-core
+# kernel (ssd_scan_tc.cu), f32 to the SIMT kernel (ssd_scan.cu).  The first
+# is timed: mamba2-780m's prefill operands at B=4, S=512 (48 heads of one
+# group, head_dim 64, d_state 128, chunk 128).
 SSD_CASES = (
-    (192, 512, 64, 128, 128, torch.bfloat16),
-    (96, 384, 64, 128, 128, torch.bfloat16),     # B=2, S=300 padded to 384
-    (4, 100, 64, 128, 100, torch.float32),       # chunk < 128
-    (3, 96, 8, 16, 48, torch.float32),
-    (2, 64, 16, 32, 16, torch.float32),
+    (192, 4, 512, 64, 128, 128, torch.bfloat16),
+    (96, 2, 384, 64, 128, 128, torch.bfloat16),  # B=2, S=300 padded to 384
+    (12, 4, 256, 64, 128, 128, torch.bfloat16),  # (G, rep) = (2, 3), B=2
+    (8, 2, 192, 32, 64, 64, torch.bfloat16),     # chunk 64: a smaller triangle
+    (16, 16, 256, 64, 128, 128, torch.bfloat16),  # one row a head (the JAX layout)
+    (4, 4, 100, 64, 128, 100, torch.float32),    # chunk < 128
+    (3, 3, 96, 8, 16, 48, torch.float32),
+    (2, 2, 64, 16, 32, 16, torch.float32),
+    (12, 4, 96, 16, 32, 48, torch.float32),      # group form on the SIMT kernel
 )
 SSD_TOL = 2e-4
 
@@ -656,13 +670,15 @@ def attn_pairs(sq, sk, causal, window) -> int:
     return n
 
 
-def bound(nbytes, bf16_flops=0.0, f32_flops=0.0):
+def bound(nbytes, bf16_flops=0.0, f32_flops=0.0, tf32_flops=0.0):
     """The least time the card could take: bytes over the memory rate or
     operations over the peak rate of their type, whichever is larger."""
     b = nbytes / HBM_BYTES_PER_S
-    o = bf16_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S
+    o = (bf16_flops / BF16_FLOP_PER_S + f32_flops / F32_FLOP_PER_S
+         + tf32_flops / TF32_FLOP_PER_S)
     return dict(bytes=nbytes, bf16_flops=bf16_flops, f32_flops=f32_flops,
-                bound_ms=max(b, o) * 1e3, bound_by="bytes" if b >= o else "operations")
+                tf32_flops=tf32_flops, bound_ms=max(b, o) * 1e3,
+                bound_by="bytes" if b >= o else "operations")
 
 
 def serve_kernel_checks(dev):
@@ -736,39 +752,73 @@ def serve_kernel_checks(dev):
                        bf16_flops=4 * d * attn_pairs(s, s, True, 0) * b * hq))
     records["flash_attention"] = rec
 
-    err = 0.0
+    errs = {}
     for case in SSD_CASES:
-        bh, L, P, N, chunk, dt = case
-        x = torch.randn((bh, L, P), generator=g, device=dev) * 0.5
-        loga = -torch.randn((bh, L), generator=g, device=dev).abs() * 0.3
-        B = (torch.randn((bh, L, N), generator=g, device=dev) * 0.3).to(dt)
-        C = (torch.randn((bh, L, N), generator=g, device=dev) * 0.3).to(dt)
+        bh, bg, L, P, N, chunk, dt = case
+        x, loga, B, C = ssd_inputs(g, dev, bh, bg, L, P, N, dt)
+        kind = "tc" if dt == torch.bfloat16 else "simt"
+        before = (SK.ssd_chunk_scan.launches_tc, SK.ssd_chunk_scan.launches_simt)
         got = SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk)
+        moved = (SK.ssd_chunk_scan.launches_tc - before[0],
+                 SK.ssd_chunk_scan.launches_simt - before[1])
+        if moved != ((1, 0) if kind == "tc" else (0, 1)):
+            fail(f"ssd_chunk_scan {case[:6]} {dt}: launches (tc, simt) moved by {moved}, "
+                 f"expected one {kind} launch")
         want = SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk)
         torch.cuda.synchronize()
         for name, a, r in zip(("y", "s", "t"), got, want):
             e = max_abs_err(a, r)
             if a.shape != r.shape or not e <= SSD_TOL:
-                fail(f"ssd_chunk_scan {case[:5]} {dt} {name}: max abs error {e} "
-                     f"(tolerance {SSD_TOL}), shapes {tuple(a.shape)} {tuple(r.shape)}")
-            err = max(err, e)
-        if case == SSD_CASES[0]:
-            args = (x, loga, B, C)
-    bh, L, P, N, chunk, dt = SSD_CASES[0]
+                fail(f"ssd_chunk_scan {case[:6]} {dt} {name}: max abs error {e} "
+                     f"(tolerance {SSD_TOL}, {kind} kernel), shapes {tuple(a.shape)} "
+                     f"{tuple(r.shape)}")
+            errs[dt] = max(errs.get(dt, 0.0), e)
+    # a view the tensor-core kernel does not take is refused, not rerouted
+    bh, bg, L, P, N, chunk, dt = SSD_CASES[2]
+    x, loga, B, C = ssd_inputs(g, dev, bh, bg, L, P, N, dt)
+    shifted = torch.empty(B.numel() + 8, dtype=dt, device=dev)[1:B.numel() + 1].view(B.shape)
+    shifted.copy_(B)
+    n0 = SK.ssd_chunk_scan.launches
+    try:
+        SK.ssd_chunk_scan(x, loga, shifted, C, chunk=chunk)
+    except ValueError as e:
+        log(f"[kernels] ssd_chunk_scan refuses a misaligned bf16 view: {e}")
+    else:
+        fail("ssd_chunk_scan took a bf16 B whose rows are not 16-byte aligned")
+    if SK.ssd_chunk_scan.launches != n0:
+        fail("ssd_chunk_scan launched on a misaligned bf16 view")
+    bh, bg, L, P, N, chunk, dt = SSD_CASES[0]
+    x, loga, B, C = ssd_inputs(g, dev, bh, bg, L, P, N, dt)
+    simt = SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk, variant="simt")
+    simt_err = max(max_abs_err(a, r) for a, r in
+                   zip(simt, SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk)))
+    if not simt_err <= SSD_TOL:
+        fail(f"ssd_chunk_scan (simt) {SSD_CASES[0][:6]}: max abs error {simt_err} "
+             f"(tolerance {SSD_TOL})")
     nc, pairs = L // chunk, chunk * (chunk + 1) // 2
-    x, loga, B, C = args
+    out_bytes = 4 * (bh * L * P + bh * nc * N * P + bh * nc)
+    in_bytes = 4 * x.numel() + 4 * loga.numel()
     records["ssd_chunk_scan"] = dict(
-        shape=f"x [{bh}, {L}, {P}] f32, B/C [{bh}, {L}, {N}] bf16, chunk {chunk}",
-        max_abs_err=err,
+        shape=f"x [{bh}, {L}, {P}] f32, B/C [{bg}, {L}, {N}] bf16, chunk {chunk}",
+        max_abs_err=errs[torch.bfloat16], max_abs_err_f32=errs[torch.float32],
         **timings(lambda: SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk),
                   lambda: SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk),
                   iters=20, plain_per_graph=5),
+        simt_ms=device_ms(lambda: SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk,
+                                                    variant="simt"), per_graph=10),
+        simt_max_abs_err=simt_err,
         library_ms=None,
-        # C B^T takes the bf16 inputs; G x and (B o decay)^T x are f32 products
-        **bound(4 * x.numel() + 4 * loga.numel() + 2 * (B.numel() + C.numel())
-                + 4 * (bh * L * P + bh * nc * N * P + bh * nc),
-                bf16_flops=2 * N * pairs * bh * nc,
-                f32_flops=(2 * P * pairs + 2 * chunk * N * P) * bh * nc))
+        # group-form B/C read once; C B^T once a (group, chunk) over the
+        # causal pairs; y = G x (over the causal pairs) and S = (B o dec)^T x
+        # in split TF32, three products each
+        **bound(in_bytes + 2 * (B.numel() + C.numel()) + out_bytes,
+                bf16_flops=2 * N * pairs * bg * nc,
+                tf32_flops=3 * (2 * P * pairs + 2 * chunk * N * P) * bh * nc),
+        # the SIMT kernel's bound in the expanded layout it was written for: B/C
+        # [BH, L, N] and every product in f32 on the CUDA cores
+        simt_bound_ms=bound(in_bytes + 2 * 2 * bh * L * N + out_bytes,
+                            bf16_flops=2 * N * pairs * bh * nc,
+                            f32_flops=(2 * P * pairs + 2 * chunk * N * P) * bh * nc)["bound_ms"])
 
     for name, rec in records.items():
         lib = f"{rec['library_ms'] * 1e3:.1f} us" if rec["library_ms"] else "none"
@@ -776,20 +826,34 @@ def serve_kernel_checks(dev):
             f"against its plain version; device time: kernel {rec['ms'] * 1e3:.1f} us, "
             f"plain {rec['plain_ms'] * 1e3:.1f} us, library {lib}, bound "
             f"{rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({rec['bytes']} B, "
-            f"{rec['bf16_flops']:.4g} bf16 + {rec['f32_flops']:.4g} f32 FLOP); a call "
+            f"{rec['bf16_flops']:.4g} bf16 + {rec['f32_flops']:.4g} f32 + "
+            f"{rec['tf32_flops']:.4g} tf32 FLOP); a call "
             f"with the host's work: kernel {rec['call_ms'] * 1e3:.1f} us, plain "
             f"{rec['plain_call_ms'] * 1e3:.1f} us")
     log(f"[kernels] flash_attention  the SIMT kernel (flash_attn.cu) on the same bf16 "
         f"inputs: {records['flash_attention']['simt_ms'] * 1e3:.1f} us, max abs err "
         f"{records['flash_attention']['simt_max_abs_err']}")
+    log(f"[kernels] ssd_chunk_scan   the SIMT kernel (ssd_scan.cu) on the same bf16 "
+        f"inputs: {records['ssd_chunk_scan']['simt_ms'] * 1e3:.1f} us, max abs err "
+        f"{records['ssd_chunk_scan']['simt_max_abs_err']}; its bound in the expanded "
+        f"layout {records['ssd_chunk_scan']['simt_bound_ms'] * 1e3:.2f} us")
     return records
+
+
+def ssd_inputs(g, dev, bh, bg, L, P, N, dt):
+    """x, loga (f32) and group-form B/C in ``dt``, from the generator."""
+    x = torch.randn((bh, L, P), generator=g, device=dev) * 0.5
+    loga = -torch.randn((bh, L), generator=g, device=dev).abs() * 0.3
+    B = (torch.randn((bg, L, N), generator=g, device=dev) * 0.3).to(dt)
+    C = (torch.randn((bg, L, N), generator=g, device=dev) * 0.3).to(dt)
+    return x, loga, B, C
 
 
 # --------------------------------------------------------- 5. serving
 
 SERVE_MODELS = (("qwen3-0.6b", "flash_attention"), ("mamba2-780m", "ssd_chunk_scan"))
 SERVE_REQUESTS = ((4, 512, 32), (2, 300, 32))    # (batch, prompt tokens, new tokens)
-TTFT_REPEATS = 11
+TTFT_REPEATS = 21
 # Kernel against plain on the card, same weights.  The kernels sum in
 # another order than the plain versions, so now and then a bf16 activation
 # rounds the other way (one bf16 ULP, 2^-8 relative).
@@ -807,6 +871,9 @@ TTFT_REPEATS = 11
 #   top-1 minus top-2 margin exceeds that bound.  The caches' whole-depth
 #   errors are printed beside them.
 SERVE_LAYER_TOL = 2e-2
+# the SIMT kernels that take bf16 when the card's checks name variant="simt"
+SIMT_SOURCES = {"flash_attention": "src/repro_torch/csrc/flash_attn.cu",
+                "ssd_chunk_scan": "src/repro_torch/csrc/ssd_scan.cu"}
 SERVE_MAX_TOL = 5e-2
 
 
@@ -849,6 +916,26 @@ def timed(fn):
 
 
 @contextlib.contextmanager
+def ssd_variant(variant):
+    """Route the model's ssd_chunk_scan calls (the ``"kernel"`` backend)
+    to one kernel, ``"tc"`` or ``"simt"``; ``None`` leaves the choice to
+    the dtype."""
+    from repro_torch.kernels.ssd_scan import kernel as SK, ops as SO
+    fn = SO.ssd_chunk_scan
+
+    def routed(x, loga, B, C, *, chunk, backend="kernel"):
+        if backend != "kernel":
+            fail(f"ssd_variant({variant!r}) routes the kernel backend only")
+        return SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk, variant=variant)
+    if variant is not None:
+        SO.ssd_chunk_scan = routed
+    try:
+        yield
+    finally:
+        SO.ssd_chunk_scan = fn
+
+
+@contextlib.contextmanager
 def attention_variant(variant):
     """Route the model's flash_attention calls (the ``"kernel"`` backend)
     to one kernel, ``"tc"`` or ``"simt"``; ``None`` leaves the choice to
@@ -877,18 +964,43 @@ def all_counters():
 
 def reset_counts():
     from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.kernels.ssd_scan import kernel as SK
     for fn in all_counters().values():
         fn.launches = 0
     FK.reset_launches()
+    SK.reset_launches()
 
 
 def read_counts():
-    """Launches by kernel, and flash_attention's by variant ("tc" bf16,
-    "simt" f32)."""
+    """Launches by kernel, and flash_attention's and ssd_chunk_scan's by
+    variant ("tc" bf16, "simt" f32)."""
     from repro_torch.kernels.flash_attn import kernel as FK
-    fa = FK.flash_attention
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    fa, ss = FK.flash_attention, SK.ssd_chunk_scan
     return {**{k: fn.launches for k, fn in all_counters().items()},
-            "flash_attention:tc": fa.launches_tc, "flash_attention:simt": fa.launches_simt}
+            "flash_attention:tc": fa.launches_tc, "flash_attention:simt": fa.launches_simt,
+            "ssd_chunk_scan:tc": ss.launches_tc, "ssd_chunk_scan:simt": ss.launches_simt}
+
+
+def prefill_busy_ms(model, prompt, max_len):
+    """Device time of one prefill (the sum of its kernels' device time
+    under torch.profiler) and its wall time, after a warm-up prefill: the
+    device's share of the time to first token."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    lm.prefill(model, prompt, max_len)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm.prefill(model, prompt, max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    busy = sum(dev_us(e) for e in prof.key_averages() if e.device_type.name == "CUDA")
+    return dict(busy_ms=busy / 1e3, wall_ms=wall * 1e3)
 
 
 def decode_idle_share(model, prompt, max_len, steps=8):
@@ -957,20 +1069,28 @@ def serve_request(model, kname, b, s, new, dev):
              f"logits)")
 
     # time to first token: prefill + argmax, the median of TTFT_REPEATS,
-    # the backends in turns; for qwen3 also through the SIMT attention
-    # kernel (the earlier design), so the two kernels' TTFT share one
-    # call's host (host-bound: its spread is wider than 28 launches'
-    # difference, so the samples are many and interleaved)
-    ways = ("kernel", "plain") + (("simt",) if kname == "flash_attention" else ())
+    # the backends in turns, and through the model's kernel's SIMT version
+    # (the earlier design), so the two kernels' TTFT share one call's host
+    # (host-bound: its spread is wider than the launches' difference, so
+    # the samples are many and interleaved)
+    ways = ("kernel", "plain", "simt")
+    route = attention_variant if kname == "flash_attention" else ssd_variant
     ts = {w: [] for w in ways}
     for _ in range(TTFT_REPEATS):
         for w in ways:
             model.backend = "plain" if w == "plain" else "kernel"
-            with attention_variant("simt" if w == "simt" else None):
+            with route("simt" if w == "simt" else None):
                 ts[w].append(timed(lambda: lm.prefill(model, prompt, max_len)[0]
                                    [:, -1, :cfg.vocab].argmax(-1))[1])
     ts = {w: sorted(v) for w, v in ts.items()}
     ttft = {w: v[len(v) // 2] for w, v in ts.items()}
+    busy = {}
+    for w in ways:                              # the device's share of a prefill
+        model.backend = "plain" if w == "plain" else "kernel"
+        with route("simt" if w == "simt" else None):
+            busy[w] = prefill_busy_ms(model, prompt, max_len)
+    log(f"[serve] {tag}: one prefill under torch.profiler, device busy / wall (ms): " +
+        ", ".join(f"{w} {v['busy_ms']:.2f} / {v['wall_ms']:.2f}" for w, v in busy.items()))
     quart = {w: (round(v[len(v) // 4] * 1e3, 2), round(v[(3 * len(v)) // 4] * 1e3, 2))
              for w, v in ts.items()}
 
@@ -983,8 +1103,7 @@ def serve_request(model, kname, b, s, new, dev):
     peak = torch.cuda.max_memory_allocated()
     want = {k: 0 for k in launches}
     want[kname] = cfg.n_layers
-    if kname == "flash_attention":              # bf16: every launch on the tensor cores
-        want["flash_attention:tc"] = cfg.n_layers
+    want[f"{kname}:tc"] = cfg.n_layers          # bf16: every launch on the tensor cores
     if launches != want:
         fail(f"{tag}: generate launched {launches}, expected {want} (one "
              f"{kname} a layer in the prefill, none in decode)")
@@ -1021,11 +1140,9 @@ def serve_request(model, kname, b, s, new, dev):
              f"decided)")
     same = int((toks_p == toks).all(dim=1).sum())
     rate = {k: b * new / (g - ttft[k]) for k, g in (("kernel", gen_s), ("plain", gen_p))}
-    simt = (f" (tensor-core {launches['flash_attention:tc']})" if "simt" in ttft else "")
-    simt_ttft = (f" (attention on the SIMT kernel {ttft['simt'] * 1e3:.2f} ms)"
-                 if "simt" in ttft else "")
-    log(f"[serve] {tag}: launches {kname} {launches[kname]}{simt}, 0 in decode; TTFT "
-        f"kernel {ttft['kernel'] * 1e3:.2f} ms{simt_ttft}, plain "
+    log(f"[serve] {tag}: launches {kname} {launches[kname]} (tensor-core "
+        f"{launches[f'{kname}:tc']}), 0 in decode; TTFT kernel {ttft['kernel'] * 1e3:.2f} "
+        f"ms ({kname} on the SIMT kernel {ttft['simt'] * 1e3:.2f} ms), plain "
         f"{ttft['plain'] * 1e3:.2f} ms (quartiles, ms: {quart}); decode "
         f"kernel {rate['kernel']:.1f} tok/s, plain {rate['plain']:.1f} tok/s; generate "
         f"{gen_s:.3f} s (plain {gen_p:.3f} s); peak memory {peak / 2**30:.3f} GiB; "
@@ -1033,7 +1150,7 @@ def serve_request(model, kname, b, s, new, dev):
         f"by the margin, all agree; {same}/{b} rows of greedy tokens identical")
     return dict(launches=launches[kname], ttft_ms=ttft["kernel"] * 1e3,
                 ttft_plain_ms=ttft["plain"] * 1e3,
-                ttft_simt_ms=ttft["simt"] * 1e3 if "simt" in ttft else None,
+                ttft_simt_ms=ttft["simt"] * 1e3, prefill_busy=busy,
                 ttft_quartiles_ms=quart,
                 decode_tok_s=rate["kernel"],
                 decode_tok_s_plain=rate["plain"], generate_s=gen_s,
@@ -1199,7 +1316,7 @@ def main():
         "flash_attention": ("src/repro_torch/csrc/flash_attn_tc.cu",
                             "src/repro/kernels/flash_attn/kernel.py:65",
                             f"serve qwen3-0.6b {first}"),
-        "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+        "ssd_chunk_scan": ("src/repro_torch/csrc/ssd_scan_tc.cu",
                            "src/repro/kernels/ssd_scan/kernel.py:51",
                            f"serve mamba2-780m {first}"),
     }
@@ -1217,8 +1334,9 @@ def main():
             library_ms=rec.get("library_ms"),
             shape=rec["shape"], call_ms=rec["call_ms"],
             plain_call_ms=rec["plain_call_ms"],
-            **({"simt_ms": rec["simt_ms"], "simt_source": "src/repro_torch/csrc/flash_attn.cu"}
-               if "simt_ms" in rec else {})))
+            **({"simt_ms": rec["simt_ms"], "simt_source": SIMT_SOURCES[k]}
+               if "simt_ms" in rec else {}),
+            **({"simt_bound_ms": rec["simt_bound_ms"]} if "simt_bound_ms" in rec else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    ticks_per_s=v["ticks"] / v["wall"],
                    plain_ticks_per_s=v["ticks"] / v["wall_plain"],

@@ -1,4 +1,7 @@
-// Mamba-2 SSD intra-chunk pass, one block per (sequence*head, chunk):
+// Mamba-2 SSD intra-chunk pass, one block per (sequence*head, chunk), the
+// f32 path of kernels/ssd_scan/kernel.py (bf16 B/C go to ssd_scan_tc.cu,
+// or here with variant="simt"); B and C may come in group form, one row
+// for every `rep` heads (head row bh reads row bh / rep):
 //
 //     L        = cumsum(loga)                             # [chunk]
 //     y_intra  = ((C B^T) o exp(L_i - L_j) o causal) x    # [chunk, P]
@@ -12,7 +15,8 @@
 // src/repro_torch/kernels/ssd_scan/ref.py `ssd_chunk_scan_ref`.
 //
 // Bound on an H100: bytes and operations alike.  mamba2-780m prefill
-// (B=4, S=512, 48 heads, BH=192, chunk=128, N=128, P=64, B and C bf16):
+// (B=4, S=512, 48 heads, BH=192, chunk=128, N=128, P=64, B and C bf16 and
+// expanded to every head, the layout this kernel was first written for):
 // x 25.2 MB + B 25.2 MB + C 25.2 MB + y 25.2 MB + s 25.2 MB = 126 MB, 37.7 us
 // at 3.35 TB/s; C B^T over the causal pairs is 1.62 GFLOP on bf16 inputs
 // (1.6 us at 989 TFLOP/s) and G x and (B o decay)^T x are 2.42 GFLOP of f32
@@ -53,7 +57,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
         const float* __restrict__ x, const float* __restrict__ loga,
         const T* __restrict__ Bm, const T* __restrict__ Cm,
         float* __restrict__ y, float* __restrict__ s, float* __restrict__ t,
-        int L, int P, int N, int chunk) {
+        int L, int P, int N, int chunk, int rep) {
     extern __shared__ float smem[];
     const int nb = N + 1, gb = chunk + 1;
     float* Ls = smem;                   // [chunk] cumulative log-decay
@@ -66,12 +70,13 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
     const int nc = L / chunk;
     const int bh = (int)(blockIdx.x / nc), c = (int)(blockIdx.x % nc);
     const size_t row0 = (size_t)bh * L + (size_t)c * chunk;   // first row of the chunk
+    const size_t grow0 = (size_t)(bh / rep) * L + (size_t)c * chunk;   // of B and C
     const int tid = threadIdx.x;
 
     for (int e = tid; e < chunk * N; e += NT) {
         const int r = e / N, n = e % N;
-        Bs[r * nb + n] = ld_f(Bm + (row0 + r) * N + n);
-        Cs[r * nb + n] = ld_f(Cm + (row0 + r) * N + n);
+        Bs[r * nb + n] = ld_f(Bm + (grow0 + r) * N + n);
+        Cs[r * nb + n] = ld_f(Cm + (grow0 + r) * N + n);
     }
     for (int e = tid; e < chunk * P; e += NT) xs[e] = x[row0 * P + e];
     if (tid == 0) {
@@ -210,7 +215,7 @@ __global__ void __launch_bounds__(NT) ssd_chunk_kernel(
 
 template <typename T>
 int launch(const float* x, const float* loga, const void* B, const void* C,
-           float* y, float* s, float* t, int bh, int L, int P, int N, int chunk,
+           float* y, float* s, float* t, int bh, int rep, int L, int P, int N, int chunk,
            cudaStream_t stream) {
     const size_t smem = smem_bytes(chunk, N, P);
     cudaError_t err = cudaFuncSetAttribute(
@@ -220,19 +225,23 @@ int launch(const float* x, const float* loga, const void* B, const void* C,
     if (blocks > 0)
         ssd_chunk_kernel<T><<<(unsigned)blocks, NT, smem, stream>>>(
             x, loga, static_cast<const T*>(B), static_cast<const T*>(C), y, s, t,
-            L, P, N, chunk);
+            L, P, N, chunk, rep);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// B/C [bg, L, N], bh % bg == 0.
 REPRO_EXPORT int repro_ssd_chunk_scan(const float* x, const float* loga, const void* B,
                                       const void* C, float* y, float* s, float* t,
-                                      int bh, int L, int P, int N, int chunk,
+                                      int bh, int bg, int L, int P, int N, int chunk,
                                       int bc_dtype, void* stream) {
-    if (chunk < 1 || chunk > CHUNK_MAX || L % chunk) return (int)cudaErrorInvalidValue;
+    if (chunk < 1 || chunk > CHUNK_MAX || L % chunk || bg < 1 || bh % bg)
+        return (int)cudaErrorInvalidValue;
+    const int rep = bh / bg;
     return bc_dtype == 1
-        ? launch<__nv_bfloat16>(x, loga, B, C, y, s, t, bh, L, P, N, chunk,
+        ? launch<__nv_bfloat16>(x, loga, B, C, y, s, t, bh, rep, L, P, N, chunk,
                                 (cudaStream_t)stream)
-        : launch<float>(x, loga, B, C, y, s, t, bh, L, P, N, chunk, (cudaStream_t)stream);
+        : launch<float>(x, loga, B, C, y, s, t, bh, rep, L, P, N, chunk,
+                        (cudaStream_t)stream);
 }

@@ -15,10 +15,12 @@ from repro_torch.kernels.ssd_scan import kernel as K
 from repro_torch.kernels.ssd_scan import ref as R
 
 BACKENDS = ("kernel", "plain")
+TILE = K.TC_MULT        # rows a chunk is a multiple of, for the tensor-core kernel
 
 
 def ssd_chunk_scan(x, loga, B, C, *, chunk: int, backend: str = "kernel"):
-    """Intra-chunk pass: ``(y_intra, s_chunk, t_chunk)`` (see ``ref.py``)."""
+    """Intra-chunk pass: ``(y_intra, s_chunk, t_chunk)`` (see ``ref.py``);
+    B/C ``[BH, L, N]`` or in group form ``[BG, L, N]``."""
     if backend not in BACKENDS:
         raise KeyError(f"unknown SSD backend {backend!r}; have {BACKENDS}")
     if build.use_kernel(backend, x):
@@ -27,10 +29,13 @@ def ssd_chunk_scan(x, loga, B, C, *, chunk: int, backend: str = "kernel"):
 
 
 def _inter_chunk(y_intra, s_chunk, t_chunk, loga, C_mat, chunk):
-    """Combine chunk states and add the cross-chunk correction.
-    Returns (y, final_state [BH, N, P])."""
+    """Combine chunk states and add the cross-chunk correction; C_mat
+    ``[BH, L, N]`` or in group form ``[BG, L, N]`` (read through a grouped
+    product, never expanded).  Returns (y, final_state [BH, N, P])."""
     BH, L, P = y_intra.shape
     NC = L // chunk
+    BG = C_mat.shape[0]
+    rep = R.group_rep(y_intra, C_mat)
     S = torch.zeros(s_chunk.shape[:1] + s_chunk.shape[2:], device=y_intra.device)
     prev = []
     for c in range(NC):
@@ -39,15 +44,16 @@ def _inter_chunk(y_intra, s_chunk, t_chunk, loga, C_mat, chunk):
     prev_states = torch.stack(prev, dim=1)                  # [BH, NC, N, P]
     # y_inter[t] = exp(L_t) * C_t @ S_prev(chunk(t))
     Lc = torch.cumsum(loga.reshape(BH, NC, chunk).float(), dim=-1)
-    Cr = C_mat.reshape(BH, NC, chunk, -1).float()
-    y_inter = torch.einsum("bcin,bcnp->bcip", Cr, prev_states) * \
-        torch.exp(Lc)[..., None]
+    Cr = C_mat.reshape(BG, NC, chunk, -1).float()
+    y_inter = torch.einsum("gcin,grcnp->grcip", Cr,
+                           prev_states.reshape(BG, rep, *prev_states.shape[1:]))
+    y_inter = y_inter.reshape(BH, NC, chunk, P) * torch.exp(Lc)[..., None]
     return y_intra + y_inter.reshape(BH, L, P), S
 
 
 def ssd_with_state(x, loga, B, C, *, chunk: int, backend: str = "kernel"):
     """The chunked SSD (``ssd_jnp_with_state``): y ``[BH, L, P]`` and the
-    final state ``[BH, N, P]``, both f32."""
+    final state ``[BH, N, P]``, both f32; B/C as in :func:`ssd_chunk_scan`."""
     y_intra, s_chunk, t_chunk = ssd_chunk_scan(x, loga, B, C, chunk=chunk,
                                                backend=backend)
     return _inter_chunk(y_intra, s_chunk, t_chunk, loga, C, chunk)

@@ -20,10 +20,31 @@ import torch
 NEG_BIG = -1e30
 
 
+def group_rep(x, B) -> int:
+    """Heads a row of B/C serves, ``BH // BG``; ``ValueError`` unless
+    ``BG`` divides ``BH``."""
+    BH, BG = x.shape[0], B.shape[0]
+    if BG < 1 or BH % BG:
+        raise ValueError(f"B/C have {BG} rows of groups, which does not divide the "
+                         f"{BH} head rows of x")
+    return BH // BG
+
+
+def expand_groups(x, B, C):
+    """B/C in group form ``[BG, L, N]`` -> one row a head ``[BH, L, N]``
+    (head row ``bh`` takes group row ``bh // (BH // BG)``)."""
+    rep = group_rep(x, B)
+    if rep == 1:
+        return B, C
+    return B.repeat_interleave(rep, dim=0), C.repeat_interleave(rep, dim=0)
+
+
 def ssd_chunk_scan_ref(x, loga, B, C, *, chunk: int):
-    """x ``[BH, L, P]``, loga ``[BH, L]``, B/C ``[BH, L, N]`` (any float
-    dtype; f32 inside) -> y ``[BH, L, P]``, s ``[BH, L/chunk, N, P]``,
-    t ``[BH, L/chunk]``, all f32."""
+    """x ``[BH, L, P]``, loga ``[BH, L]``, B/C ``[BH, L, N]`` or in group
+    form ``[BG, L, N]``, ``BH % BG == 0`` (any float dtype; f32 inside) ->
+    y ``[BH, L, P]``, s ``[BH, L/chunk, N, P]``, t ``[BH, L/chunk]``, all
+    f32."""
+    B, C = expand_groups(x, B, C)
     BH, L, P = x.shape
     N = B.shape[-1]
     NC = L // chunk

@@ -3,7 +3,9 @@
 
 Prefill runs the chunked SSD: the intra-chunk pass through the
 ``ssd_chunk_scan`` kernel and the inter-chunk recurrence in plain
-PyTorch; decode updates the ``[B, H, P, N]`` state recurrently.  Casts
+PyTorch, both reading B and C in group form (the reference expands them
+to every head; the function is the same); decode updates the
+``[B, H, P, N]`` state recurrently.  Casts
 mirror the reference: projections and conv outputs bf16, the SSD and the
 caches f32.
 """
@@ -91,25 +93,28 @@ def mamba_apply(p, cfg, x, return_state: bool = False, backend: str = "kernel"):
     xh = xs.reshape(b, sl, h, pdim)
     xbar = xh * dt[..., None]                                  # f32
 
-    # expand groups to heads
-    rep = h // g
-    Bh = Bm.reshape(b, sl, g, n).repeat_interleave(rep, dim=2)
-    Ch = Cm.reshape(b, sl, g, n).repeat_interleave(rep, dim=2)
+    # B and C stay in group form, [B*G, S, N]: head h of sequence b reads
+    # group row (b*H + h) // (H // G), in the SSD kernels and _inter_chunk
+    Bg = Bm.reshape(b, sl, g, n)
+    Cg = Cm.reshape(b, sl, g, n)
 
     # pad to a chunk multiple: x=0 contributes nothing; loga=0 (decay 1)
-    # leaves the carried state untouched, so the final state stays exact
-    chunk = min(s.chunk, sl)
+    # leaves the carried state untouched, so the final state stays exact.
+    # A prompt shorter than a chunk is padded to whole 16-row tiles, the
+    # tensor-core kernel's (the reference takes chunk = sl there: the same
+    # function, summed over a few more zero terms)
+    chunk = min(s.chunk, -(-sl // ssd_ops.TILE) * ssd_ops.TILE)
     pad = (-sl) % chunk
     slp = sl + pad
 
-    def to_bh(t):                        # [B, S, H, *] -> [B*H, S, *]
+    def to_bh(t):                        # [B, S, H, *] -> [B*H, S, *] (H: heads or groups)
         t = F.pad(t, (0, 0, 0, 0, 0, pad))
-        return t.transpose(1, 2).reshape(b * h, slp, t.shape[-1])
+        return t.transpose(1, 2).reshape(b * t.shape[2], slp, t.shape[-1])
 
     loga_p = F.pad(loga, (0, 0, 0, pad))
     y, state = ssd_ops.ssd_with_state(
         to_bh(xbar), loga_p.transpose(1, 2).reshape(b * h, slp),
-        to_bh(Bh), to_bh(Ch), chunk=chunk, backend=backend)
+        to_bh(Bg), to_bh(Cg), chunk=chunk, backend=backend)
     y = y.reshape(b, h, slp, pdim)[:, :, :sl].transpose(1, 2)  # [B, S, H, P]
     y = y + xh.float() * p.Dskip[None, None, :, None]
     y = y.reshape(b, sl, di).to(x.dtype)

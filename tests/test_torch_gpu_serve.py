@@ -6,7 +6,8 @@ reduced model served through the kernels against the same model served
 through the plain versions on the card.
 
 Tolerances: f32 attention 2e-5 and SSD 2e-4 (the order of the sums
-differs only); bf16 attention 2e-2 (one bf16 rounding of the output, and
+differs only; the SSD tensor-core kernel's split TF32 keeps ~21 bits of
+each product); bf16 attention 2e-2 (one bf16 rounding of the output, and
 of P before P·V in the tensor-core kernel).
 
 Every test is marked ``gpu`` and skips without a card; whether there is
@@ -120,32 +121,84 @@ def test_flash_attention_tc_refuses_misaligned_views(cuda):
     assert FK.flash_attention.launches == n0
 
 
-# (BH, L, P, N, chunk, B/C dtype)
+# (BH, BG, L, P, N, chunk, B/C dtype): B/C [BG, L, N], head row bh reads
+# group row bh // (BH // BG); bf16 goes to the tensor-core kernel, f32 to
+# the SIMT kernel
 SSD_CASES = [
-    (192, 512, 64, 128, 128, torch.bfloat16),   # mamba2-780m prefill, B=4, S=512
-    (96, 384, 64, 128, 128, torch.bfloat16),    # B=2, S=300 padded to 3 chunks
-    (2, 64, 16, 32, 16, torch.float32),
-    (1, 128, 64, 128, 32, torch.float32),
-    (3, 96, 8, 16, 48, torch.float32),
-    (4, 100, 64, 128, 100, torch.float32),
+    (192, 192, 512, 64, 128, 128, torch.bfloat16),   # mamba2-780m prefill, one row a head
+    (96, 96, 384, 64, 128, 128, torch.bfloat16),     # B=2, S=300 padded to 3 chunks
+    (2, 2, 64, 16, 32, 16, torch.float32),
+    (1, 1, 128, 64, 128, 32, torch.float32),
+    (3, 3, 96, 8, 16, 48, torch.float32),
+    (4, 4, 100, 64, 128, 100, torch.float32),
+    # bf16 group-form twins (the model's operands: B=4 and B=2, G=1)
+    (192, 4, 512, 64, 128, 128, torch.bfloat16),
+    (96, 2, 384, 64, 128, 128, torch.bfloat16),
+    (2, 1, 64, 16, 32, 16, torch.bfloat16),
+    (4, 1, 128, 64, 128, 32, torch.bfloat16),
+    (3, 1, 96, 8, 16, 48, torch.bfloat16),
+    (12, 4, 256, 64, 128, 128, torch.bfloat16),      # (G, rep) = (2, 3)
+    (8, 2, 192, 32, 64, 64, torch.bfloat16),         # chunk 64
+    (12, 4, 96, 16, 32, 48, torch.float32),          # group form on the SIMT kernel
 ]
+
+
+def _ssd_inputs(device, bh, bg, L, P, N, dt):
+    g = torch.Generator(device=device).manual_seed(L + N)
+    x = torch.randn((bh, L, P), generator=g, device=device) * 0.5
+    loga = -torch.randn((bh, L), generator=g, device=device).abs() * 0.3
+    B = (torch.randn((bg, L, N), generator=g, device=device) * 0.3).to(dt)
+    C = (torch.randn((bg, L, N), generator=g, device=device) * 0.3).to(dt)
+    return x, loga, B, C
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_chunk_scan_kernel_matches_plain(cuda, case):
-    bh, L, P, N, chunk, dt = case
-    g = torch.Generator(device=cuda).manual_seed(L + N)
-    x = torch.randn((bh, L, P), generator=g, device=cuda) * 0.5
-    loga = -torch.randn((bh, L), generator=g, device=cuda).abs() * 0.3
-    B = (torch.randn((bh, L, N), generator=g, device=cuda) * 0.3).to(dt)
-    C = (torch.randn((bh, L, N), generator=g, device=cuda) * 0.3).to(dt)
-    n0 = SK.ssd_chunk_scan.launches
-    got = SK.ssd_chunk_scan(x, loga, B, C, chunk=chunk)
+    bh, bg, L, P, N, chunk, dt = case
+    x, loga, B, C = _ssd_inputs(cuda, bh, bg, L, P, N, dt)
+    fn = SK.ssd_chunk_scan
+    n0 = (fn.launches, fn.launches_tc, fn.launches_simt)
+    got = fn(x, loga, B, C, chunk=chunk)
     torch.cuda.synchronize()
-    assert SK.ssd_chunk_scan.launches == n0 + 1
+    tc = dt == torch.bfloat16
+    assert SK.variant(x, loga, B, C, chunk=chunk) == ("tc" if tc else "simt")
+    assert (fn.launches, fn.launches_tc, fn.launches_simt) == \
+        (n0[0] + 1, n0[1] + tc, n0[2] + (not tc))
     for a, b in zip(got, SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk)):
         assert a.shape == b.shape and a.dtype == torch.float32
         assert _err(a, b) <= SSD_TOL
+
+
+def test_ssd_chunk_scan_simt_variant_on_bf16(cuda):
+    """variant="simt" runs the SIMT kernel on the model's bf16 group-form
+    operands (the card's checks time it beside the tensor-core kernel)."""
+    x, loga, B, C = _ssd_inputs(cuda, 96, 2, 384, 64, 128, torch.bfloat16)
+    fn = SK.ssd_chunk_scan
+    n0 = fn.launches_simt
+    got = fn(x, loga, B, C, chunk=128, variant="simt")
+    torch.cuda.synchronize()
+    assert fn.launches_simt == n0 + 1
+    for a, b in zip(got, SR.ssd_chunk_scan_ref(x, loga, B, C, chunk=128)):
+        assert _err(a, b) <= SSD_TOL
+
+
+def test_ssd_chunk_scan_tc_refuses_what_it_does_not_take(cuda):
+    """bf16 operands the tensor-core kernel does not take raise ValueError
+    and launch nothing (no fallback to the SIMT kernel)."""
+    x, loga, B, C = _ssd_inputs(cuda, 4, 4, 100, 64, 128, torch.bfloat16)
+    shifted = torch.empty(B.numel() + 8, dtype=B.dtype, device=cuda)[1:B.numel() + 1]
+    shifted = shifted.view(B.shape)
+    x2, loga2, B2, C2 = _ssd_inputs(cuda, 4, 2, 128, 64, 24, torch.bfloat16)
+    n0 = SK.ssd_chunk_scan.launches
+    for args, chunk in (((x, loga, B, C), 100),             # chunk not a multiple of 16
+                        ((x, loga, shifted, C), 100),       # B rows not 16-byte aligned
+                        ((x2, loga2, B2, C2), 64)):         # N = 24
+        with pytest.raises(ValueError, match="tensor-core kernel"):
+            SK.ssd_chunk_scan(*args, chunk=chunk)
+    x3, loga3, B3, C3 = _ssd_inputs(cuda, 6, 4, 64, 16, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not divide"):
+        SK.ssd_chunk_scan(x3, loga3, B3, C3, chunk=16)
+    assert SK.ssd_chunk_scan.launches == n0
 
 
 def test_wrappers_refuse_bad_operands(cuda):
@@ -175,12 +228,12 @@ def test_reduced_model_serves_through_the_kernels(cuda, arch):
     fn = FK.flash_attention if arch.startswith("qwen3") else SK.ssd_chunk_scan
     other = SK.ssd_chunk_scan if fn is FK.flash_attention else FK.flash_attention
     FK.reset_launches()
-    fn.launches = other.launches = 0
+    SK.reset_launches()
     toks = engine.generate(model, prompt, max_new=5, max_len=43)
     torch.cuda.synchronize()
     assert (fn.launches, other.launches) == (cfg.n_layers, 0)
-    if fn is FK.flash_attention:                # bf16: all on the tensor cores
-        assert (fn.launches_tc, fn.launches_simt) == (cfg.n_layers, 0)
+    # bf16: every launch on the tensor cores
+    assert (fn.launches_tc, fn.launches_simt) == (cfg.n_layers, 0)
     assert toks.shape == (2, 5) and toks.device.type == "cuda"
     got, _, _ = lm.prefill(model, prompt, 43)
     model.backend = "plain"

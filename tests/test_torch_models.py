@@ -346,20 +346,25 @@ def test_serving_operands_pass_every_wrapper_check(monkeypatch, arch):
     from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.models import lm as tlm
 
-    calls = {}
+    calls, kinds = {}, []
 
-    def rehearse(mod, name, plain):
+    def rehearse(mod, name, plain, kind):
         orig = getattr(mod, name)
 
         def wrapper(*args, **kw):
             with pytest.raises(ValueError, match="needs CUDA tensors"):
                 orig(*args, **kw)
             calls[name] = calls.get(name, 0) + 1
+            kinds.append(kind(*args, **kw))
             return plain(*args, **kw)
         monkeypatch.setattr(mod, name, wrapper)
 
-    rehearse(FK, "flash_attention", flash_ref.flash_attention_ref)
-    rehearse(SK, "ssd_chunk_scan", ssd_ref.ssd_chunk_scan_ref)
+    rehearse(FK, "flash_attention", flash_ref.flash_attention_ref,
+             lambda q, k, v, **_: FK.variant(q, k, v))
+    # bf16 B/C in group form ([B*G, S, N]) go to the tensor-core kernel
+    rehearse(SK, "ssd_chunk_scan", ssd_ref.ssd_chunk_scan_ref,
+             lambda x, loga, B, C, chunk: (SK.variant(x, loga, B, C, chunk=chunk),
+                                           B.shape[0], C.shape[0]))
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     cfg = dataclasses.replace(get_config(arch), n_layers=1)
     model = tlm.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
@@ -367,6 +372,8 @@ def test_serving_operands_pass_every_wrapper_check(monkeypatch, arch):
     tlm.prefill(model, prompt, 140)
     want = "flash_attention" if arch.startswith("qwen3") else "ssd_chunk_scan"
     assert calls == {want: 1}
+    assert kinds == (["tc"] if arch.startswith("qwen3")
+                     else [("tc", 2 * cfg.ssm.n_groups, 2 * cfg.ssm.n_groups)])
 
 
 class _OnCard:
