@@ -11,7 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                in parallel) into build/repro_torch/, print the build time
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card at its paths' shapes plus ragged and edge cases: the
-               five simulator kernels bit for bit; flash_attention within
+               simulator kernels bit for bit (the fused control kernel
+               against control_ref on seeded operands, every flag on and
+               off and a ragged ring, and on the simulator's own states of
+               perm_1024n_3t, alltoall_3t and corefail_128n_3t's first
+               timeouts); flash_attention within
                2e-5 (f32, the SIMT kernel) / 2e-2 (bf16, the tensor-core
                kernel; every masking and ragged case in both dtypes, the
                launch counted on the dtype's kernel, a misaligned bf16
@@ -26,12 +30,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                the same function (SDPA for flash_attention), its time;
                for flash_attention and ssd_chunk_scan also the SIMT
                kernel's time on the same bf16 inputs (variant="simt"),
-               the earlier design
+               the earlier design; for the fused control kernel the split
+               design's ring_drain + cc_update on the same state, and the whole
+               control phase fused against split (device time and
+               launches of one call, captured in a CUDA graph)
   4. main path — perm_1024n_3t (the paper's 1024-node, three-tier fat
-               tree) and alltoall_3t end to end through the kernels; launch
+               tree), alltoall_3t and perm_512n_3t end to end through the
+               kernels, the control phase one fused launch a tick; launch
                counts reset just before each run and read just after; the
-               final states equal to the plain-on-card and CPU runs
-               field by field; the summaries equal to the JAX reference's
+               final states equal to the split-design, plain-on-card and
+               CPU runs field by field; the summaries equal to the JAX
+               reference's; ticks/s in turns (fused, split, plain; TURNS
+               runs a way) on perm_1024n_3t and alltoall_3t
   4b. red_mark — the first 300 ticks of perm_1024n_3t on the card, the
                red_mark kernel beside every tick's departures: its marks
                equal to the flip departures applies (fabric.red_marks on
@@ -44,12 +54,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                runs corefail_128n_3t (without and with the recovery knobs)
                and flap_128n_3t, and the collective allreduce_ring_128n_3t
                (32 512 flows behind the dependency gate).  Each runs whole
-               through the kernels, launch counts reset just before and
-               read just after (cc_update for SMaRTT only, rr_pick where
-               grants or several flows a sender need it); the summary
-               equal to the JAX reference's; the final state equal to the
-               plain-on-card run and to the CPU port's, each over the
-               prefix of ticks COMPARISON_RUNS states
+               through the kernels, the control phase through the fused
+               launch (SMaRTT's update inside it for the SMaRTT runs, in
+               PyTorch for the baselines), launch counts reset just before
+               and read just after; the summary equal to the JAX
+               reference's; the final state equal to the plain-on-card run
+               and to the CPU port's, each over the prefix of ticks
+               COMPARISON_RUNS states
   5. serving — qwen3-0.6b (28 layers) and mamba2-780m (48 layers) at full
                width from a seeded init on the card, each serving two
                requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
@@ -64,7 +75,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                plain versions on the card; time to first token, decode
                tokens/s, peak memory and the device's idle share while
                decoding
-  6. profile — where perm_1024n_3t's tick time goes
+  6. profile — where perm_1024n_3t's tick time goes, through the fused
+               control launch and through the split design: each phase's
+               ms a tick, the device's busy share and kernels a tick; beside
+               them the control phase's launches and device time a call
+               (phase 3: a CUDA graph of the phase, its nodes counted)
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
@@ -102,6 +117,10 @@ REFERENCE = {
     "alltoall_3t": dict(ticks=401, n_done=992, fct_max=417,
                         fct_mean=221.60685483870967, trims=0, retx=0,
                         timeouts=0, acks=7877),
+    # the North star's scenario, pinned by tests/test_torch_pins_perm512.py
+    "perm_512n_3t": dict(ticks=229, n_done=512, fct_max=245,
+                         fct_mean=175.458984375, trims=6008, retx=6008,
+                         timeouts=0, acks=32764),
     # the comparison runs (phase 4c), pinned by tests/test_torch_pins_*.py
     "perm_1024n_3t/swift": dict(ticks=567, n_done=1024, fct_max=583,
                                 fct_mean=361.171875, trims=12536, retx=12536,
@@ -135,30 +154,52 @@ REFERENCE = {
 
 # The comparison runs: (key in REFERENCE, scenario, overrides, kernels on
 # the path, plain-on-card prefix, CPU prefix).  Every run goes whole
-# through the kernels; its final state is held to the plain-on-card run
-# over the whole run (prefix None) or its first `prefix` ticks, and to the
-# CPU port over its first `cpu prefix` ticks (the CPU is 2-20x slower).
-# The fault prefixes cross the first failure (corefail: t = 500; flap:
-# its first down stretch starts at t = 500).
+# through the kernels, its control phase through the fused launch (with
+# SMaRTT's update inside it where the run is SMaRTT's: "control:smartt");
+# its final state is held to the plain-on-card run over the whole run
+# (prefix None) or its first `prefix` ticks, and to the CPU port over its
+# first `cpu prefix` ticks (the CPU is 2-20x slower).  The fault prefixes
+# cross the first failure (corefail: t = 500; flap: its first down
+# stretch starts at t = 500).
 RECOVERY = dict(rto_backoff_max=2, evict_on_timeout=True)   # benchmarks/failover.py
+TICK = ("control", "enqueue_rank")
+SMARTT_TICK = TICK + ("control:smartt",)
 COMPARISON_RUNS = (
-    ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"),
-     ("enqueue_rank", "ring_drain"), None, 150),
-    ("perm_1024n_3t/mprdma", "perm_1024n_3t", dict(algo="mprdma"),
-     ("enqueue_rank", "ring_drain"), None, 150),
+    ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"), TICK, None, 150),
+    ("perm_1024n_3t/mprdma", "perm_1024n_3t", dict(algo="mprdma"), TICK, None, 150),
     ("perm_1024n_3t/eqds", "perm_1024n_3t", dict(algo="eqds"),
-     ("enqueue_rank", "ring_drain", "rr_pick"), None, 150),
+     TICK + ("rr_pick",), None, 150),
     ("incast_256x1_3t/eqds", "incast_256x1_3t", dict(algo="eqds"),
-     ("enqueue_rank", "ring_drain", "rr_pick"), 300, 300),
-    ("corefail_128n_3t", "corefail_128n_3t", {},
-     ("cc_update", "enqueue_rank", "ring_drain"), 540, 540),
-    ("corefail_128n_3t/recovery", "corefail_128n_3t", RECOVERY,
-     ("cc_update", "enqueue_rank", "ring_drain"), 540, 540),
-    ("flap_128n_3t", "flap_128n_3t", {},
-     ("cc_update", "enqueue_rank", "ring_drain"), 540, 540),
+     TICK + ("rr_pick",), 300, 300),
+    ("corefail_128n_3t", "corefail_128n_3t", {}, SMARTT_TICK, 540, 540),
+    ("corefail_128n_3t/recovery", "corefail_128n_3t", RECOVERY, SMARTT_TICK, 540, 540),
+    ("flap_128n_3t", "flap_128n_3t", {}, SMARTT_TICK, 540, 540),
     ("allreduce_ring_128n_3t", "allreduce_ring_128n_3t", {},
-     ("cc_update", "enqueue_rank", "ring_drain", "rr_pick"), 100, 100),
+     SMARTT_TICK + ("rr_pick",), 100, 100),
 )
+# phase 4: the main path's runs (all SMaRTT), and the ways timed in turns
+MAIN_RUNS = (("perm_1024n_3t", SMARTT_TICK), ("alltoall_3t", SMARTT_TICK + ("rr_pick",)),
+             ("perm_512n_3t", SMARTT_TICK))
+TURNS = 5                 # runs a way, in turns: fused, split, plain
+TURN_RUNS = ("perm_1024n_3t", "alltoall_3t")
+# phase 3's fused control kernel against control_ref: seeded operands
+# ((NF, N, W, MAXW, R), seed, flags): one flow, a ragged ring (W = 1024,
+# 13 flows), perm_1024n_3t's shapes with the backoff on, every flag
+# flipped, sixteen flows a receiver ...
+CONTROL_CASES = (
+    ((1, 1, 32, 1, 3), 2, {}),
+    ((13, 5, 1024, 40, 9), 2, dict(smartt=False, credit_based=True)),
+    ((1024, 1024, 64, 2, 40), 3, dict(rto_backoff_max=3)),
+    ((1024, 1024, 64, 2, 40), 4, dict(trimming=False, credit_based=True,
+                                      rto_backoff_max=2, smartt=False)),
+    ((512, 32, 64, 1, 40), 5, dict(credit_based=True)),
+)
+# ... and the simulator's own states: (scenario, ticks); corefail_128n_3t's
+# first timeouts fire at t = 670.  The fused kernel is timed on
+# perm_1024n_3t's state at CONTROL_TIMED (trims and QuickAdapt under way).
+CONTROL_STATES = (("perm_1024n_3t", (100, 300, 700)), ("alltoall_3t", (60, 200)),
+                  ("corefail_128n_3t", tuple(range(665, 690))))
+CONTROL_TIMED = ("perm_1024n_3t", 300)
 RED_MARK_TICKS = 300      # phase 4b: queues load and trims begin by then
 PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
 
@@ -238,6 +279,32 @@ def device_ms(fn, per_graph=50, replays=20) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / (per_graph * replays)
+
+
+def graph_launches(fn):
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    launches: the nodes of a CUDA graph that captures it, counted by
+    ``cuGraphGetNodes``.  None where this PyTorch cannot keep the
+    captured graph."""
+    import ctypes
+    try:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(g):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        fail(f"cuGraphGetNodes returned {rc}")
+    return n.value
 
 
 def timings(kernel, plain, iters=200, plain_per_graph=50) -> dict:
@@ -414,26 +481,188 @@ def kernel_checks(dev, shapes):
     return records
 
 
+def clone_tree(tree):
+    """A copy of every tensor of a NamedTuple state (the fused control
+    phase updates its operands in place)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(clone_tree(x) for x in tree))
+
+
+def control_pair(t, fl, ok, orf, what):
+    """The fused kernel on ``ok`` and ``control_ref`` on ``orf`` (two copies
+    of the same operands): events and operands bit for bit."""
+    from repro_torch.kernels.control import kernel as XK, ref as XR
+    evk = XK.control(t, fl, ok)
+    evr = XR.control_ref(t, fl, orf)
+    torch.cuda.synchronize()
+    bad = [f"event.{n}" for n, a, b in zip(evk._fields, evk, evr) if not bit_equal(a, b)]
+    bad += [n for (n, a), (_, b) in zip(leaves(ok), leaves(orf)) if not bit_equal(a, b)]
+    if bad:
+        fail(f"control {what}: the fused kernel differs from control_ref in {bad}")
+    return evk
+
+
+def control_bytes(sim, st, t, ev) -> int:
+    """Bytes the control phase must move at this state: each input read
+    once, each output written once, counting what this tick's data needs
+    (the send ticks of outstanding slots, the sequence of ACKed and
+    timed-out slots, a dedupe word a timeout)."""
+    d = sim.dims
+    nf, w, n = d.NF, d.W, d.N
+    i = 4
+    timeouts = int(ev.n_timeouts.sum())
+    out = 2 * n * 6 * i                                     # ACK slot: read, zeroed
+    out += nf * (4 * i + 1)                                 # dst size t_start rto done
+    out += 2 * nf * w * i                                   # sent state plane r/w
+    out += int((st.sent[0, :nf] == 1).sum()) * i            # send ticks, live slots
+    out += (timeouts + int(ev.has_ack.sum())) * 2 * i       # seqs; dedupe words
+    if d.trimming:
+        out += (2 * nf + 1) * (2 + d.WW) * i                # trim slot r/w
+    if d.credit_based:
+        out += (2 * nf + 1) * i
+    if d.rto_backoff_max:
+        out += 2 * nf * i
+    out += nf * i                                           # unacked
+    out += nf * (9 * i + 2)                                 # the event buffer
+    out += 2 * nf * 34 + 3 * nf * i                         # SMaRTT planes r/w, brtt trtt mi
+    out += 2 * (64 + 3) * i                                 # the counters
+    return out
+
+
+def control_checks(dev):
+    """The fused control kernel against control_ref on the card: the seeded
+    CONTROL_CASES, then the simulator's own states (CONTROL_STATES) driven
+    through the fused path; timed on CONTROL_TIMED's state against its
+    bound, its plain version, the split design's two kernels (ring_drain +
+    cc_update)
+    on the same state, and the whole phase against the split design's."""
+    from repro_torch.core import registry
+    from repro_torch.kernels import cases
+    from repro_torch.kernels.cc_update import kernel as CK
+    from repro_torch.kernels.control import kernel as XK, ops as XO, ref as XR
+    from repro_torch.kernels.ring_drain import kernel as DK, ops as DO
+    from repro_torch.netsim import scenarios, transport
+
+    for shape, seed, flags in CONTROL_CASES:
+        c = cases.control_case(*shape, seed, **flags)
+        t, fl, ok = cases.control_operands(c, dev)
+        _, _, orf = cases.control_operands(c, dev)
+        ev = control_pair(t, fl, ok, orf, f"{shape} {flags}")
+        s = t % shape[4]
+        if ok.ack_ring[s].any() or ok.trim_ring[s].any() or ok.credit_ring[s].any():
+            fail(f"control {shape} {flags}: a ring slot is not zero after the call")
+        log(f"[kernels] control {str(shape):26s} {str(flags):70s}: bit-equal to "
+            f"control_ref ({int(ev.has_ack.sum())} ACKs, {int(ev.n_timeouts.sum())} "
+            f"timeouts, {int(ev.n_trims.sum())} trims)")
+    timed = None
+    for name, ticks in CONTROL_STATES:
+        sc = scenarios.scenario(name)
+        sim = sc.build(device=dev)
+        fl = transport.flags(sc.cfg, sim.dims)
+        phases = dict(sim.phases)
+        st = sim.init()
+        seen = dict(acks=0, timeouts=0, trims=0)
+        for t in range(max(ticks) + 1):
+            clk = sim.clock0._replace(t=t)
+            st = phases["arrivals"](sim.consts, phases["departures"](sim.consts, st, clk), clk)
+            if t in ticks:
+                if (name, t) == CONTROL_TIMED:
+                    timed = (sim, fl, t, clone_tree(st))
+                ev = control_pair(t, fl, transport.operands(sim.consts, clone_tree(st)),
+                                  transport.operands(sim.consts, clone_tree(st)),
+                                  f"{name} t={t}")
+                seen["acks"] += int(ev.has_ack.sum())
+                seen["timeouts"] += int(ev.n_timeouts.sum())
+                seen["trims"] += int(ev.n_trims.sum())
+            for p in ("control", "grants", "sends", "metrics"):
+                st = phases[p](sim.consts, st, clk)
+            st = st._replace(now=st.now + 1)
+        if not seen["acks"] or (name.startswith("corefail") and not seen["timeouts"]):
+            fail(f"control {name}: the checked ticks hold no ACKs or no timeouts {seen}")
+        log(f"[kernels] control {name} ticks {ticks[0]}..{ticks[-1]} ({len(ticks)}): "
+            f"bit-equal to control_ref on the simulator's states {seen}")
+
+    # ---- times at CONTROL_TIMED's state: fused, plain, the split pair, phases
+    sim, fl, t, base = timed
+    d, c = sim.dims, sim.consts
+    ev = XR.control_ref(t, fl, transport.operands(c, clone_tree(base)))
+    nbytes = control_bytes(sim, base, t, ev)
+    o_k = transport.operands(c, clone_tree(base))
+    o_p = transport.operands(c, clone_tree(base))
+    rec = dict(shape=f"[{d.NF}, {d.W}] ({CONTROL_TIMED[0]} t={t})", max_abs_err=0.0,
+               **timings(lambda: XK.control(t, fl, o_k), lambda: XR.control_ref(t, fl, o_p),
+                         plain_per_graph=10),
+               **bound(nbytes))
+    # the split design's two kernels on the same state, as control_split
+    # hands them over
+    sb = clone_tree(base)
+    cand = sb.ack_ring[t % d.R][c.dst]
+    has = (cand[:, 0] == 1) & (cand[:, 1] == c.flow_ids)
+    ack_seq = torch.where(has, cand[:, 2], 0).contiguous()
+    rto = transport.effective_rto(d, c, sb)
+    started = (t >= c.t_start) & ~sb.done
+    lbits = sb.trim_ring[t % d.R][:d.NF, 2:]
+    drain_args = (rto, started, has, ack_seq, lbits, sb.bitmap[:d.NF],
+                  sb.sent[0, :d.NF], sb.sent[1, :d.NF], sb.sent[2, :d.NF])
+    p_flow = c.cc._replace(**{n: getattr(c.cc, n).to(torch.float32).expand(d.NF).contiguous()
+                              for n in ("brtt", "trtt", "mi")})
+    ev_split = ev._replace(**{k: v.clone() for k, v in ev._asdict().items()})
+    rec["ring_drain_ms"] = device_ms(lambda: DK.ring_drain(t, *drain_args))
+    rec["cc_update_ms"] = device_ms(lambda: CK.cc_update(p_flow, sb.cc, ev_split, t))
+    rec["split_ms"] = rec["ring_drain_ms"] + rec["cc_update_ms"]
+    # the whole phase: the fused launch + ACK fill + REPS against the split glue
+    cc_k = registry.get("smartt", "kernel")
+    run_k, drain_k = XO.get("kernel"), DO.ring_drain
+    clk = sim.clock0._replace(t=t)
+    st_f, st_s = clone_tree(base), clone_tree(base)
+    fused_phase = lambda: transport.control(d, c, cc_k, st_f, clk, run=run_k, fl=fl)  # noqa: E731
+    split_phase = lambda: transport.control_split(d, c, cc_k, st_s, clk,  # noqa: E731
+                                                  drain=drain_k)
+    rec["phase_ms"] = device_ms(fused_phase, per_graph=10)
+    rec["split_phase_ms"] = device_ms(split_phase, per_graph=10)
+    rec["phase_launches"] = graph_launches(fused_phase)
+    rec["split_phase_launches"] = graph_launches(split_phase)
+    rec["phase_call_ms"] = call_ms(fused_phase, 100)
+    rec["split_phase_call_ms"] = call_ms(split_phase, 100)
+    log(f"[kernels] control         {rec['shape']}: device time: fused kernel "
+        f"{rec['ms'] * 1e3:.3f} us, plain {rec['plain_ms'] * 1e3:.3f} us, "
+        f"bound {rec['bound_ms'] * 1e3:.4f} us ({nbytes} B); the split pair on the same "
+        f"state: ring_drain {rec['ring_drain_ms'] * 1e3:.3f} us + cc_update "
+        f"{rec['cc_update_ms'] * 1e3:.3f} us = {rec['split_ms'] * 1e3:.3f} us; the whole "
+        f"phase (device): fused {rec['phase_ms'] * 1e3:.2f} us in "
+        f"{rec['phase_launches']} launches, split {rec['split_phase_ms'] * 1e3:.2f} us in "
+        f"{rec['split_phase_launches']} launches; a call with the host's work: kernel "
+        f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_call_ms'] * 1e3:.1f} us, phase "
+        f"fused {rec['phase_call_ms'] * 1e3:.1f} us, split "
+        f"{rec['split_phase_call_ms'] * 1e3:.1f} us")
+    return rec
+
+
 # --------------------------------------------------------- 4. main path
 
 
 def counters():
     from repro_torch.kernels.cc_update import kernel as CK
+    from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.red_mark import kernel as RK
     from repro_torch.kernels.ring_drain import kernel as DK
-    return {"cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
-            "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick,
-            "red_mark": RK.red_mark}
+    return {"control": XK.control, "cc_update": CK.cc_update,
+            "enqueue_rank": EK.enqueue_rank, "ring_drain": DK.ring_drain,
+            "rr_pick": EK.rr_pick, "red_mark": RK.red_mark}
 
 
 def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
     """Run a scenario (with config ``overrides``) on ``device`` through the
-    ``backend``, to completion or ``max_ticks``; launch counts reset just
-    before the run and read just after."""
+    ``backend`` ("kernel", "plain", or "split": the kernels with the
+    control phase as the ring_drain and cc_update kernels), to completion or
+    ``max_ticks``; launch counts reset just before the run and read just
+    after."""
     from repro_torch.netsim import scenarios
     from repro_torch.netsim.metrics import summarize
-    sc = scenarios.scenario(name, cc_backend=backend, fabric_backend=backend,
+    rest = "kernel" if backend == "split" else backend
+    sc = scenarios.scenario(name, cc_backend=rest, fabric_backend=rest,
                             transport_backend=backend, **overrides)
     sim = sc.build(device=device)
     if device == "cuda":
@@ -450,43 +679,80 @@ def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
     log(f"[main] {tag or name:14s} {device:4s} {backend:6s}: {summ['ticks']} ticks "
         f"({steps} executed) in {wall:.3f} s = {summ['ticks'] / wall:.1f} ticks/s; "
         f"fct_max {summ['fct_max']} fct_mean {summ['fct_mean']} "
-        f"trims {summ['trims']}; launches {launches}")
+        f"trims {summ['trims']}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
     return sim, st, summ, launches, wall
 
 
+def expect_launches(what, launches, on_path, steps):
+    """Each kernel of ``on_path`` launched once an executed tick (rr_pick:
+    at least once), every other kernel never."""
+    want = {k: (steps if k in on_path else 0) for k in launches}
+    if "rr_pick" in on_path:
+        want["rr_pick"] = launches["rr_pick"] if launches["rr_pick"] else 1
+    if launches != want:
+        fail(f"{what}: launches {launches}, expected {want} over {steps} executed ticks")
+
+
+def states_differ(a, b):
+    return [n for (n, x), (_, y) in zip(leaves(a), leaves(b)) if not bit_equal(x, y)]
+
+
+def quartiles(xs):
+    q = np.percentile(np.asarray(xs, np.float64), [25, 50, 75])
+    return dict(q1=float(q[0]), median=float(q[1]), q3=float(q[2]), n=len(xs))
+
+
 def phase_main_path():
+    """The main path's runs (MAIN_RUNS) through the fused control launch:
+    launches, the JAX reference's summary, the final state against the
+    plain-on-card and CPU runs; the split design's run against it; then
+    ticks/s in turns (fused, split, plain) on TURN_RUNS."""
     results = {}
-    for name, on_path in (("perm_1024n_3t", ("cc_update", "enqueue_rank", "ring_drain")),
-                          ("alltoall_3t", ("cc_update", "enqueue_rank", "ring_drain",
-                                           "rr_pick"))):
+    for name, on_path in MAIN_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel")
         steps = sim.stats["steps"]
         if not summ["all_done"]:
             fail(f"{name}: not every flow finished in {summ['ticks']} ticks")
-        for k in on_path:
-            want = steps if k != "rr_pick" else None
-            if launches[k] == 0 or (want is not None and launches[k] != want):
-                fail(f"{name}: {k} launched {launches[k]} times over {steps} "
-                     f"executed ticks")
+        expect_launches(name, launches, on_path, steps)
         for key, val in REFERENCE[name].items():
             if summ[key] != val:
                 fail(f"{name}: {key} = {summ[key]}, the JAX reference gives {val}")
+        _, st_s, _, launches_s, wall_s = run_path(name, "cuda", "split")
+        expect_launches(f"{name} split", launches_s,
+                        ("cc_update", "ring_drain", "enqueue_rank")
+                        + (("rr_pick",) if "rr_pick" in on_path else ()), steps)
         _, st_p, _, launches_p, wall_p = run_path(name, "cuda", "plain")
         if any(launches_p.values()):
             fail(f"{name}: the plain backend launched kernels {launches_p}")
         _, st_c, _, _, wall_c = run_path(name, "cpu", "kernel")
-        for other, label in ((st_p, "plain on the card"), (st_c, "CPU")):
-            bad = [n for (n, a), (_, b) in zip(leaves(st_k), leaves(other))
-                   if not bit_equal(a, b)]
+        for other, label in ((st_s, "split on the card"), (st_p, "plain on the card"),
+                             (st_c, "CPU")):
+            bad = states_differ(st_k, other)
             if bad:
                 fail(f"{name}: final state differs from the {label} run in {bad}")
         for n, a in leaves(st_k):
             if a.is_floating_point() and not bool(torch.isfinite(a).all()):
                 fail(f"{name}: non-finite values in {n}")
-        log(f"[main] {name}: final state bit-equal to the plain-on-card and CPU "
-            f"runs ({len(list(leaves(st_k)))} leaves); summary equals the JAX reference")
-        results[name] = dict(launches=launches, steps=steps, ticks=summ["ticks"],
-                             wall=wall, wall_plain=wall_p, wall_cpu=wall_c)
+        log(f"[main] {name}: final state bit-equal to the split-on-card, plain-on-card "
+            f"and CPU runs ({len(list(leaves(st_k)))} leaves); summary equals the JAX "
+            f"reference")
+        results[name] = dict(launches=launches, launches_split=launches_s, steps=steps,
+                             ticks=summ["ticks"], wall=wall, wall_split=wall_s,
+                             wall_plain=wall_p, wall_cpu=wall_c,
+                             turns={"kernel": [summ["ticks"] / wall],
+                                    "split": [summ["ticks"] / wall_s],
+                                    "plain": [summ["ticks"] / wall_p]})
+    for name in TURN_RUNS:
+        r = results[name]
+        for _ in range(TURNS - 1):
+            for way in ("kernel", "split", "plain"):
+                _, _, summ, _, w = run_path(name, "cuda", way, tag=f"{name} turn")
+                r["turns"][way].append(summ["ticks"] / w)
+        r["ticks_per_s"] = {way: quartiles(v) for way, v in r["turns"].items()}
+        log(f"[main] {name} ticks/s in turns ({TURNS} a way; q1 / median / q3): " + ", ".join(
+            f"{way} {q['q1']:.2f} / {q['median']:.2f} / {q['q3']:.2f}"
+            for way, q in r["ticks_per_s"].items()))
     return results
 
 
@@ -560,15 +826,14 @@ def phase_red_mark(dev):
 
 def phase_comparison(smartt_ticks_per_s):
     """The paper's comparison paths (COMPARISON_RUNS), each whole through
-    the kernels on the card, held to the JAX reference's summary and, over
-    the stated prefixes, to the plain-on-card run and the CPU port."""
+    the kernels on the card (the control phase through the fused launch),
+    held to the JAX reference's summary and, over the stated prefixes, to
+    the plain-on-card run and the CPU port."""
     results = {}
     for key, name, ov, on_path, prefix, cpu_prefix in COMPARISON_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel", tag=key, **ov)
         steps = sim.stats["steps"]
-        want = {k: (steps if k in on_path else 0) for k in launches}
-        if launches != want:
-            fail(f"{key}: launches {launches}, expected {want} over {steps} executed ticks")
+        expect_launches(key, launches, on_path, steps)
         ref = REFERENCE[key]
         if "cct" in ref:
             fin = torch.as_tensor(sim.wl.t_start, dtype=torch.int64) + \
@@ -963,21 +1228,26 @@ def all_counters():
 
 
 def reset_counts():
+    from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.ssd_scan import kernel as SK
     for fn in all_counters().values():
         fn.launches = 0
+    XK.control.launches_smartt = 0
     FK.reset_launches()
     SK.reset_launches()
 
 
 def read_counts():
-    """Launches by kernel, and flash_attention's and ssd_chunk_scan's by
+    """Launches by kernel; the fused control kernel's with SMaRTT's update
+    inside ("control:smartt"); flash_attention's and ssd_chunk_scan's by
     variant ("tc" bf16, "simt" f32)."""
+    from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.ssd_scan import kernel as SK
     fa, ss = FK.flash_attention, SK.ssd_chunk_scan
     return {**{k: fn.launches for k, fn in all_counters().items()},
+            "control:smartt": XK.control.launches_smartt,
             "flash_attention:tc": fa.launches_tc, "flash_attention:simt": fa.launches_simt,
             "ssd_chunk_scan:tc": ss.launches_tc, "ssd_chunk_scan:simt": ss.launches_simt}
 
@@ -997,9 +1267,7 @@ def prefill_busy_ms(model, prompt, max_len):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-    busy = sum(dev_us(e) for e in prof.key_averages() if e.device_type.name == "CUDA")
+    busy = sum(dev_us(e) for e in device_events(prof))
     return dict(busy_ms=busy / 1e3, wall_ms=wall * 1e3)
 
 
@@ -1022,9 +1290,7 @@ def decode_idle_share(model, prompt, max_len, steps=8):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = device_events(prof)
     busy = sum(dev_us(e) for e in events) / 1e6
     top = sorted(events, key=dev_us, reverse=True)[:6]
     return dict(wall_ms_per_step=wall / steps * 1e3,
@@ -1190,16 +1456,28 @@ def phase_serving(dev):
     return results
 
 
-def phase_profile():
-    """Where perm_1024n_3t's time goes on the card: each phase's wall time
+def dev_us(e):
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+
+def device_events(prof):
+    """The device's own events (kernels, copies, fills); CPU operators also
+    carry the device time of what they launched, so they are left out."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+
+
+def profile_way(backend):
+    """perm_1024n_3t through one transport backend ("kernel": the fused
+    control launch; "split": the two earlier kernels): each phase's wall time
     with a synchronize after it over the first PROFILE_TICKS ticks (the
     queues load and trims start within them; this scenario never leaps),
-    then a torch.profiler window of 200 ticks for the device's busy share
+    then a torch.profiler window of 100 ticks for the device's busy share
     and its kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.netsim import scenarios
-    sc = scenarios.scenario("perm_1024n_3t")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    sc = scenarios.scenario("perm_1024n_3t", transport_backend=backend)
     sim = sc.build(device="cuda")
     st = sim.init()
     per = {name: 0.0 for name, _ in sim.phases}
@@ -1214,49 +1492,51 @@ def phase_profile():
             per[name] += time.perf_counter() - t0
         st = st._replace(now=st.now + 1)
         t += 1
-    total = sum(per.values())
-    per_tick = {k: v / t * 1e3 for k, v in per.items()}     # ms a tick
-    log(f"[profile] perm_1024n_3t phases over {t} ticks (synchronized after "
+    per_tick = {k: v / t * 1e3 for k, v in per.items()}
+    total = sum(per_tick.values())
+    log(f"[profile] perm_1024n_3t {backend}: phases over {t} ticks (synchronized after "
         f"each phase): " + ", ".join(
-            f"{k} {per_tick[k]:.3f} ms/tick ({100 * v / total:.1f}%)"
-            for k, v in per.items()))
+            f"{k} {v:.3f} ms/tick ({100 * v / total:.1f}%)" for k, v in per_tick.items()))
 
     st = sim.init()
     for t in range(20):                                  # warm
         st = sim.step(st, t)
     torch.cuda.synchronize()
-    ticks = 200
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ticks = 100
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for t in range(20, 20 + ticks):
             st = sim.step(st, t)
             bool(st.done.all())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    def dev_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-    # the device's own events (kernels, copies, fills); CPU operators also
-    # carry the device time of what they launched, so they are left out
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = device_events(prof)
     busy = sum(dev_us(e) for e in events) / 1e6
     launches = sum(e.count for e in events)
     top = sorted(events, key=dev_us, reverse=True)[:8]
     if not busy:
         log("[profile] torch.profiler recorded no device time: busy share not measured")
-    log(f"[profile] ticks 20-{20 + ticks} under torch.profiler: wall "
-        f"{wall / ticks * 1e3:.3f} ms/tick, device busy {busy / ticks * 1e3:.4f} "
+    log(f"[profile] perm_1024n_3t {backend}: ticks 20-{20 + ticks} under torch.profiler: "
+        f"wall {wall / ticks * 1e3:.3f} ms/tick, device busy {busy / ticks * 1e3:.4f} "
         f"ms/tick ({100 * busy / wall:.2f}% busy, {100 - 100 * busy / wall:.2f}% idle), "
         f"{launches / ticks:.1f} device kernels/tick")
     for e in top:
         log(f"[profile]   {dev_us(e) / ticks:9.3f} us/tick  x{e.count / ticks:5.2f}  "
             f"{e.key[:90]}")
     return dict(phase_ms_per_tick=per_tick,
+                control_share=per_tick["control"] / total,
                 wall_ms_per_tick=wall / ticks * 1e3,
                 device_busy_ms_per_tick=busy / ticks * 1e3,
                 idle_share=1 - busy / wall if busy else None,
                 kernels_per_tick=launches / ticks,
                 top=[dict(name=e.key, us_per_tick=dev_us(e) / ticks,
                           per_tick=e.count / ticks) for e in top])
+
+
+def phase_profile():
+    """Where perm_1024n_3t's tick time goes, through the fused control
+    launch and through the split design (profile_way)."""
+    return {way: profile_way(way) for way in ("kernel", "split")}
 
 
 # ------------------------------------------------------------------ main
@@ -1279,6 +1559,7 @@ def main():
                   N_rr=a2a.dims.N, FMAX_rr=a2a.dims.FMAX)
     log(f"[kernels] main-path shapes {shapes}")
     records = kernel_checks(dev, shapes)
+    records["control"] = control_checks(dev)
     records.update(serve_kernel_checks(dev))
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
@@ -1293,21 +1574,29 @@ def main():
 
     paths = timed_phase("main", phase_main_path)
     log(f"[kernels] launches: " + ", ".join(
-        f"{k}: perm_1024n_3t {paths['perm_1024n_3t']['launches'][k]}, "
-        f"alltoall_3t {paths['alltoall_3t']['launches'][k]}" for k in counters()))
+        f"{k}: perm_1024n_3t {paths['perm_1024n_3t']['launches'][k]} "
+        f"(split {paths['perm_1024n_3t']['launches_split'][k]}), "
+        f"alltoall_3t {paths['alltoall_3t']['launches'][k]} "
+        f"(split {paths['alltoall_3t']['launches_split'][k]})" for k in counters()))
     red = timed_phase("red_mark", phase_red_mark, dev)
     smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
     comparison = timed_phase("comparison", phase_comparison, smartt_rate)
     serving = timed_phase("serving", phase_serving, dev)
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
+    # (source, the TPU kernel it replaces, the path whose launches it reports);
+    # cc_update and ring_drain run on the split design's path since the
+    # control phase became one fused launch
     replaces = {
         "cc_update": ("src/repro_torch/csrc/cc_update.cu",
-                      "src/repro/kernels/cc_update/kernel.py:60", "perm_1024n_3t"),
+                      "src/repro/kernels/cc_update/kernel.py:60", "perm_1024n_3t split"),
         "enqueue_rank": ("src/repro_torch/csrc/enqueue_rank.cu",
                          "src/repro/kernels/enqueue_arb/kernel.py:56", "perm_1024n_3t"),
         "ring_drain": ("src/repro_torch/csrc/ring_drain.cu",
-                       "src/repro/kernels/ring_drain/kernel.py:56", "perm_1024n_3t"),
+                       "src/repro/kernels/ring_drain/kernel.py:56", "perm_1024n_3t split"),
+        "control": ("src/repro_torch/csrc/control.cu",
+                    "src/repro/kernels/cc_update/kernel.py:60 + "
+                    "src/repro/kernels/ring_drain/kernel.py:56", "perm_1024n_3t"),
         "rr_pick": ("src/repro_torch/csrc/rr_pick.cu",
                     "src/repro/kernels/enqueue_arb/kernel.py:91", "alltoall_3t"),
         "red_mark": ("src/repro_torch/csrc/red_mark.cu",
@@ -1325,7 +1614,8 @@ def main():
         src, rep, path = replaces[k]
         launches = (serving[path[len("serve "):]]["launches"] if path.startswith("serve ")
                     else red["launches"] if k == "red_mark"
-                    else paths[path]["launches"][k])
+                    else paths[path[:-len(" split")]]["launches_split"][k]
+                    if path.endswith(" split") else paths[path]["launches"][k])
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
             launches=launches, launches_path=path,
@@ -1336,11 +1626,17 @@ def main():
             plain_call_ms=rec["plain_call_ms"],
             **({"simt_ms": rec["simt_ms"], "simt_source": SIMT_SOURCES[k]}
                if "simt_ms" in rec else {}),
-            **({"simt_bound_ms": rec["simt_bound_ms"]} if "simt_bound_ms" in rec else {})))
+            **({"simt_bound_ms": rec["simt_bound_ms"]} if "simt_bound_ms" in rec else {}),
+            **({k_: rec[k_] for k_ in ("split_ms", "ring_drain_ms", "cc_update_ms",
+                                       "phase_ms", "split_phase_ms", "phase_call_ms",
+                                       "split_phase_call_ms", "phase_launches",
+                                       "split_phase_launches")} if k == "control" else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    ticks_per_s=v["ticks"] / v["wall"],
+                   split_ticks_per_s=v["ticks"] / v["wall_split"],
                    plain_ticks_per_s=v["ticks"] / v["wall_plain"],
-                   cpu_ticks_per_s=v["ticks"] / v["wall_cpu"])
+                   cpu_ticks_per_s=v["ticks"] / v["wall_cpu"],
+                   **({"turns": v["ticks_per_s"]} if "ticks_per_s" in v else {}))
            for k, v in paths.items()}
     for k, v in comparison.items():
         e2e[k] = dict(ticks=v["ticks"], executed=v["steps"], ticks_per_s=v["ticks_per_s"],
@@ -1349,6 +1645,14 @@ def main():
                       cpu_ticks_per_s=v["cpu_ticks_per_s"], cpu_over_ticks=v["cpu_ticks"])
     log(f"[main] end to end: {json.dumps(e2e)}")
     prof = timed_phase("profile", phase_profile)
+    ctl = records["control"]
+    log(f"[profile] perm_1024n_3t control phase: fused "
+        f"{prof['kernel']['phase_ms_per_tick']['control']:.3f} ms a tick "
+        f"({100 * prof['kernel']['control_share']:.1f}%), {ctl['phase_launches']} launches "
+        f"and {ctl['phase_ms'] * 1e3:.2f} us of device time a call; split "
+        f"{prof['split']['phase_ms_per_tick']['control']:.3f} ms a tick "
+        f"({100 * prof['split']['control_share']:.1f}%), {ctl['split_phase_launches']} "
+        f"launches and {ctl['split_phase_ms'] * 1e3:.2f} us")
     log(f"[done] total {time.perf_counter() - t0:.1f} s; by phase " + ", ".join(
         f"{k} {v:.1f} s" for k, v in spent.items()))
     if "--json" in sys.argv[1:]:

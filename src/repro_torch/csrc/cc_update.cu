@@ -11,20 +11,10 @@
 // 113 KB at perm_1024n_3t (NF = 1024), or 0.034 us at 3.35 TB/s.  A launch
 // costs microseconds, so launch latency, not the bound, sets its time.
 //
-// Design: the arithmetic follows the expression order of
-// repro_torch/core/smartt.py (and so of the reference) operation by
-// operation.  Built with --fmad=false, no multiply-add is contracted, so
-// every f32 result is bit-equal to the plain PyTorch version, where each
-// operation is its own kernel.  The 13 scalar parameters arrive by value
-// in a struct, as the reference's packed parameter vector does; like the
-// reference (cc_update/ref.py:30) `react_every` arrives as f32 and is cast
-// to int.
-#include "common.cuh"
-
-struct CCParamsC {
-    float mtu, bdp, maxcwnd, mincwnd, fd, md, fi, k_fast, qa_scaling,
-        wtd_alpha, wtd_thresh, fi_rtt_tol, react_every;
-};
+// Design: the update itself is `smartt_flow` of smartt.cuh, which the
+// fused control phase (control.cu) runs too; this kernel loads a flow's
+// planes, calls it, and stores the planes back.
+#include "smartt.cuh"
 
 struct CCArgs {
     // state in
@@ -47,103 +37,16 @@ struct CCArgs {
     int now;
 };
 
-struct Flow {
-    float cwnd, acked, qa_end, bti, big, fic, avg;
-    bool tq, fa;
-};
-
-// Alg. 2 (smartt.py quick_adapt): every right-hand side reads the state
-// as it was on entry, as the reference's where() chain does.
-__device__ __forceinline__ bool quick_adapt(Flow& s, const CCParamsC& p,
-                                            float trtt, float unacked,
-                                            float now, bool gate) {
-    bool boundary = gate && (now >= s.qa_end);
-    bool fire = boundary && s.tq && (s.qa_end != 0.0f);
-    float cwnd = fire ? fmax_t(s.acked, p.mtu) * p.qa_scaling : s.cwnd;
-    float bti = fire ? unacked : s.bti;
-    float big = fire ? 0.0f : s.big;
-    bool tq = s.tq && !fire;
-    float qa_end = boundary ? now + trtt : s.qa_end;
-    float acked = boundary ? 0.0f : s.acked;
-    s.cwnd = cwnd; s.bti = bti; s.big = big; s.tq = tq;
-    s.qa_end = qa_end; s.acked = acked;
-    return fire;
-}
-
 __global__ void cc_update_kernel(CCArgs a, CCParamsC p) {
     int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= a.n) return;
-    const float now = (float)a.now;
-    const float brtt = a.brtt[i], trtt = a.trtt[i], mi = a.mi[i];
     Flow s{a.cwnd[i], a.acked[i], a.qa_end[i], a.bytes_to_ignore[i],
            a.bytes_ignored[i], a.fi_count[i], a.avg_wtd[i],
-           a.trigger_qa[i], a.fi_active[i]};
-    int ack_count = a.ack_count[i];
-    const bool has = a.has_ack[i], ecn = a.ecn[i];
-    const float ev_rtt = a.rtt[i], unacked = a.unacked[i];
-
-    // ---------------- ACK branch (Alg. 1 l. 7-27) ----------------
-    float size = has ? a.ack_bytes[i] : 0.0f;
-    s.acked = s.acked + size;
-    s.big = s.big + size;
-    bool ignoring = s.big < s.bti;
-    bool act = has && !ignoring;
-
-    ack_count = ack_count + (act ? 1 : 0);
-    int re = (int)p.react_every;
-    re = re > 1 ? re : 1;
-    bool react = act && (floor_mod(ack_count, re) == 0);
-
-    float ecn_f = ecn ? 1.0f : 0.0f;
-    float avg_new = p.wtd_alpha * ecn_f + (1.0f - p.wtd_alpha) * s.avg;
-    s.avg = act ? avg_new : s.avg;
-    bool can_decrease = s.avg >= p.wtd_thresh;
-
-    bool adp = quick_adapt(s, p, trtt, unacked, now, act);
-
-    // Alg. 3 (smartt.py fast_increase), on the raw event rtt
-    bool near_base = act && !ecn && (ev_rtt <= brtt * p.fi_rtt_tol + 1.0f);
-    float count = near_base ? s.fic + size : 0.0f;
-    bool finc = near_base && ((count > s.cwnd) || s.fa);
-    s.cwnd = finc ? s.cwnd + p.k_fast * p.mtu : s.cwnd;
-    s.fa = act ? finc : s.fa;
-    s.fic = act ? count : s.fic;
-
-    // l. 19-27: the four window actions
-    bool go = react && !(adp || finc);
-    float rtt = fmax_t(ev_rtt, 1e-6f);
-    float cwnd = fmax_t(s.cwnd, 1.0f);
-
-    float fd_amt = cwnd / p.bdp * p.fd * size;                           // Eq. 1
-    float md_amt = fmin_t(size, (rtt - trtt) / rtt * p.md * size);       // Eq. 2
-    float fi_amt = size / cwnd * p.mtu * p.fi;                           // Eq. 3
-    float mi_amt = fmin_t(size, (trtt - rtt) / rtt * size / cwnd * p.mtu * mi);  // Eq. 4
-
-    float is_fd = (go && ecn && (rtt <= trtt) && can_decrease) ? 1.0f : 0.0f;
-    float is_md = (go && ecn && (rtt > trtt) && can_decrease) ? 1.0f : 0.0f;
-    float is_fi = (go && !ecn && (rtt > trtt)) ? 1.0f : 0.0f;
-    float is_mi = (go && !ecn && (rtt <= trtt)) ? 1.0f : 0.0f;
-
-    float delta = -fd_amt * is_fd
-                  - (md_amt + fd_amt) * is_md
-                  + fi_amt * is_fi
-                  + (mi_amt + fi_amt) * is_mi;
-    s.cwnd = s.cwnd + delta;
-
-    // ---------------- trim / timeout branch (Alg. 1 l. 28-35) ----------------
-    int n_trims = a.n_trims[i];
-    bool lost = (n_trims + a.n_timeouts[i]) > 0;
-    float lost_bytes = a.trim_bytes[i] + a.to_bytes[i];
-    float hdr_bytes = 64.0f * (float)n_trims;        // units.HDR_BYTES
-    s.acked = s.acked + hdr_bytes;
-    s.big = s.big + hdr_bytes;
-    s.cwnd = s.cwnd - (lost ? lost_bytes : 0.0f);
-    s.tq = s.tq || lost;
-    bool qa_gate = lost && (s.big >= s.bti);
-    quick_adapt(s, p, trtt, unacked, now, qa_gate);
-
-    // l. 36: clamp
-    s.cwnd = fmin_t(fmax_t(s.cwnd, p.mincwnd), p.maxcwnd);
+           a.trigger_qa[i], a.fi_active[i], a.ack_count[i]};
+    const FlowEvent e{a.has_ack[i], a.ecn[i], a.ack_bytes[i], a.rtt[i],
+                      a.trim_bytes[i], a.to_bytes[i], a.unacked[i],
+                      a.n_trims[i], a.n_timeouts[i]};
+    smartt_flow(s, p, e, (float)a.now, a.brtt[i], a.trtt[i], a.mi[i]);
 
     a.o_cwnd[i] = s.cwnd;
     a.o_acked[i] = s.acked;
@@ -154,7 +57,7 @@ __global__ void cc_update_kernel(CCArgs a, CCParamsC p) {
     a.o_avg_wtd[i] = s.avg;
     a.o_trigger_qa[i] = s.tq;
     a.o_fi_active[i] = s.fa;
-    a.o_ack_count[i] = ack_count;
+    a.o_ack_count[i] = s.ack_count;
 }
 
 REPRO_EXPORT int repro_cc_update(CCArgs args, CCParamsC params, void* stream) {

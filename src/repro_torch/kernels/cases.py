@@ -141,3 +141,85 @@ def red_mark_case(Q: int, seed: int, cap: int = RED_CAP) -> dict:
     q_size[rng.random(Q) < 0.15] = 0
     arrivals = rng.integers(0, 7, Q).astype(np.int32)
     return dict(q_size=q_size, arrivals=arrivals, cap=cap)
+
+
+def control_case(NF: int, N: int, W: int, MAXW: int, R: int, seed: int, *,
+                 trimming: bool = True, credit_based: bool = False,
+                 rto_backoff_max: int = 0, smartt: bool = True) -> dict:
+    """Every operand of the fused control phase (``kernels/control``) for
+    ``NF`` flows into ``N`` nodes, a sent ring ``W`` wide, ``MAXW`` dedupe
+    words and ``R`` ring slots, at a tick ``t``: ACK rows that name their
+    flow and rows that name another flow of the same receiver, trims with
+    loss words, credits, sent rings whose ACKs match and miss, timeouts
+    that fire (some spurious, some backed off), finished and unstarted
+    flows, and SMaRTT state from :func:`cc_update_case`.  The slots of
+    the rings that the flags turn off stay zero, as the fabric leaves
+    them."""
+    rng = np.random.default_rng(seed)
+    mtu = int(CC_MTU)
+    t = int(rng.integers(500, 5000))
+    s = t % R
+    i32 = lambda a: np.asarray(a, np.int32)
+    dst = i32(rng.integers(0, N, NF))
+    size = i32(rng.integers(1, MAXW * 32 * mtu + 1, NF))
+    t_start = i32(np.where(rng.random(NF) < 0.9, rng.integers(0, t, NF), t + 5))
+    dr = ring_drain_case(NF, W, MAXW, seed)
+    sent = np.zeros((3, NF + 1, W), np.int32)
+    sent[0, :NF], sent[1, :NF], sent[2, :NF] = dr["sent0"], dr["sent1"], dr["sent2"]
+    sent[:, NF] = rng.integers(0, 4, (3, W))                # the sentinel row
+    # ACK rows: each receiver's row names one flow (of its own, or not)
+    ack_ring = np.zeros((R, N, 6), np.int32)
+    ack_ring[:] = rng.integers(0, 3, (R, N, 6))             # other slots: noise
+    for node in range(N):
+        mine = np.flatnonzero(dst == node)
+        valid = rng.random() < 0.85
+        f = int(rng.choice(mine)) if len(mine) and rng.random() < 0.9 \
+            else int(rng.integers(0, NF))
+        slot = int(rng.integers(0, W))
+        seq = int(sent[1, f, slot]) if rng.random() < 0.7 else int(rng.integers(0, MAXW * 32))
+        ack_ring[s, node] = (int(valid), f, seq, int(rng.random() < 0.4),
+                             int(rng.integers(0, 256)), t - int(rng.integers(1, 200)))
+    trim_ring = np.zeros((R, NF + 1, 2 + W // 32), np.int32)
+    credit_ring = np.zeros((R, NF + 1), np.float32)
+    if trimming:
+        cnt = rng.integers(0, 3, (R, NF + 1)) * (rng.random((R, NF + 1)) < 0.3)
+        trim_ring[:, :, 0] = cnt
+        trim_ring[:, :, 1] = cnt * rng.integers(1, mtu + 1, (R, NF + 1))
+        trim_ring[:, :, 2:] = np.where(cnt[..., None] > 0, dr["lbits"][0], 0)
+        trim_ring[s, :NF, 2:] = dr["lbits"]
+    if credit_based:
+        credit_ring[:] = np.where(rng.random((R, NF + 1)) < 0.4, float(mtu), 0.0)
+    cc = cc_update_case(NF, seed)
+    return dict(
+        t=t, mtu=mtu, brtt_inter=42, brtt=cc["params"]["brtt"],
+        flags=dict(trimming=trimming, credit_based=credit_based,
+                   rto_backoff_max=rto_backoff_max, smartt=smartt),
+        dst=dst, size=size, t_start=t_start, rto=dr["rto"],
+        ack_ring=ack_ring, trim_ring=trim_ring, credit_ring=credit_ring,
+        sent=sent, bitmap=np.concatenate([dr["bitmap"], np.zeros((1, MAXW), np.int32)]),
+        done=rng.random(NF) < 0.1,
+        rto_backoff=i32(rng.integers(0, 5, NF)),
+        unacked=np.zeros(NF, np.float32), cc=cc["state"],
+        n_to=np.int32(rng.integers(0, 1000)), spurious_retx=np.int32(rng.integers(0, 100)),
+        n_ack=np.int32(rng.integers(0, 10**5)),
+        rtt_hist=i32(rng.integers(0, 1000, 64)),
+    )
+
+
+def control_operands(case: dict, device):
+    """``(t, Flags, Operands)`` of a :func:`control_case` on ``device``
+    (fresh tensors: the phase updates them in place)."""
+    import torch
+
+    from repro_torch.core.types import init_cc_state, make_cc_params
+    from repro_torch.kernels.control import ref as R
+
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
+    p = make_cc_params(mtu=float(case["mtu"]), bdp=float(case["brtt_inter"] * case["mtu"]),
+                       brtt=torch.from_numpy(case["brtt"]), device=device)
+    nf = case["dst"].shape[0]
+    cc = init_cc_state(nf, p)._replace(**{k: t(v) for k, v in case["cc"].items()})
+    fl = R.Flags(mtu=case["mtu"], brtt_inter=case["brtt_inter"], **case["flags"])
+    o = R.Operands(params=p, cc=cc, **{k: t(case[k]) for k in R.Operands._fields
+                                       if k not in ("params", "cc")})
+    return case["t"], fl, o

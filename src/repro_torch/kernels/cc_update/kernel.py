@@ -31,28 +31,29 @@ class _Args(ctypes.Structure):
         ("n", ctypes.c_int), ("now", ctypes.c_int)]
 
 
-class _Params(ctypes.Structure):
+class Params(ctypes.Structure):
     """Mirror of ``struct CCParamsC``."""
     _fields_ = [(n, ctypes.c_float) for n in R.PARAM_FIELDS]
 
 
 # The scalar parameters are constant for a run, so their host copy is
-# made once per set of parameter tensors (one device read), not every tick.
+# made once per set of parameter tensors (one device read), not every tick
+# (the fused control kernel takes the same struct).
 _host_params: list = [(), None]
 
 
-def _params_by_value(p: CCParams) -> _Params:
+def host_params(p: CCParams) -> Params:
     scalars = tuple(getattr(p, n) for n in R.PARAM_FIELDS)
     cached = _host_params[0]
     if len(cached) != len(scalars) or any(a is not b for a, b in zip(cached, scalars)):
         vals = torch.stack([x.to(torch.float32).reshape(()) for x in scalars]).tolist()
-        _host_params[:] = [scalars, _Params(*vals)]
+        _host_params[:] = [scalars, Params(*vals)]
     return _host_params[1]
 
 
 def _fn():
     fn = build.library().repro_cc_update
-    fn.argtypes = [_Args, _Params, ctypes.c_void_p]
+    fn.argtypes = [_Args, Params, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -79,7 +80,7 @@ def cc_update(p: CCParams, s: CCState, ev: CCEvent, now: int) -> CCState:
     for name, t in outs.items():
         ptrs[f"o_{name}"] = ctypes.c_void_p(t.data_ptr())
     args = _Args(**{k: v.value for k, v in ptrs.items()}, n=n, now=int(now))
-    build.check(_fn()(args, _params_by_value(p), build.stream(dev)), "cc_update")
+    build.check(_fn()(args, host_params(p), build.stream(dev)), "cc_update")
     cc_update.launches += 1
     return s._replace(**outs)
 

@@ -1,0 +1,1 @@
+"""control kernel: plain version (ref), CUDA wrapper (kernel), dispatch (ops)."""

@@ -14,10 +14,13 @@ phases, each ``(Dims, Consts, SimState, Clock) -> SimState``:
 
 ``build`` resolves the backends once, as the reference does: the CC update
 (``cc_backend``), the enqueue-rank/arbitration pair (``fabric_backend``)
-and the sent-ring drain (``transport_backend``).  ``"kernel"`` (the
+and the control phase (``transport_backend``).  ``"kernel"`` (the
 default) launches the hand-written CUDA kernels on the card and takes
 their plain versions on the CPU; ``"plain"`` takes the plain versions
-everywhere.
+everywhere.  The control phase is one fused launch (``kernels/control``),
+which runs SMaRTT's window update too when the CC backend is
+``"kernel"``; ``transport_backend="split"`` runs it as the earlier design,
+the ``ring_drain`` and ``cc_update`` kernels with PyTorch between them.
 
 The run loop is the reference's gated superstep loop written as a Python
 loop: each superstep first leaps ``now`` to the next event horizon (one
@@ -35,6 +38,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import registry
+from repro_torch.kernels.control import ops as control_ops
 from repro_torch.kernels.enqueue_arb import ops as enqueue_arb_ops
 from repro_torch.kernels.ring_drain import ops as ring_drain_ops
 from repro_torch.netsim import fabric, metrics, sender, transport
@@ -99,15 +103,24 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
     the default; ``device="cpu"`` runs the plain versions on the CPU."""
     cc_update = registry.get(cfg.algo, cfg.cc_backend)
     enqueue, arb = enqueue_arb_ops.get(cfg.fabric_backend)
-    drain = ring_drain_ops.get(cfg.transport_backend)
+    run = None if cfg.transport_backend == "split" else \
+        control_ops.get(cfg.transport_backend)
     topo, tm, dims, consts = derive(cfg, wl, device)
+    if run is None:
+        def control(c, st, k):
+            return transport.control_split(dims, c, cc_update, st, k,
+                                           drain=ring_drain_ops.ring_drain)
+    else:
+        fl = transport.flags(cfg, dims)
+
+        def control(c, st, k):
+            return transport.control(dims, c, cc_update, st, k, run=run, fl=fl)
 
     phases = (
         ("departures", lambda c, st, k: fabric.departures(dims, c, st, k)),
         ("arrivals", lambda c, st, k: fabric.arrivals(dims, c, st, k,
                                                       enqueue=enqueue)),
-        ("control", lambda c, st, k: transport.control(dims, c, cc_update, st,
-                                                       k, drain=drain)),
+        ("control", control),
         ("grants", lambda c, st, k: sender.grants(dims, c, st, k, arb=arb)),
         ("sends", lambda c, st, k: sender.sends(dims, c, st, k, arb=arb)),
         ("metrics", lambda c, st, k: metrics.account(dims, c, st, k)),

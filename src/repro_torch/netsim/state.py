@@ -68,9 +68,11 @@ class SimConfig:
     cc_backend: str = "kernel"       # "kernel" | "plain" (kernels/cc_update)
     fabric_backend: str = "kernel"   # "kernel" | "plain" — enqueue-rank +
                                      # send arbitration (kernels/enqueue_arb)
-    transport_backend: str = "kernel"  # "kernel" | "plain" — sent-ring
-                                     # ACK/trim/timeout drain
-                                     # (kernels/ring_drain)
+    transport_backend: str = "kernel"  # "kernel" | "plain" | "split" —
+                                     # the control phase: one fused launch
+                                     # (kernels/control), its plain
+                                     # version, or the ring_drain and
+                                     # cc_update kernels with PyTorch glue
     lb: str = "reps"
     superstep: int = 0               # ticks run per superstep;
                                      # 0 = auto (one base RTT), 1 = legacy

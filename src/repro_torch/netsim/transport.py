@@ -3,10 +3,17 @@
 Drains this tick's slot of the delayed control rings (ACKs, trimmed-header
 notifications, loss bitmaps, EQDS credit grants), frees/loses sent-ring
 slots, fires retransmission timeouts, and hands the per-flow event bundle
-to the congestion-control update (a registry backend: the CUDA
-``cc_update`` kernel or its plain version) and the load-balancer ACK path.
-The three control rings and the sent ring are updated in place (a state
-passed to a phase is consumed).
+to the congestion-control update and the load-balancer ACK path.
+
+``control`` runs the per-flow work in one call of the backend-resolved
+``kernels/control`` callable: the fused CUDA kernel on the card (which
+also runs SMaRTT's window update), its plain version ``control_ref``
+otherwise.  The load balancer and the baselines' CC update take its event
+buffer in PyTorch.  ``control_split`` is the earlier design, the
+``ring_drain`` and ``cc_update`` kernels with the PyTorch glue around
+them (``SimConfig.transport_backend="split"``).  Both update the control
+rings, the sent ring and the counters in place (a state passed to a phase
+is consumed).
 
 ``horizon`` reduces the same rings — plus the armed retransmission
 timers — to "ticks until this phase next does work" (DESIGN.md Sec. 6.3).
@@ -16,10 +23,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import reps
+from repro_torch.core import registry, reps
 from repro_torch.core.types import CCEvent
+from repro_torch.kernels.control import ref as control_ref
 from repro_torch.netsim.metrics import HIST_BINS, isum
-from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState
+from repro_torch.netsim.state import (HORIZON_INF, Clock, Consts, Dims, SimConfig,
+                                      SimState)
 
 I32 = torch.int32
 F32 = torch.float32
@@ -35,13 +44,50 @@ def effective_rto(dims: Dims, consts: Consts, st: SimState):
                        torch.clamp_max(st.rto_backoff, dims.rto_backoff_max))
 
 
-def control(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
-            drain) -> SimState:
-    """Phase 3: ACK / trim / timeout / credit events -> transport state, CC update
-    (``cc_update`` resolved by the registry), LB update.
+def flags(cfg: SimConfig, dims: Dims) -> control_ref.Flags:
+    """The run's constants that shape the fused phase.  SMaRTT's window
+    update runs inside it where the CC backend is the kernel's."""
+    return control_ref.Flags(
+        trimming=dims.trimming, credit_based=dims.credit_based,
+        rto_backoff_max=dims.rto_backoff_max,
+        smartt=cfg.cc_backend == "kernel" and cfg.algo in registry.KERNEL_ALGORITHMS,
+        mtu=dims.mtu, brtt_inter=dims.brtt_inter)
 
-    ``drain`` is the backend-resolved sent-ring drain callable
-    (``kernels/ring_drain/ops.get``)."""
+
+def operands(consts: Consts, st: SimState) -> control_ref.Operands:
+    """The fused phase's tensors: the run's constants and the state's
+    buffers (updated in place by the phase)."""
+    m = st.m
+    return control_ref.Operands(
+        dst=consts.dst, size=consts.size, t_start=consts.t_start, rto=consts.rto,
+        params=consts.cc, ack_ring=st.ack_ring, trim_ring=st.trim_ring,
+        credit_ring=st.credit_ring, sent=st.sent, bitmap=st.bitmap, done=st.done,
+        rto_backoff=st.rto_backoff, unacked=st.unacked, cc=st.cc, n_to=m.n_to,
+        spurious_retx=m.spurious_retx, n_ack=m.n_ack, rtt_hist=m.rtt_hist)
+
+
+def control(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
+            run, fl: control_ref.Flags) -> SimState:
+    """Phase 3: the per-flow work in one call of ``run`` (the backend
+    resolved by ``kernels/control/ops.get``), then the LB update and, unless
+    ``fl.smartt`` ran SMaRTT inside it, the CC update (``cc_update``
+    resolved by the registry) on its event buffer."""
+    t = clk.t
+    ev = run(t, fl, operands(consts, st))
+    cc = st.cc if fl.smartt else cc_update(consts.cc, st.cc, ev, t)
+    lb = reps.on_ack(dims.lb_mode, consts.lb, st.lb, ev.has_ack, ev.ecn,
+                     ev.ack_entropy, consts.flow_ids, t)
+    if dims.evict:
+        lb = reps.on_timeout(dims.lb_mode, consts.lb, lb, ev.n_timeouts > 0)
+    return st._replace(cc=cc, lb=lb)
+
+
+def control_split(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
+                  drain) -> SimState:
+    """Phase 3 as the earlier design runs it: ACK / trim / timeout / credit events ->
+    transport state, CC update (``cc_update`` resolved by the registry), LB
+    update, around the sent-ring drain callable ``drain``
+    (``kernels/ring_drain/ops.ring_drain``)."""
     t = clk.t
     m = st.m
     NF, R = dims.NF, dims.R

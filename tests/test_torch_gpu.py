@@ -1,7 +1,8 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version (bit for bit, at the main path's shapes and ragged
-ones), and small scenarios through the kernels against the same runs on
-the CPU (final states bit for bit, one launch of each tick kernel per
+ones; the fused control phase also on simulator states at chosen
+ticks), and small scenarios through the kernels against the same runs
+on the CPU (final states bit for bit, one launch of each tick kernel per
 executed tick).
 
 Every test is marked ``gpu`` and skips without a card; whether there is
@@ -19,6 +20,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import cases  # noqa: E402
 from repro_torch.kernels.cc_update import kernel as CK  # noqa: E402
 from repro_torch.kernels.cc_update import ref as CR  # noqa: E402
+from repro_torch.kernels.control import kernel as XK  # noqa: E402
+from repro_torch.kernels.control import ref as XR  # noqa: E402
 from repro_torch.kernels.enqueue_arb import kernel as EK  # noqa: E402
 from repro_torch.kernels.enqueue_arb import ref as ER  # noqa: E402
 from repro_torch.kernels.red_mark import kernel as RK  # noqa: E402
@@ -27,6 +30,7 @@ from repro_torch.kernels.ring_drain import kernel as DK  # noqa: E402
 from repro_torch.kernels.ring_drain import ref as DR  # noqa: E402
 from repro_torch.netsim import scenarios  # noqa: E402
 from repro_torch.netsim import state as tstate  # noqa: E402
+from repro_torch.netsim import transport  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -130,16 +134,20 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
 def test_scenario_through_kernels_equals_cpu(cuda, name):
     """A whole run through the kernels on the card ends in the CPU port's
     final state, bit for bit, with one launch of each tick kernel per
-    executed tick (and rr_pick wherever senders hold several flows)."""
+    executed tick (the fused control phase, SMaRTT inside it; rr_pick
+    wherever senders hold several flows; the split design's cc_update and
+    ring_drain never)."""
     sc = scenarios.scenario(name)
     sim = sc.build(device=cuda)
-    fns = (CK.cc_update, EK.enqueue_rank, DK.ring_drain, EK.rr_pick)
+    fns = (XK.control, EK.enqueue_rank, CK.cc_update, DK.ring_drain, EK.rr_pick)
     for fn in fns:
         fn.launches = 0
+    XK.control.launches_smartt = 0
     st = sim.run(sc.max_ticks)
     torch.cuda.synchronize()
     steps = sim.stats["steps"]
-    assert [fn.launches for fn in fns[:3]] == [steps] * 3
+    assert [fn.launches for fn in fns[:4]] == [steps, steps, 0, 0]
+    assert XK.control.launches_smartt == steps
     assert (EK.rr_pick.launches > 0) == (sim.dims.FMAX > 1)
     cpu = sc.build(device="cpu")
     ref = cpu.run(sc.max_ticks)
@@ -156,25 +164,29 @@ def test_scenario_through_kernels_equals_cpu(cuda, name):
 
 
 @pytest.mark.parametrize("name,overrides,ticks,on_path", [
-    ("incast8_16n", dict(algo="eqds"), None, ("enqueue_rank", "ring_drain", "rr_pick")),
-    ("corefail_128n_3t", {}, 700, ("cc_update", "enqueue_rank", "ring_drain")),
+    ("incast8_16n", dict(algo="eqds"), None, ("enqueue_rank", "control", "rr_pick")),
+    ("corefail_128n_3t", {}, 700, ("enqueue_rank", "control")),
 ], ids=["eqds", "corefail"])
 def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks, on_path):
-    """EQDS (credit grants through rr_pick, no cc_update kernel) and a
-    fault schedule (corefail_128n_3t to tick 700, past the failure at
-    500) through the kernels on the card end in the CPU port's state."""
+    """EQDS (credit grants through rr_pick, the fused control phase with
+    the CC update off) and a fault schedule (corefail_128n_3t to tick 700,
+    past the failure at 500 and its first timeouts, SMaRTT inside the
+    fused phase) through the kernels on the card end in the CPU port's
+    state."""
     sc = scenarios.scenario(name, **overrides)
     ticks = ticks or sc.max_ticks
     sim = sc.build(device=cuda)
     fns = {"cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
-           "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick}
+           "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick, "control": XK.control}
     for fn in fns.values():
         fn.launches = 0
+    XK.control.launches_smartt = 0
     st = sim.run(ticks)
     torch.cuda.synchronize()
     steps = sim.stats["steps"]
     assert {k: fn.launches for k, fn in fns.items()} == \
         {k: steps if k in on_path else 0 for k in fns}
+    assert XK.control.launches_smartt == (steps if sc.cfg.algo == "smartt" else 0)
     ref = sc.build(device="cpu").run(ticks)
     a, b = tstate.to_numpy(st), tstate.to_numpy(ref)
     for x, y in zip(_leaf_list(a), _leaf_list(b)):
@@ -188,3 +200,103 @@ def _leaf_list(t, p=""):
         return [x for n, v in zip(t._fields, t)
                 for x in _leaf_list(v, f"{p}.{n}" if p else n)]
     return [(p, t)]
+
+
+# ------------------------------------------------ the fused control phase
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree))
+
+
+def _control_both(t, fl, ok, orf):
+    """The fused kernel on ``ok`` and its plain version on ``orf`` (two
+    copies of the same operands); both events and both operand sets must
+    be equal bit for bit.  Returns the kernel's event."""
+    n0 = XK.control.launches
+    evk = XK.control(t, fl, ok)
+    evr = XR.control_ref(t, fl, orf)
+    torch.cuda.synchronize()
+    assert XK.control.launches == n0 + 1
+    for name, a, b in zip(evk._fields, evk, evr):
+        assert _bit_equal(a, b), name
+    for (n, a), (_, b) in zip(_leaf_list(ok), _leaf_list(orf)):
+        assert _bit_equal(a, b), n
+    return evk
+
+
+@pytest.mark.parametrize("shape,seed,flags", [
+    ((1, 1, 32, 1, 3), 2, {}),
+    ((13, 5, 1024, 40, 9), 2, dict(smartt=False, credit_based=True)),
+    ((NF, NF, W, MAXW, 40), 3, dict(rto_backoff_max=3)),
+    ((NF, NF, W, MAXW, 40), 4, dict(trimming=False, credit_based=True,
+                                     rto_backoff_max=2, smartt=False)),
+    ((N_A2A, 32, W, 1, 40), 5, dict(credit_based=True)),
+], ids=["one-flow", "ragged-w1024", "perm1024-backoff", "no-trim-credit", "many-per-node"])
+def test_control_kernel_bit_equal(cuda, shape, seed, flags):
+    c = cases.control_case(*shape, seed, **flags)
+    t, fl, ok = cases.control_operands(c, cuda)
+    _, _, orf = cases.control_operands(c, cuda)
+    ev = _control_both(t, fl, ok, orf)
+    assert bool(ev.has_ack.any()) and int(ev.n_timeouts.sum()) > 0
+    # the slots are zero after the call, the sentinel rows included
+    s = t % c["ack_ring"].shape[0]
+    assert not ok.ack_ring[s].any() and not ok.trim_ring[s].any() \
+        and not ok.credit_ring[s].any()
+
+
+@pytest.mark.parametrize("name,overrides,ticks", [
+    ("perm_128n_3t", {}, (40, 70, 120, 200, 300)),
+    ("incast8_16n", dict(rto_backoff_max=3, trimming=False, evict_on_timeout=True),
+     tuple(range(40, 140))),
+    ("tiny_incast3", dict(algo="eqds"), tuple(range(4, 20))),
+], ids=["perm_128n_3t", "timeouts-backoff", "eqds"])
+def test_control_kernel_bit_equal_on_tick_states(cuda, name, overrides, ticks):
+    """The simulator's own states on the card: at each chosen tick, after
+    departures and arrivals, the fused kernel and its plain version from
+    two copies of the state agree bit for bit."""
+    sc = scenarios.scenario(name, **overrides)
+    sim = sc.build(device=cuda)
+    fl = transport.flags(sc.cfg, sim.dims)
+    phases = dict(sim.phases)
+    st = sim.init()
+    seen = set()
+    for t in range(max(ticks) + 1):
+        clk = sim.clock0._replace(t=t)
+        for name_ in ("departures", "arrivals"):
+            st = phases[name_](sim.consts, st, clk)
+        if t in ticks:
+            a, b = _clone(st), _clone(st)
+            ev = _control_both(t, fl, transport.operands(sim.consts, a),
+                               transport.operands(sim.consts, b))
+            seen |= {k for k, v in (("ack", ev.has_ack.any()),
+                                    ("timeout", ev.n_timeouts.any()),
+                                    ("trim", ev.n_trims.any()),
+                                    ("credit", ev.credit_grant.any())) if bool(v)}
+        for name_ in ("control", "grants", "sends", "metrics"):
+            st = phases[name_](sim.consts, st, clk)
+        st = st._replace(now=st.now + 1)
+    assert "ack" in seen
+    assert ("timeout" in seen) == ("rto_backoff_max" in overrides)
+    assert ("credit" in seen) == (sc.cfg.algo == "eqds")
+
+
+def test_control_kernel_refuses_bad_operands(cuda):
+    c = cases.control_case(16, 4, 64, 2, 8, 0)
+    t, fl, o = cases.control_operands(c, cuda)
+    n0 = XK.control.launches
+    with pytest.raises(TypeError, match="dtype"):
+        XK.control(t, fl, o._replace(sent=o.sent.to(torch.int64)))
+    with pytest.raises(ValueError, match="shape"):
+        XK.control(t, fl, o._replace(trim_ring=o.trim_ring[:, :, :3].contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        XK.control(t, fl, o._replace(bitmap=o.bitmap.t().contiguous().t()))
+    with pytest.raises(ValueError, match="on cpu"):
+        XK.control(t, fl, o._replace(done=o.done.cpu()))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        XK.control(t, fl, o._replace(sent=o.sent[:, :, :48].contiguous()))
+    assert XK.control.launches == n0
+    XK.control(t, fl, o)
+    assert XK.control.launches == n0 + 1

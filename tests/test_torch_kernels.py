@@ -198,14 +198,15 @@ def test_ring_drain_plain_matches_reference(shape, seed):
 # ------------------------------------- the main path's operands (CPU rehearsal)
 
 
-@pytest.mark.parametrize("name,ticks", [("perm_128n_3t", 80), ("alltoall_3t", 40)])
-def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
-    """Each CUDA wrapper checks device, dtype, shape and contiguity of every
-    operand before it asks for the card.  Route the main path's real calls
-    through the wrappers on the CPU: every check must pass, so the only
-    refusal left is the one that says the tensors are not on a card."""
+def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
+    """Route a run's real kernel calls through the CUDA wrappers on the
+    CPU: each must pass every operand check and refuse only because the
+    tensors are not on a card; then its plain version runs.  Returns the
+    calls by wrapper and the built simulator."""
     from repro_torch.kernels import build
     from repro_torch.kernels.cc_update import kernel as CK
+    from repro_torch.kernels.control import kernel as XK
+    from repro_torch.kernels.control import ref as XR
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.ring_drain import kernel as DK
     from repro_torch.netsim import scenarios
@@ -230,10 +231,38 @@ def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
     rehearse(EK, "enqueue_rank", tarb.enqueue_rank_ref)
     rehearse(EK, "rr_pick", tarb.rr_pick_ref)
     rehearse(DK, "ring_drain", drain_plain)
+    rehearse(XK, "control", XR.control_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
-    sim = scenarios.scenario(name).build(device="cpu")
+    sim = scenarios.scenario(name, **overrides).build(device="cpu")
     sim.run(ticks)
-    want = {"cc_update", "enqueue_rank", "ring_drain"} | \
-        ({"rr_pick"} if sim.dims.FMAX > 1 else set())
+    return calls, sim
+
+
+@pytest.mark.parametrize("name,ticks", [("perm_128n_3t", 80), ("alltoall_3t", 40)])
+def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
+    """Each CUDA wrapper checks device, dtype, shape and contiguity of every
+    operand before it asks for the card.  Route the main path's real calls
+    through the wrappers on the CPU: every check must pass, so the only
+    refusal left is the one that says the tensors are not on a card.  The
+    control phase is the fused kernel (SMaRTT's update inside it)."""
+    calls, sim = _rehearse_wrappers(monkeypatch, name, ticks)
+    want = {"control", "enqueue_rank"} | ({"rr_pick"} if sim.dims.FMAX > 1 else set())
     assert set(calls) == want and all(v == ticks for k, v in calls.items()
                                       if k != "rr_pick"), calls
+
+
+@pytest.mark.parametrize("name,ticks,overrides", [
+    ("perm_128n_3t", 80, dict(transport_backend="split")),
+    ("tiny_incast3", 20, dict(algo="eqds", trimming=False, rto_backoff_max=3)),
+], ids=["split", "eqds-flags"])
+def test_other_paths_operands_pass_every_wrapper_check(monkeypatch, name, ticks,
+                                                       overrides):
+    """The same rehearsal for the earlier design of the control phase
+    (``transport_backend="split"``: the ring_drain and cc_update kernels)
+    and for the fused kernel with the CC update off and every flag of the
+    phase set otherwise (credits, no trimming, RTO backoff)."""
+    calls, sim = _rehearse_wrappers(monkeypatch, name, ticks, **overrides)
+    want = ({"cc_update", "ring_drain"} if "transport_backend" in overrides
+            else {"control", "rr_pick"}) | {"enqueue_rank"}
+    steps = sim.stats["steps"]
+    assert set(calls) == want and all(v == steps for v in calls.values()), calls
