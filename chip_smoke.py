@@ -12,10 +12,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card at its paths' shapes plus ragged and edge cases: the
                simulator kernels bit for bit (the fused control kernel
-               against control_ref on seeded operands, every flag on and
-               off and a ragged ring, and on the simulator's own states of
-               perm_1024n_3t, alltoall_3t and corefail_128n_3t's first
-               timeouts); flash_attention within
+               against control_ref and the fused arrivals kernel against
+               arrivals_ref on seeded operands, every flag on and off, a
+               ragged ring and a fan-in row past one warp, and both on the
+               simulator's own states: perm_1024n_3t, alltoall_3t,
+               corefail_128n_3t across its failure and to its first
+               timeouts, incast_256x1_3t under eqds); flash_attention within
                2e-5 (f32, the SIMT kernel) / 2e-2 (bf16, the tensor-core
                kernel; every masking and ragged case in both dtypes, the
                launch counted on the dtype's kernel, a misaligned bf16
@@ -31,17 +33,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                for flash_attention and ssd_chunk_scan also the SIMT
                kernel's time on the same bf16 inputs (variant="simt"),
                the earlier design; for the fused control kernel the split
-               design's ring_drain + cc_update on the same state, and the whole
-               control phase fused against split (device time and
+               design's ring_drain + cc_update on the same state, for the
+               fused arrivals kernel the split design's enqueue_rank, and
+               each whole phase fused against split (device time and
                launches of one call, captured in a CUDA graph)
   4. main path — perm_1024n_3t (the paper's 1024-node, three-tier fat
                tree), alltoall_3t and perm_512n_3t end to end through the
-               kernels, the control phase one fused launch a tick; launch
-               counts reset just before each run and read just after; the
-               final states equal to the split-design, plain-on-card and
-               CPU runs field by field; the summaries equal to the JAX
-               reference's; ticks/s in turns (fused, split, plain; TURNS
-               runs a way) on perm_1024n_3t and alltoall_3t
+               kernels, the arrivals and control phases one fused launch a
+               tick each; launch counts reset just before each run and read
+               just after; the final states equal to the runs through the
+               split control phase, the split arrivals phase, the plain
+               versions on the card and the CPU, field by field; the
+               summaries equal to the JAX reference's; ticks/s in turns
+               (fused, split arrivals, plain; TURNS runs a way) on
+               perm_1024n_3t and alltoall_3t
   4b. red_mark — the first 300 ticks of perm_1024n_3t on the card, the
                red_mark kernel beside every tick's departures: its marks
                equal to the flip departures applies (fabric.red_marks on
@@ -54,9 +59,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                runs corefail_128n_3t (without and with the recovery knobs)
                and flap_128n_3t, and the collective allreduce_ring_128n_3t
                (32 512 flows behind the dependency gate).  Each runs whole
-               through the kernels, the control phase through the fused
-               launch (SMaRTT's update inside it for the SMaRTT runs, in
-               PyTorch for the baselines), launch counts reset just before
+               through the kernels, the arrivals and control phases through
+               their fused launches (SMaRTT's update inside the control
+               launch for the SMaRTT runs, in PyTorch for the baselines;
+               the credit path and the fault metrics inside the arrivals
+               launch where the run has them), launch counts reset just before
                and read just after; the summary equal to the JAX
                reference's; the final state equal to the plain-on-card run
                and to the CPU port's, each over the prefix of ticks
@@ -76,10 +83,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                tokens/s, peak memory and the device's idle share while
                decoding
   6. profile — where perm_1024n_3t's tick time goes, through the fused
-               control launch and through the split design: each phase's
-               ms a tick, the device's busy share and kernels a tick; beside
-               them the control phase's launches and device time a call
-               (phase 3: a CUDA graph of the phase, its nodes counted)
+               launches and through each split design (arrivals, control):
+               each phase's ms a tick, the device's busy share and kernels
+               a tick; beside them the arrivals and control phases'
+               launches and device time a call (phase 3: a CUDA graph of
+               the phase, its nodes counted)
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
@@ -162,7 +170,7 @@ REFERENCE = {
 # cross the first failure (corefail: t = 500; flap: its first down
 # stretch starts at t = 500).
 RECOVERY = dict(rto_backoff_max=2, evict_on_timeout=True)   # benchmarks/failover.py
-TICK = ("control", "enqueue_rank")
+TICK = ("control", "arrivals")
 SMARTT_TICK = TICK + ("control:smartt",)
 COMPARISON_RUNS = (
     ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"), TICK, None, 150),
@@ -180,7 +188,23 @@ COMPARISON_RUNS = (
 # phase 4: the main path's runs (all SMaRTT), and the ways timed in turns
 MAIN_RUNS = (("perm_1024n_3t", SMARTT_TICK), ("alltoall_3t", SMARTT_TICK + ("rr_pick",)),
              ("perm_512n_3t", SMARTT_TICK))
-TURNS = 5                 # runs a way, in turns: fused, split, plain
+# the ways a run goes: the backends of SimConfig, and the kernels each way
+# launches in place of the fused path's (split-control: the control phase
+# as the earlier ring_drain + cc_update kernels; split-arrivals: the
+# arrivals phase as the earlier enqueue_rank kernel with PyTorch glue)
+WAYS = {
+    "kernel": dict(cc_backend="kernel", fabric_backend="kernel", transport_backend="kernel"),
+    "split-control": dict(cc_backend="kernel", fabric_backend="kernel",
+                          transport_backend="split"),
+    "split-arrivals": dict(cc_backend="kernel", fabric_backend="split",
+                           transport_backend="kernel"),
+    "plain": dict(cc_backend="plain", fabric_backend="plain", transport_backend="plain"),
+}
+SPLIT_KERNELS = {"split-control": {"control": ("cc_update", "ring_drain"),
+                                   "control:smartt": ()},
+                 "split-arrivals": {"arrivals": ("enqueue_rank",)}}
+TURNS = 5                 # runs a way, in turns: fused, split arrivals, plain
+TURN_WAYS = ("kernel", "split-arrivals", "plain")
 TURN_RUNS = ("perm_1024n_3t", "alltoall_3t")
 # phase 3's fused control kernel against control_ref: seeded operands
 # ((NF, N, W, MAXW, R), seed, flags): one flow, a ragged ring (W = 1024,
@@ -194,12 +218,27 @@ CONTROL_CASES = (
                                       rto_backoff_max=2, smartt=False)),
     ((512, 32, 64, 1, 40), 5, dict(credit_based=True)),
 )
-# ... and the simulator's own states: (scenario, ticks); corefail_128n_3t's
-# first timeouts fire at t = 670.  The fused kernel is timed on
-# perm_1024n_3t's state at CONTROL_TIMED (trims and QuickAdapt under way).
-CONTROL_STATES = (("perm_1024n_3t", (100, 300, 700)), ("alltoall_3t", (60, 200)),
-                  ("corefail_128n_3t", tuple(range(665, 690))))
-CONTROL_TIMED = ("perm_1024n_3t", 300)
+# phase 3's fused arrivals kernel against arrivals_ref: the seeded
+# kernels/cases.py ARRIVALS_CASES ...
+# ... and the simulator's own states, driven phase by phase on the card:
+# (scenario, overrides, control ticks, arrivals ticks, the arrivals work
+# the checked ticks must hold).  alltoall_3t never trims; corefail_128n_3t
+# trims until t = 282, its core uplinks die at t = 500 and its first
+# timeouts fire at t = 670;
+# incast_256x1_3t under eqds trims (and its receivers see the trims) from
+# t = INCAST_TRIMS on.  Both fused kernels are timed on perm_1024n_3t's
+# state at TIMED (trims and QuickAdapt under way).
+INCAST_TRIMS = 14
+ARRIVALS_WORK = ("deliveries", "enqueued", "rejects")
+TICK_STATES = (
+    ("perm_1024n_3t", {}, (100, 300, 700), (100, 300, 700), ARRIVALS_WORK),
+    ("alltoall_3t", {}, (60, 200), (60, 200), ("deliveries", "enqueued")),
+    ("corefail_128n_3t", {}, tuple(range(665, 690)), (260, 270, 499, 500, 501, 520, 680),
+     ARRIVALS_WORK + ("fault_bytes",)),
+    ("incast_256x1_3t", dict(algo="eqds"), (),
+     tuple(range(INCAST_TRIMS, INCAST_TRIMS + 60, 4)), ARRIVALS_WORK + ("trim_seen",)),
+)
+TIMED = ("perm_1024n_3t", 300)
 RED_MARK_TICKS = 300      # phase 4b: queues load and trims begin by then
 PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
 
@@ -217,7 +256,9 @@ def fail(msg):
 
 
 def leaves(tree, prefix=""):
-    """(name, tensor) for every leaf of a NamedTuple state."""
+    """(name, tensor) for every leaf of a NamedTuple state (None skipped)."""
+    if tree is None:
+        return
     if isinstance(tree, torch.Tensor):
         yield prefix, tree
         return
@@ -530,20 +571,10 @@ def control_bytes(sim, st, t, ev) -> int:
     return out
 
 
-def control_checks(dev):
-    """The fused control kernel against control_ref on the card: the seeded
-    CONTROL_CASES, then the simulator's own states (CONTROL_STATES) driven
-    through the fused path; timed on CONTROL_TIMED's state against its
-    bound, its plain version, the split design's two kernels (ring_drain +
-    cc_update)
-    on the same state, and the whole phase against the split design's."""
-    from repro_torch.core import registry
+def control_cases(dev):
+    """The fused control kernel against control_ref on the card on the
+    seeded CONTROL_CASES."""
     from repro_torch.kernels import cases
-    from repro_torch.kernels.cc_update import kernel as CK
-    from repro_torch.kernels.control import kernel as XK, ops as XO, ref as XR
-    from repro_torch.kernels.ring_drain import kernel as DK, ops as DO
-    from repro_torch.netsim import scenarios, transport
-
     for shape, seed, flags in CONTROL_CASES:
         c = cases.control_case(*shape, seed, **flags)
         t, fl, ok = cases.control_operands(c, dev)
@@ -555,42 +586,176 @@ def control_checks(dev):
         log(f"[kernels] control {str(shape):26s} {str(flags):70s}: bit-equal to "
             f"control_ref ({int(ev.has_ack.sum())} ACKs, {int(ev.n_timeouts.sum())} "
             f"timeouts, {int(ev.n_trims.sum())} trims)")
-    timed = None
-    for name, ticks in CONTROL_STATES:
-        sc = scenarios.scenario(name)
+
+
+def arrivals_pair(t, s, fl, ok, orf, what):
+    """The fused kernel on ``ok`` and ``arrivals_ref`` on ``orf`` (two copies
+    of the same operands): every operand bit for bit."""
+    from repro_torch.kernels.arrivals import kernel as AK, ref as AR
+    AK.arrivals(t, s, fl, ok)
+    AR.arrivals_ref(t, s, fl, orf)
+    torch.cuda.synchronize()
+    bad = [n for (n, a), (_, b) in zip(leaves(ok), leaves(orf)) if not bit_equal(a, b)]
+    if bad:
+        fail(f"arrivals {what}: the fused kernel differs from arrivals_ref in {bad}")
+
+
+def arrivals_cases(dev):
+    """The fused arrivals kernel against arrivals_ref on the card on the
+    seeded ARRIVALS_CASES."""
+    from repro_torch.kernels import cases
+    for shape, seed, flags in cases.ARRIVALS_CASES:
+        c = cases.arrivals_case(*shape, seed, **flags)
+        t, s, fl, ok = cases.arrivals_operands(c, dev)
+        _, _, _, orf = cases.arrivals_operands(c, dev)
+        _, _, _, o0 = cases.arrivals_operands(c, dev)
+        arrivals_pair(t, s, fl, ok, orf, f"{shape} {flags}")
+        if ok.infl[s.wire].any() or ok.q_fields[-1].any():
+            fail(f"arrivals {shape} {flags}: the wire slot or the write-off row is not "
+                 f"zero after the call")
+        log(f"[kernels] arrivals {str(shape):27s} {str(flags):60s}: bit-equal to "
+            f"arrivals_ref ({int(ok.delivered_pkts - o0.delivered_pkts)} deliveries, "
+            f"{int(ok.n_trim + ok.n_drop - o0.n_trim - o0.n_drop)} rejects, "
+            f"{int((ok.q_size - o0.q_size).sum())} enqueued)")
+
+
+def state_checks(dev):
+    """Drive TICK_STATES phase by phase on the card; at the chosen ticks,
+    the fused control kernel against control_ref (after arrivals) and the
+    fused arrivals kernel against arrivals_ref (after departures), each on
+    two clones of the state.  Returns the states at TIMED, before the
+    arrivals and before the control phase."""
+    from repro_torch.netsim import fabric, faults, scenarios, transport
+    from repro_torch.kernels.arrivals import ref as AR
+    timed = {}
+    for name, ov, ctl_ticks, arr_ticks, needs in TICK_STATES:
+        sc = scenarios.scenario(name, **ov)
         sim = sc.build(device=dev)
-        fl = transport.flags(sc.cfg, sim.dims)
+        d, c = sim.dims, sim.consts
+        cfl = transport.flags(sc.cfg, d)
+        afl = fabric.flags(d, c, sim.clock0)
         phases = dict(sim.phases)
         st = sim.init()
-        seen = dict(acks=0, timeouts=0, trims=0)
-        for t in range(max(ticks) + 1):
+        seen = dict(acks=0, timeouts=0, trims=0, deliveries=0, rejects=0, enqueued=0,
+                    trim_seen=0, fault_bytes=0)
+        for t in range(max(ctl_ticks + arr_ticks) + 1):
             clk = sim.clock0._replace(t=t)
-            st = phases["arrivals"](sim.consts, phases["departures"](sim.consts, st, clk), clk)
-            if t in ticks:
-                if (name, t) == CONTROL_TIMED:
-                    timed = (sim, fl, t, clone_tree(st))
-                ev = control_pair(t, fl, transport.operands(sim.consts, clone_tree(st)),
-                                  transport.operands(sim.consts, clone_tree(st)),
-                                  f"{name} t={t}")
+            st = phases["departures"](c, st, clk)
+            if t in arr_ticks:
+                if (name, t) == TIMED:
+                    timed["arrivals"] = (sim, afl, t, clone_tree(st))
+                slots = AR.Slots(wire=t % d.L, ack=(t + clk.ret) % d.R,
+                                 trim=(t + clk.trim_delay) % d.R)
+                active = faults.fault_active(d, c, t) if afl.faulty else None
+                a, b = clone_tree(st), clone_tree(st)
+                arrivals_pair(t, slots, afl, fabric.operands(c, a, active),
+                              fabric.operands(c, b, active), f"{name} t={t}")
+                seen["deliveries"] += int(a.m.delivered_pkts - st.m.delivered_pkts)
+                seen["rejects"] += int(a.m.n_trim + a.m.n_drop - st.m.n_trim - st.m.n_drop)
+                seen["enqueued"] += int((a.q_size - st.q_size).clamp_min(0).sum())
+                seen["trim_seen"] += int((a.trim_seen != st.trim_seen).sum())
+                seen["fault_bytes"] += int(a.m.delivered_bytes_fault
+                                           > st.m.delivered_bytes_fault)
+            st = phases["arrivals"](c, st, clk)
+            if t in ctl_ticks:
+                if (name, t) == TIMED:
+                    timed["control"] = (sim, cfl, t, clone_tree(st))
+                ev = control_pair(t, cfl, transport.operands(c, clone_tree(st)),
+                                  transport.operands(c, clone_tree(st)), f"{name} t={t}")
                 seen["acks"] += int(ev.has_ack.sum())
                 seen["timeouts"] += int(ev.n_timeouts.sum())
                 seen["trims"] += int(ev.n_trims.sum())
             for p in ("control", "grants", "sends", "metrics"):
-                st = phases[p](sim.consts, st, clk)
+                st = phases[p](c, st, clk)
             st = st._replace(now=st.now + 1)
-        if not seen["acks"] or (name.startswith("corefail") and not seen["timeouts"]):
+        if ctl_ticks and (not seen["acks"] or (name.startswith("corefail")
+                                               and not seen["timeouts"])):
             fail(f"control {name}: the checked ticks hold no ACKs or no timeouts {seen}")
-        log(f"[kernels] control {name} ticks {ticks[0]}..{ticks[-1]} ({len(ticks)}): "
-            f"bit-equal to control_ref on the simulator's states {seen}")
+        if not all(seen[k] for k in needs):
+            fail(f"arrivals {name}: the checked ticks miss a kind of work {seen}, "
+                 f"needed {needs}")
+        log(f"[kernels] control and arrivals on {name} {ov or ''}: control at ticks "
+            f"{ctl_ticks[:1]}..{ctl_ticks[-1:]} ({len(ctl_ticks)}), arrivals at "
+            f"{arr_ticks} bit-equal to their plain versions on the simulator's "
+            f"states {seen}")
+    return timed
 
-    # ---- times at CONTROL_TIMED's state: fused, plain, the split pair, phases
-    sim, fl, t, base = timed
+
+def restoring(saved, st, fn):
+    """``fn`` after restoring what the arrivals phase consumes (the wire
+    slot landing at ``saved.now``, the queue sizes, the dedupe bitmap) from
+    ``saved``, so that every timed call lands the same packets; beside it
+    the restore alone."""
+    w = int(saved.now) % saved.infl.shape[0]
+
+    def restore():
+        st.infl[w].copy_(saved.infl[w])
+        st.q_size.copy_(saved.q_size)
+        st.bitmap.copy_(saved.bitmap)
+
+    def both():
+        restore()
+        fn()
+    return both, restore
+
+
+def arrivals_bytes(sim, fl, slots, t, st) -> int:
+    """Bytes the arrivals phase must move at this state, counting what this
+    tick's data needs: the wire slot and the fan-in tables read whole; a
+    touched queue's size and head read once; a delivered packet's flow
+    words (dst, size, dedupe word, goodput, done) and a rejected packet's
+    flow size read; each word the phase changes written once, and read too
+    where the phase adds to it (trim ledger, trim_seen, counters).  A word
+    left as it was (a wire or ACK row already zero, a rejected packet's
+    cell) is not counted as written."""
+    from repro_torch.kernels.arrivals import ref as AR
+    from repro_torch.netsim import fabric, faults
+    d, c = sim.dims, sim.consts
+    i = 4
+    after = clone_tree(st)
+    active = faults.fault_active(d, c, t) if fl.faulty else None
+    AR.arrivals_ref(t, slots, fl, fabric.operands(c, after, active))
+
+    def changed(a, b):
+        return int((a != b).sum()) * a.element_size()
+    written = ((st.infl[slots.wire], after.infl[slots.wire]), (st.q_fields, after.q_fields),
+               (st.q_size, after.q_size), (st.ack_ring[slots.ack], after.ack_ring[slots.ack]),
+               (st.bitmap, after.bitmap), (st.goodput, after.goodput),
+               (st.done, after.done), (st.fct, after.fct))
+    added = ((st.trim_ring[slots.trim], after.trim_ring[slots.trim]),
+             (st.trim_seen, after.trim_seen)) + tuple(
+        (getattr(st.m, k), getattr(after.m, k)) for k in (
+            "delivered_pkts", "n_trim", "n_drop", "delivered_bytes", "goodput_hist",
+            "delivered_bytes_fault"))
+    out = sum(changed(a, b) for a, b in written) + 2 * sum(changed(a, b) for a, b in added)
+    arr = st.infl[slots.wire]
+    out += (arr.numel() + c.in_tbl.numel() + c.enq_ids.numel()) * i
+    earr = arr[c.enq_ids]
+    live = (earr[:, 0] == 1) & (earr[:, 1] >= 0)
+    out += int(torch.unique(earr[live, 1]).numel()) * 2 * i      # q_size, q_head
+    darr = arr[d.QE:d.QE + d.N]
+    out += int(((darr[:, 0] == 1) & (darr[:, 1] < 0)).sum()) * (4 * i + 1)
+    rejects = (after.m.n_trim + after.m.n_drop - st.m.n_trim - st.m.n_drop).item()
+    out += int(rejects) * i                                     # the flow's size
+    return out
+
+
+def control_timing(timed):
+    """The fused control kernel at TIMED's state: against its bound, its
+    plain version, the split design's two kernels (ring_drain + cc_update)
+    on the same state, and the whole phase against the split design's."""
+    from repro_torch.core import registry
+    from repro_torch.kernels.cc_update import kernel as CK
+    from repro_torch.kernels.control import kernel as XK, ops as XO, ref as XR
+    from repro_torch.kernels.ring_drain import kernel as DK, ops as DO
+    from repro_torch.netsim import transport
+    sim, fl, t, base = timed["control"]
     d, c = sim.dims, sim.consts
     ev = XR.control_ref(t, fl, transport.operands(c, clone_tree(base)))
     nbytes = control_bytes(sim, base, t, ev)
     o_k = transport.operands(c, clone_tree(base))
     o_p = transport.operands(c, clone_tree(base))
-    rec = dict(shape=f"[{d.NF}, {d.W}] ({CONTROL_TIMED[0]} t={t})", max_abs_err=0.0,
+    rec = dict(shape=f"[{d.NF}, {d.W}] ({TIMED[0]} t={t})", max_abs_err=0.0,
                **timings(lambda: XK.control(t, fl, o_k), lambda: XR.control_ref(t, fl, o_p),
                          plain_per_graph=10),
                **bound(nbytes))
@@ -639,31 +804,92 @@ def control_checks(dev):
     return rec
 
 
+def arrivals_timing(timed):
+    """The fused arrivals kernel at TIMED's state: against its bound, its
+    plain version and the split design's enqueue_rank on the same state,
+    and the whole phase against the split design's.  Every timed call
+    first restores the wire slot, the queue sizes and the bitmap, so it
+    lands the same packets; the restore alone is timed too and taken off."""
+    from repro_torch.kernels.arrivals import kernel as AK, ops as AO, ref as AR
+    from repro_torch.kernels.enqueue_arb import kernel as EK
+    from repro_torch.netsim import fabric
+    sim, fl, t, base = timed["arrivals"]
+    d, c = sim.dims, sim.consts
+    clk = sim.clock0._replace(t=t)
+    slots = AR.Slots(wire=t % d.L, ack=(t + clk.ret) % d.R, trim=(t + clk.trim_delay) % d.R)
+    nbytes = arrivals_bytes(sim, fl, slots, t, base)
+
+    def timed_pair(fn, st, per_graph=50, iters=200):
+        both, restore = restoring(base, st, fn)
+        return dict(ms=device_ms(both, per_graph) - device_ms(restore, per_graph),
+                    call_ms=call_ms(both, iters) - call_ms(restore, iters),
+                    restore_ms=device_ms(restore, per_graph))
+
+    st_k, st_p = clone_tree(base), clone_tree(base)
+    o_k, o_p = fabric.operands(c, st_k, None), fabric.operands(c, st_p, None)
+    k = timed_pair(lambda: AK.arrivals(t, slots, fl, o_k), st_k)
+    p = timed_pair(lambda: AR.arrivals_ref(t, slots, fl, o_p), st_p, per_graph=10, iters=50)
+    rec = dict(shape=f"[{c.in_tbl.shape[0]}, {c.in_tbl.shape[1]}] rows, {d.N} nodes "
+                     f"({TIMED[0]} t={t})",
+               max_abs_err=0.0, ms=k["ms"], call_ms=k["call_ms"], restore_ms=k["restore_ms"],
+               plain_ms=p["ms"], plain_call_ms=p["call_ms"], library_ms=None, **bound(nbytes))
+    # the split design's kernel on the same state, as enqueue_arb's
+    # enqueue_rank hands it the fan-in group rows
+    earr = base.infl[slots.wire][c.enq_ids]
+    edst = torch.where((earr[:, 0] == 1) & (earr[:, 1] >= 0), earr[:, 1], d.NQ)
+    gdst = torch.cat([edst, edst.new_full((1,), d.NQ)])[c.in_tbl]
+    ghead, gsize = base.q_head[gdst], base.q_size[gdst]
+    rec["enqueue_rank_ms"] = device_ms(lambda: EK.enqueue_rank(gdst, ghead, gsize,
+                                                               cap=d.CAP, nq=d.NQ))
+    # the whole phase: fused against the split design's glue
+    run_k, run_s = AO.get("kernel"), AO.get("split")
+    st_f, st_s = clone_tree(base), clone_tree(base)
+    phases = {"fused": lambda: fabric.arrivals(d, c, st_f, clk, run=run_k, fl=fl),
+              "split": lambda: fabric.arrivals(d, c, st_s, clk, run=run_s, fl=fl)}
+    for way, st in (("fused", st_f), ("split", st_s)):
+        both, restore = restoring(base, st, phases[way])
+        pre = "" if way == "fused" else "split_"
+        rec[f"{pre}phase_ms"] = (device_ms(both, per_graph=10)
+                                 - device_ms(restore, per_graph=10))
+        rec[f"{pre}phase_launches"] = graph_launches(both) - graph_launches(restore)
+        rec[f"{pre}phase_call_ms"] = call_ms(both, 100) - call_ms(restore, 100)
+    log(f"[kernels] arrivals        {rec['shape']}: device time: fused kernel "
+        f"{rec['ms'] * 1e3:.3f} us, plain {rec['plain_ms'] * 1e3:.3f} us, "
+        f"bound {rec['bound_ms'] * 1e3:.4f} us ({nbytes} B); the split design's "
+        f"enqueue_rank on the same state {rec['enqueue_rank_ms'] * 1e3:.3f} us; the whole "
+        f"phase (device): fused {rec['phase_ms'] * 1e3:.2f} us in "
+        f"{rec['phase_launches']} launches, split {rec['split_phase_ms'] * 1e3:.2f} us in "
+        f"{rec['split_phase_launches']} launches; a call with the host's work: kernel "
+        f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_call_ms'] * 1e3:.1f} us, phase "
+        f"fused {rec['phase_call_ms'] * 1e3:.1f} us, split "
+        f"{rec['split_phase_call_ms'] * 1e3:.1f} us (each less the restore: "
+        f"{rec['restore_ms'] * 1e3:.2f} us of device time)")
+    return rec
+
+
 # --------------------------------------------------------- 4. main path
 
 
 def counters():
+    from repro_torch.kernels.arrivals import kernel as AK
     from repro_torch.kernels.cc_update import kernel as CK
     from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.red_mark import kernel as RK
     from repro_torch.kernels.ring_drain import kernel as DK
-    return {"control": XK.control, "cc_update": CK.cc_update,
+    return {"control": XK.control, "arrivals": AK.arrivals, "cc_update": CK.cc_update,
             "enqueue_rank": EK.enqueue_rank, "ring_drain": DK.ring_drain,
             "rr_pick": EK.rr_pick, "red_mark": RK.red_mark}
 
 
 def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
-    """Run a scenario (with config ``overrides``) on ``device`` through the
-    ``backend`` ("kernel", "plain", or "split": the kernels with the
-    control phase as the ring_drain and cc_update kernels), to completion or
-    ``max_ticks``; launch counts reset just before the run and read just
-    after."""
+    """Run a scenario (with config ``overrides``) on ``device`` one of the
+    WAYS (``backend``: "kernel", "plain", "split-control" or
+    "split-arrivals"), to completion or ``max_ticks``; launch counts reset
+    just before the run and read just after."""
     from repro_torch.netsim import scenarios
     from repro_torch.netsim.metrics import summarize
-    rest = "kernel" if backend == "split" else backend
-    sc = scenarios.scenario(name, cc_backend=rest, fabric_backend=rest,
-                            transport_backend=backend, **overrides)
+    sc = scenarios.scenario(name, **WAYS[backend], **overrides)
     sim = sc.build(device=device)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -676,12 +902,19 @@ def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
     launches = read_counts()                                      # just after
     summ = summarize(sim, st)
     steps = sim.stats["steps"]
-    log(f"[main] {tag or name:14s} {device:4s} {backend:6s}: {summ['ticks']} ticks "
+    log(f"[main] {tag or name:14s} {device:4s} {backend:14s}: {summ['ticks']} ticks "
         f"({steps} executed) in {wall:.3f} s = {summ['ticks'] / wall:.1f} ticks/s; "
         f"fct_max {summ['fct_max']} fct_mean {summ['fct_mean']} "
         f"trims {summ['trims']}; launches "
         f"{ {k: v for k, v in launches.items() if v} }")
     return sim, st, summ, launches, wall
+
+
+def way_kernels(on_path, way):
+    """The kernels a run of ``way`` launches where the fused path launches
+    ``on_path`` (SPLIT_KERNELS)."""
+    swap = SPLIT_KERNELS.get(way, {})
+    return tuple(k_ for k in on_path for k_ in swap.get(k, (k,)))
 
 
 def expect_launches(what, launches, on_path, steps):
@@ -704,10 +937,10 @@ def quartiles(xs):
 
 
 def phase_main_path():
-    """The main path's runs (MAIN_RUNS) through the fused control launch:
-    launches, the JAX reference's summary, the final state against the
-    plain-on-card and CPU runs; the split design's run against it; then
-    ticks/s in turns (fused, split, plain) on TURN_RUNS."""
+    """The main path's runs (MAIN_RUNS) through the fused arrivals and
+    control launches: launches, the JAX reference's summary, the final state
+    against the runs through each split design, the plain versions on the
+    card and the CPU; then ticks/s in turns (TURN_WAYS) on TURN_RUNS."""
     results = {}
     for name, on_path in MAIN_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel")
@@ -718,35 +951,32 @@ def phase_main_path():
         for key, val in REFERENCE[name].items():
             if summ[key] != val:
                 fail(f"{name}: {key} = {summ[key]}, the JAX reference gives {val}")
-        _, st_s, _, launches_s, wall_s = run_path(name, "cuda", "split")
-        expect_launches(f"{name} split", launches_s,
-                        ("cc_update", "ring_drain", "enqueue_rank")
-                        + (("rr_pick",) if "rr_pick" in on_path else ()), steps)
-        _, st_p, _, launches_p, wall_p = run_path(name, "cuda", "plain")
-        if any(launches_p.values()):
-            fail(f"{name}: the plain backend launched kernels {launches_p}")
-        _, st_c, _, _, wall_c = run_path(name, "cpu", "kernel")
-        for other, label in ((st_s, "split on the card"), (st_p, "plain on the card"),
-                             (st_c, "CPU")):
+        by_way = {"kernel": launches}
+        walls = {"kernel": wall}
+        others = []
+        for way in ("split-control", "split-arrivals", "plain"):
+            _, st_w, _, by_way[way], walls[way] = run_path(name, "cuda", way)
+            expect_launches(f"{name} {way}", by_way[way], way_kernels(on_path, way)
+                            if way != "plain" else (), steps)
+            others.append((st_w, f"{way} on the card"))
+        _, st_c, _, _, walls["cpu"] = run_path(name, "cpu", "kernel")
+        for other, label in others + [(st_c, "CPU")]:
             bad = states_differ(st_k, other)
             if bad:
                 fail(f"{name}: final state differs from the {label} run in {bad}")
         for n, a in leaves(st_k):
             if a.is_floating_point() and not bool(torch.isfinite(a).all()):
                 fail(f"{name}: non-finite values in {n}")
-        log(f"[main] {name}: final state bit-equal to the split-on-card, plain-on-card "
-            f"and CPU runs ({len(list(leaves(st_k)))} leaves); summary equals the JAX "
-            f"reference")
-        results[name] = dict(launches=launches, launches_split=launches_s, steps=steps,
-                             ticks=summ["ticks"], wall=wall, wall_split=wall_s,
-                             wall_plain=wall_p, wall_cpu=wall_c,
-                             turns={"kernel": [summ["ticks"] / wall],
-                                    "split": [summ["ticks"] / wall_s],
-                                    "plain": [summ["ticks"] / wall_p]})
+        log(f"[main] {name}: final state bit-equal to the split-control, split-arrivals, "
+            f"plain-on-card and CPU runs ({len(list(leaves(st_k)))} leaves); summary "
+            f"equals the JAX reference")
+        results[name] = dict(launches=launches, launches_by_way=by_way, steps=steps,
+                             ticks=summ["ticks"], wall=wall, walls=walls,
+                             turns={w: [summ["ticks"] / walls[w]] for w in TURN_WAYS})
     for name in TURN_RUNS:
         r = results[name]
         for _ in range(TURNS - 1):
-            for way in ("kernel", "split", "plain"):
+            for way in TURN_WAYS:
                 _, _, summ, _, w = run_path(name, "cuda", way, tag=f"{name} turn")
                 r["turns"][way].append(summ["ticks"] / w)
         r["ticks_per_s"] = {way: quartiles(v) for way, v in r["turns"].items()}
@@ -1467,8 +1697,9 @@ def device_events(prof):
 
 
 def profile_way(backend):
-    """perm_1024n_3t through one transport backend ("kernel": the fused
-    control launch; "split": the two earlier kernels): each phase's wall time
+    """perm_1024n_3t one of the WAYS ("kernel": the fused arrivals and
+    control launches; "split-arrivals", "split-control": that phase as the
+    earlier kernels with PyTorch glue): each phase's wall time
     with a synchronize after it over the first PROFILE_TICKS ticks (the
     queues load and trims start within them; this scenario never leaps),
     then a torch.profiler window of 100 ticks for the device's busy share
@@ -1477,7 +1708,7 @@ def profile_way(backend):
 
     from repro_torch.netsim import scenarios
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    sc = scenarios.scenario("perm_1024n_3t", transport_backend=backend)
+    sc = scenarios.scenario("perm_1024n_3t", **WAYS[backend])
     sim = sc.build(device="cuda")
     st = sim.init()
     per = {name: 0.0 for name, _ in sim.phases}
@@ -1525,6 +1756,7 @@ def profile_way(backend):
             f"{e.key[:90]}")
     return dict(phase_ms_per_tick=per_tick,
                 control_share=per_tick["control"] / total,
+                arrivals_share=per_tick["arrivals"] / total,
                 wall_ms_per_tick=wall / ticks * 1e3,
                 device_busy_ms_per_tick=busy / ticks * 1e3,
                 idle_share=1 - busy / wall if busy else None,
@@ -1534,9 +1766,9 @@ def profile_way(backend):
 
 
 def phase_profile():
-    """Where perm_1024n_3t's tick time goes, through the fused control
-    launch and through the split design (profile_way)."""
-    return {way: profile_way(way) for way in ("kernel", "split")}
+    """Where perm_1024n_3t's tick time goes, through the fused launches and
+    through each split design (profile_way)."""
+    return {way: profile_way(way) for way in ("kernel", "split-arrivals", "split-control")}
 
 
 # ------------------------------------------------------------------ main
@@ -1559,7 +1791,11 @@ def main():
                   N_rr=a2a.dims.N, FMAX_rr=a2a.dims.FMAX)
     log(f"[kernels] main-path shapes {shapes}")
     records = kernel_checks(dev, shapes)
-    records["control"] = control_checks(dev)
+    control_cases(dev)
+    arrivals_cases(dev)
+    timed_states = state_checks(dev)
+    records["control"] = control_timing(timed_states)
+    records["arrivals"] = arrivals_timing(timed_states)
     records.update(serve_kernel_checks(dev))
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
@@ -1573,11 +1809,11 @@ def main():
         return out
 
     paths = timed_phase("main", phase_main_path)
-    log(f"[kernels] launches: " + ", ".join(
-        f"{k}: perm_1024n_3t {paths['perm_1024n_3t']['launches'][k]} "
-        f"(split {paths['perm_1024n_3t']['launches_split'][k]}), "
-        f"alltoall_3t {paths['alltoall_3t']['launches'][k]} "
-        f"(split {paths['alltoall_3t']['launches_split'][k]})" for k in counters()))
+    log("[kernels] launches (fused; split-arrivals; split-control): " + ", ".join(
+        f"{k}: " + ", ".join(f"{n} " + "; ".join(
+            str(paths[n]["launches_by_way"][w][k])
+            for w in ("kernel", "split-arrivals", "split-control"))
+            for n in ("perm_1024n_3t", "alltoall_3t")) for k in counters()))
     red = timed_phase("red_mark", phase_red_mark, dev)
     smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
     comparison = timed_phase("comparison", phase_comparison, smartt_rate)
@@ -1585,18 +1821,24 @@ def main():
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
     # (source, the TPU kernel it replaces, the path whose launches it reports);
-    # cc_update and ring_drain run on the split design's path since the
-    # control phase became one fused launch
+    # cc_update and ring_drain run on the split control phase's path since
+    # the control phase became one fused launch, enqueue_rank on the split
+    # arrivals phase's since the arrivals phase did
     replaces = {
         "cc_update": ("src/repro_torch/csrc/cc_update.cu",
-                      "src/repro/kernels/cc_update/kernel.py:60", "perm_1024n_3t split"),
+                      "src/repro/kernels/cc_update/kernel.py:60",
+                      "perm_1024n_3t split-control"),
         "enqueue_rank": ("src/repro_torch/csrc/enqueue_rank.cu",
-                         "src/repro/kernels/enqueue_arb/kernel.py:56", "perm_1024n_3t"),
+                         "src/repro/kernels/enqueue_arb/kernel.py:56",
+                         "perm_1024n_3t split-arrivals"),
         "ring_drain": ("src/repro_torch/csrc/ring_drain.cu",
-                       "src/repro/kernels/ring_drain/kernel.py:56", "perm_1024n_3t split"),
+                       "src/repro/kernels/ring_drain/kernel.py:56",
+                       "perm_1024n_3t split-control"),
         "control": ("src/repro_torch/csrc/control.cu",
                     "src/repro/kernels/cc_update/kernel.py:60 + "
                     "src/repro/kernels/ring_drain/kernel.py:56", "perm_1024n_3t"),
+        "arrivals": ("src/repro_torch/csrc/arrivals.cu",
+                     "src/repro/kernels/enqueue_arb/kernel.py:56", "perm_1024n_3t"),
         "rr_pick": ("src/repro_torch/csrc/rr_pick.cu",
                     "src/repro/kernels/enqueue_arb/kernel.py:91", "alltoall_3t"),
         "red_mark": ("src/repro_torch/csrc/red_mark.cu",
@@ -1612,10 +1854,10 @@ def main():
     kernels = []
     for k, rec in records.items():
         src, rep, path = replaces[k]
+        run, _, way = path.partition(" ")
         launches = (serving[path[len("serve "):]]["launches"] if path.startswith("serve ")
                     else red["launches"] if k == "red_mark"
-                    else paths[path[:-len(" split")]]["launches_split"][k]
-                    if path.endswith(" split") else paths[path]["launches"][k])
+                    else paths[run]["launches_by_way"][way or "kernel"][k])
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
             launches=launches, launches_path=path,
@@ -1627,15 +1869,14 @@ def main():
             **({"simt_ms": rec["simt_ms"], "simt_source": SIMT_SOURCES[k]}
                if "simt_ms" in rec else {}),
             **({"simt_bound_ms": rec["simt_bound_ms"]} if "simt_bound_ms" in rec else {}),
-            **({k_: rec[k_] for k_ in ("split_ms", "ring_drain_ms", "cc_update_ms",
-                                       "phase_ms", "split_phase_ms", "phase_call_ms",
-                                       "split_phase_call_ms", "phase_launches",
-                                       "split_phase_launches")} if k == "control" else {})))
+            **{k_: rec[k_] for k_ in ("split_ms", "ring_drain_ms", "cc_update_ms",
+                                      "enqueue_rank_ms", "restore_ms", "phase_ms",
+                                      "split_phase_ms", "phase_call_ms",
+                                      "split_phase_call_ms", "phase_launches",
+                                      "split_phase_launches") if k_ in rec}))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
-                   ticks_per_s=v["ticks"] / v["wall"],
-                   split_ticks_per_s=v["ticks"] / v["wall_split"],
-                   plain_ticks_per_s=v["ticks"] / v["wall_plain"],
-                   cpu_ticks_per_s=v["ticks"] / v["wall_cpu"],
+                   **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":
+                      v["ticks"] / wall for w, wall in v["walls"].items()},
                    **({"turns": v["ticks_per_s"]} if "ticks_per_s" in v else {}))
            for k, v in paths.items()}
     for k, v in comparison.items():
@@ -1645,14 +1886,17 @@ def main():
                       cpu_ticks_per_s=v["cpu_ticks_per_s"], cpu_over_ticks=v["cpu_ticks"])
     log(f"[main] end to end: {json.dumps(e2e)}")
     prof = timed_phase("profile", phase_profile)
-    ctl = records["control"]
-    log(f"[profile] perm_1024n_3t control phase: fused "
-        f"{prof['kernel']['phase_ms_per_tick']['control']:.3f} ms a tick "
-        f"({100 * prof['kernel']['control_share']:.1f}%), {ctl['phase_launches']} launches "
-        f"and {ctl['phase_ms'] * 1e3:.2f} us of device time a call; split "
-        f"{prof['split']['phase_ms_per_tick']['control']:.3f} ms a tick "
-        f"({100 * prof['split']['control_share']:.1f}%), {ctl['split_phase_launches']} "
-        f"launches and {ctl['split_phase_ms'] * 1e3:.2f} us")
+    for phase, split in (("control", "split-control"), ("arrivals", "split-arrivals")):
+        rec = records[phase]
+        log(f"[profile] perm_1024n_3t {phase} phase: fused "
+            f"{prof['kernel']['phase_ms_per_tick'][phase]:.3f} ms a tick "
+            f"({100 * prof['kernel'][f'{phase}_share']:.1f}%), {rec['phase_launches']} "
+            f"launches and {rec['phase_ms'] * 1e3:.2f} us of device time a call; split "
+            f"{prof[split]['phase_ms_per_tick'][phase]:.3f} ms a tick "
+            f"({100 * prof[split][f'{phase}_share']:.1f}%), {rec['split_phase_launches']} "
+            f"launches and {rec['split_phase_ms'] * 1e3:.2f} us; device kernels a tick "
+            f"{prof['kernel']['kernels_per_tick']:.1f} fused, "
+            f"{prof[split]['kernels_per_tick']:.1f} {split}")
     log(f"[done] total {time.perf_counter() - t0:.1f} s; by phase " + ", ".join(
         f"{k} {v:.1f} s" for k, v in spent.items()))
     if "--json" in sys.argv[1:]:

@@ -1,0 +1,1 @@
+"""arrivals kernel: plain version (ref), CUDA wrapper (kernel), dispatch (ops)."""

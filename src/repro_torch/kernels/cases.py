@@ -223,3 +223,150 @@ def control_operands(case: dict, device):
     o = R.Operands(params=p, cc=cc, **{k: t(case[k]) for k in R.Operands._fields
                                        if k not in ("params", "cc")})
     return case["t"], fl, o
+
+
+# the arrivals cases the CPU tests, the card tests and chip_smoke.py run:
+# ((NSW, D, N, NF, QE), seed, flags).  One slot; a row past 32 slots (three
+# warps: the kernel's carry across warps); perm_1024n_3t's shapes with drops
+# on the credit path and the fault metrics, and with neither; 31 flows a node
+ARRIVALS_CASES = (
+    ((1, 1, 1, 1, 0), 1, {}),
+    ((1, 3, 2, 3, 1), 2, {}),
+    ((4, 6, 8, 12, 10), 3, dict(faulty=True)),
+    ((6, 70, 40, 100, 150), 4, dict(credit_based=True, faulty=True)),
+    ((176, 20, 1024, 1024, 1280), 5, dict(trimming=False, credit_based=True, faulty=True)),
+    ((176, 20, 1024, 1024, 1280), 6, {}),
+    ((12, 40, 32, 992, 300), 7, dict(credit_based=True)),
+)
+
+
+def arrivals_case(NSW: int, D: int, N: int, NF: int, QE: int, seed: int, *,
+                  CAP: int = 40, W: int = 64, MAXW: int = 2, L: int = 9, R: int = 24,
+                  trimming: bool = True, credit_based: bool = False,
+                  faulty: bool = False) -> dict:
+    """Every operand of the fused arrivals phase (``kernels/arrivals``):
+    ``QE`` switch-facing ports and ``N`` sender NICs feeding ``NSW`` switch
+    fan-in rows of at most ``D`` slots (the first row full, the others
+    padded), ``NQ = QE + N`` queues of ``CAP`` packets (the last ``N``
+    deliver to the nodes), ``NF`` flows, several a node.  The wire slot
+    landing now carries enqueues that repeat a destination within a row,
+    into full and nearly full queues (so rejects happen; flow 0 is rejected
+    three times, twice in one row), deliveries that are new, duplicate,
+    finish their flow, name another node's flow or a flow past ``NF``, or
+    land past ``MAXW`` dedupe words.  The other slots and rows hold noise
+    that the phase must leave alone, ``trim_seen`` values past 2**24, and
+    the state keeps the simulator's invariants (``kernels/arrivals/ref.py``)."""
+    rng = np.random.default_rng(seed)
+    mtu = int(CC_MTU)
+    i32 = lambda a: np.asarray(a, np.int32)
+    NQ, EQ = QE + N, QE + N
+    NE = NQ + N
+    if not NSW <= NQ or not D <= EQ <= NSW * D:
+        raise ValueError(f"{EQ} emitters do not fit {NSW} rows of {D} slots")
+    t = int(rng.integers(500, 5000))
+    ret, trim_delay = int(rng.integers(10, R - 2)), int(rng.integers(1, R))
+    # the fan-in rows: compact emitters shuffled over the rows, row 0 full
+    order = rng.permutation(EQ)
+    lens = np.zeros(NSW, np.int64)
+    lens[0] = D
+    for _ in range(EQ - D):
+        lens[rng.choice(np.flatnonzero(lens < D))] += 1
+    in_tbl = np.full((NSW, D), EQ, np.int32)
+    in_pos = np.zeros(EQ, np.int32)
+    row_of = np.zeros(EQ, np.int64)
+    at = 0
+    for sw in range(NSW):
+        members = np.sort(order[at:at + lens[sw]])
+        at += lens[sw]
+        in_tbl[sw, :len(members)] = members
+        in_pos[members] = sw * D + np.arange(len(members))
+        row_of[members] = sw
+    enq_ids = i32(np.concatenate([np.arange(QE), np.arange(NQ, NE)]))
+    sw_of_q = i32(np.concatenate([np.arange(NSW), rng.integers(0, NSW, NQ - NSW)]))
+    owned = [np.flatnonzero(sw_of_q == sw) for sw in range(NSW)]
+
+    dst = i32(rng.integers(0, N, NF))
+    size = i32(rng.integers(1, MAXW * 32 * mtu + 1, NF))
+    t_start = i32(rng.integers(0, t, NF))
+    q_head = i32(np.append(rng.integers(0, CAP, NQ), 0))
+    q_size = i32(np.append(rng.choice([0, 3, CAP // 2, CAP - 2, CAP - 1, CAP], NQ), 0))
+    infl = i32(rng.integers(-3, 50, (L, NE, 7)))            # other slots: noise
+    w = t % L
+    slot = infl[w]
+    slot[:] = rng.integers(-3, 50, (NE, 7))
+    slot[:, 0] = 0
+    # enqueues: few destinations a row, so ranks repeat
+    for j in range(EQ):
+        mine = owned[row_of[j]][:3]
+        e = enq_ids[j]
+        if rng.random() < 0.8:
+            slot[e] = (1, rng.choice(mine) if rng.random() > 0.03 else -1,
+                       rng.integers(0, NF), rng.integers(0, MAXW * 32 + 40),
+                       rng.integers(0, 256), rng.integers(0, 2), t - rng.integers(1, 300))
+    # flow 0 rejected three times: twice in row 0 and once in another row
+    for sw, k in ((0, 0), (0, 1), (NSW - 1, 0)):
+        if k < D and in_tbl[sw, k] < EQ:
+            q = owned[sw][0]
+            q_size[q] = CAP
+            slot[enq_ids[in_tbl[sw, k]], :4] = (1, q, 0, int(rng.integers(0, 64)))
+    # receiver ledgers: done exactly when goodput has reached the size
+    bitmap = i32(np.concatenate([rng.integers(-2**31, 2**31, (NF, MAXW), dtype=np.int64),
+                                 np.zeros((1, MAXW), np.int64)]))
+    goodput = i32(np.minimum(rng.integers(0, MAXW * 32 * mtu, NF), size - 1))
+    done = rng.random(NF) < 0.1
+    goodput[done] = size[done]
+    fct = i32(np.where(done, rng.integers(10, 2000, NF), -1))
+    for i in range(N):
+        r = NQ - N + i
+        mine = np.flatnonzero(dst == i)
+        u = rng.random()
+        if u < 0.15:
+            continue                                        # nothing lands
+        f = int(rng.choice(mine)) if len(mine) and u < 0.85 else \
+            int(rng.choice([rng.integers(0, NF), NF + 2, -3]))
+        npk = (int(size[f]) + mtu - 1) // mtu if 0 <= f < NF else 8
+        seq = int(rng.integers(0, npk)) if rng.random() < 0.95 else MAXW * 32 + 5
+        slot[r] = (1, -(i + 1) if rng.random() < 0.95 else 3, f, seq,
+                   rng.integers(0, 256), rng.integers(0, 2), t - rng.integers(1, 300))
+        if 0 <= f < NF and dst[f] == i and not done[f] and seq < MAXW * 32:
+            word, bit = divmod(seq, 32)
+            bitmap[f, word] &= ~np.int32(1 << bit) if bit < 31 else np.int32(2**31 - 1)
+            if rng.random() < 0.4:                          # this packet finishes it
+                goodput[f] = size[f] - min(max(int(size[f]) - seq * mtu, 0), mtu)
+            elif rng.random() < 0.2:                        # a duplicate
+                bitmap[f, word] |= np.int32(1 << bit) if bit < 31 else np.int32(-2**31)
+    q_fields = i32(rng.integers(-3, 50, (NQ + 1, CAP, 5)))
+    q_fields[NQ] = 0                                        # the write-off row
+    trim_seen = np.round(rng.uniform(0, 3e7, NF + 1)).astype(np.float32)
+    trim_seen[NF] = 0.0
+    fault_active = bool(rng.random() < 0.5) if faulty else None
+    return dict(
+        t=t, slots=dict(wire=w, ack=(t + ret) % R, trim=(t + trim_delay) % R),
+        flags=dict(trimming=trimming, credit_based=credit_based, faulty=faulty,
+                   mtu=mtu, qe=QE, ret=ret, goodput_bin=int(rng.integers(40, 400))),
+        enq_ids=enq_ids, in_tbl=in_tbl, in_pos=in_pos, sw_of_q=sw_of_q,
+        dst=dst, size=size, t_start=t_start, infl=infl, q_head=q_head, q_size=q_size,
+        q_fields=q_fields, ack_ring=i32(rng.integers(-3, 50, (R, N, 6))),
+        trim_ring=i32(rng.integers(0, 5, (R, NF + 1, 2 + W // 32))),
+        trim_seen=trim_seen, bitmap=bitmap, goodput=goodput, done=done, fct=fct,
+        delivered_pkts=np.int32(rng.integers(0, 10**6)),
+        n_trim=np.int32(rng.integers(0, 10**5)), n_drop=np.int32(rng.integers(0, 10**5)),
+        delivered_bytes=np.float32(np.round(rng.uniform(0, 4e9))),
+        goodput_hist=np.round(rng.uniform(0, 3e7, 64)).astype(np.float32),
+        delivered_bytes_fault=np.float32(np.round(rng.uniform(0, 4e8))),
+        fault_active=fault_active,
+    )
+
+
+def arrivals_operands(case: dict, device):
+    """``(t, Slots, Flags, Operands)`` of an :func:`arrivals_case` on
+    ``device`` (fresh tensors: the phase updates them in place)."""
+    import torch
+
+    from repro_torch.kernels.arrivals import ref as R
+
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
+    fa = case["fault_active"]
+    o = R.Operands(**{k: t(case[k]) for k in R.Operands._fields if k != "fault_active"},
+                   fault_active=None if fa is None else t(np.bool_(fa)))
+    return case["t"], R.Slots(**case["slots"]), R.Flags(**case["flags"]), o

@@ -7,13 +7,13 @@ SMaRTT, runs the window update; the metric sums and the RTT histogram are
 reduced per block and added with integer atomics; the last block to
 finish zeroes the ACK slot, which all of a receiver's flows read.
 
-The argument block (every pointer but ``done`` and ``bitmap``, which the
-arrivals phase replaces each tick, the scalar CC parameters by value and
-the per-flow ones packed into one ``[3, NF]`` plane, and the event buffer)
-is built once per run: when the wrapper first sees a run's buffers, after
-checking every operand.  On later ticks it checks that the operands are
-the same tensors (the block holds them, so their storage cannot be
-reused) and allocates nothing.  It counts its launches in
+The argument block (every pointer, ``done`` and ``bitmap`` among them,
+which the arrivals phase updates in place, the scalar CC parameters by
+value and the per-flow ones packed into one ``[3, NF]`` plane, and the
+event buffer) is built once per run: when the wrapper first sees a run's
+buffers, after checking every operand.  On later ticks it checks that the
+operands are the same tensors (the block holds them, so their storage
+cannot be reused) and allocates nothing.  It counts its launches in
 ``control.launches`` (``control.launches_smartt``: those with SMaRTT's
 update inside); for a CUDA tensor it launches or raises.
 """
@@ -58,13 +58,13 @@ def _fn():
 
 
 def _stable(fl: R.Flags, o: R.Operands) -> tuple:
-    """The operands the argument block holds: every tensor but ``done``
-    and ``bitmap`` (the CC state and parameters only for SMaRTT)."""
+    """The operands the argument block holds: every tensor (the CC state
+    and parameters only for SMaRTT)."""
     cc = ((*(getattr(o.cc, n) for n in R.CC_PLANES), *o.params)
           if fl.smartt else ())
     return (o.dst, o.size, o.t_start, o.rto, o.ack_ring, o.trim_ring,
-            o.credit_ring, o.sent, o.rto_backoff, o.unacked, o.n_to,
-            o.spurious_retx, o.n_ack, o.rtt_hist, *cc)
+            o.credit_ring, o.sent, o.bitmap, o.done, o.rto_backoff, o.unacked,
+            o.n_to, o.spurious_retx, o.n_ack, o.rtt_hist, *cc)
 
 
 class _Block:
@@ -99,6 +99,8 @@ class _Block:
             n_ack=req(o.n_ack, "n_ack", i32, (), dev),
             rtt_hist=req(o.rtt_hist, "rtt_hist", i32, (bins,), dev),
         )
+        self.done = req(o.done, "done", torch.bool, (nf,), dev)
+        self.bitmap = req(o.bitmap, "bitmap", i32, (nf + 1, maxw), dev)
         self.params = cc_kernel.Params()
         self.pf = None
         if fl.smartt:
@@ -129,7 +131,7 @@ class _Block:
             backoff_max=fl.rto_backoff_max, bins=bins, trimming=int(fl.trimming),
             credit=int(fl.credit_based), mtu_f=float(fl.mtu),
             hist_scale=8.0 / fl.brtt_inter)
-        self.fl, self.nf, self.maxw, self.dev = fl, nf, maxw, dev
+        self.fl, self.dev = fl, dev
         self.operands = _stable(fl, o)     # held: their storage stays theirs
 
     def serves(self, fl: R.Flags, o: R.Operands) -> bool:
@@ -148,11 +150,8 @@ def control(t: int, fl: R.Flags, o: R.Operands):
     if blk is None or not blk.serves(fl, o):
         _block[0] = None                 # let the last run's buffers go first
         blk = _block[0] = _Block(fl, o)
-    done = build.require(o.done, "done", torch.bool, (blk.nf,), blk.dev)
-    bitmap = build.require(o.bitmap, "bitmap", torch.int32, (blk.nf + 1, blk.maxw),
-                           blk.dev)
     build.check(_fn()(ctypes.byref(blk.args), ctypes.byref(blk.params), int(t),
-                      done, bitmap, int(fl.smartt), build.stream(blk.dev)),
+                      blk.done, blk.bitmap, int(fl.smartt), build.stream(blk.dev)),
                 "control")
     control.launches += 1
     control.launches_smartt += int(fl.smartt)

@@ -1,8 +1,10 @@
 """Backend dispatch for the enqueue-rank + arbitration kernels.
 
-``get(backend)`` resolves ``SimConfig.fabric_backend`` to a pair of
-phase-facing callables (the engine passes them into ``fabric.arrivals``
-and ``sender.sends``):
+``get(backend)`` resolves a backend name to a pair of phase-facing
+callables (the engine passes ``arb`` into ``sender.sends``/``sender.grants``;
+``arrivals_ref``, the fused arrivals phase's plain version, calls
+``enqueue_rank``: with the ``"plain"`` backend, or with ``"kernel"`` under
+the split design):
 
   ``enqueue(in_tbl, in_pos, sw_of_q, edst, q_head, q_size, cap, nq)
       -> (acc, pos, q_counts)``

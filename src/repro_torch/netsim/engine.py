@@ -13,14 +13,18 @@ phases, each ``(Dims, Consts, SimState, Clock) -> SimState``:
   6. metrics    : ``metrics.account``    (occupancy accounting)
 
 ``build`` resolves the backends once, as the reference does: the CC update
-(``cc_backend``), the enqueue-rank/arbitration pair (``fabric_backend``)
-and the control phase (``transport_backend``).  ``"kernel"`` (the
-default) launches the hand-written CUDA kernels on the card and takes
-their plain versions on the CPU; ``"plain"`` takes the plain versions
-everywhere.  The control phase is one fused launch (``kernels/control``),
-which runs SMaRTT's window update too when the CC backend is
-``"kernel"``; ``transport_backend="split"`` runs it as the earlier design,
-the ``ring_drain`` and ``cc_update`` kernels with PyTorch between them.
+(``cc_backend``), the arrivals phase and the send arbitration
+(``fabric_backend``) and the control phase (``transport_backend``).
+``"kernel"`` (the default) launches the hand-written CUDA kernels on the
+card and takes their plain versions on the CPU; ``"plain"`` takes the
+plain versions everywhere.  The arrivals phase is one fused launch
+(``kernels/arrivals``); ``fabric_backend="split"`` runs it as the earlier
+design, the ``enqueue_rank`` kernel with PyTorch around it, and keeps the
+``rr_pick`` kernel for the send arbitration.  The control phase is one fused
+launch (``kernels/control``), which runs SMaRTT's window update too when
+the CC backend is ``"kernel"``; ``transport_backend="split"`` runs it as
+the earlier design, the ``ring_drain`` and ``cc_update`` kernels with
+PyTorch between them.
 
 The run loop is the reference's gated superstep loop written as a Python
 loop: each superstep first leaps ``now`` to the next event horizon (one
@@ -38,6 +42,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import registry
+from repro_torch.kernels.arrivals import ops as arrivals_ops
 from repro_torch.kernels.control import ops as control_ops
 from repro_torch.kernels.enqueue_arb import ops as enqueue_arb_ops
 from repro_torch.kernels.ring_drain import ops as ring_drain_ops
@@ -102,10 +107,17 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
     """Derive the tables on ``device`` and compose the tick.  The card is
     the default; ``device="cpu"`` runs the plain versions on the CPU."""
     cc_update = registry.get(cfg.algo, cfg.cc_backend)
-    enqueue, arb = enqueue_arb_ops.get(cfg.fabric_backend)
+    land = arrivals_ops.get(cfg.fabric_backend)
+    # the split design keeps the rr_pick kernel: only the arrivals phase differs
+    _, arb = enqueue_arb_ops.get("plain" if cfg.fabric_backend == "plain" else "kernel")
     run = None if cfg.transport_backend == "split" else \
         control_ops.get(cfg.transport_backend)
     topo, tm, dims, consts = derive(cfg, wl, device)
+    clock0 = clock(consts)
+    afl = fabric.flags(dims, consts, clock0)
+
+    def arrivals(c, st, k):
+        return fabric.arrivals(dims, c, st, k, run=land, fl=afl)
     if run is None:
         def control(c, st, k):
             return transport.control_split(dims, c, cc_update, st, k,
@@ -118,8 +130,7 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
 
     phases = (
         ("departures", lambda c, st, k: fabric.departures(dims, c, st, k)),
-        ("arrivals", lambda c, st, k: fabric.arrivals(dims, c, st, k,
-                                                      enqueue=enqueue)),
+        ("arrivals", arrivals),
         ("control", control),
         ("grants", lambda c, st, k: sender.grants(dims, c, st, k, arb=arb)),
         ("sends", lambda c, st, k: sender.sends(dims, c, st, k, arb=arb)),
@@ -127,7 +138,7 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
     )
     return Sim(cfg=cfg, topo=topo, timing=tm, wl=wl, dims=dims, consts=consts,
                device=consts.src.device, phases=phases,
-               clock0=clock(consts), stats={})
+               clock0=clock0, stats={})
 
 
 def _leap(sim: Sim, st: SimState, now: int, max_ticks: int):

@@ -9,9 +9,18 @@ Both are ``(Dims, Consts, SimState, Clock) -> SimState``; they communicate
 with the rest of the pipeline only through ``SimState`` fields (the wire
 ring ``infl``, the delayed control rings, and the receiver ledgers).
 
-The large rings (``infl``, ``ack_ring``, ``trim_ring``, ``q_fields``) are
-updated in place, which saves copying megabytes a tick: a state passed to
-a phase is consumed, as the reference's run loops consume (donate) theirs.
+``arrivals`` runs the whole phase in one call of the backend-resolved
+``kernels/arrivals`` callable: the fused CUDA kernel on the card, its
+plain version ``arrivals_ref`` otherwise, or under
+``SimConfig.fabric_backend="split"`` the earlier design, ``arrivals_ref``
+with the ``enqueue_rank`` kernel in it.
+
+The rings (``infl``, ``ack_ring``, ``trim_ring``, ``q_fields``), the
+queue sizes, the receiver ledgers (``bitmap``, ``goodput``, ``done``,
+``fct``, ``trim_seen``) and the counters the phase adds to are updated in
+place by ``arrivals``, which saves copying megabytes a tick: a state
+passed to a phase is consumed, as the reference's run loops consume
+(donate) theirs.
 
 ``horizon`` is the phases' next-event reduction for event-horizon time
 leaping (DESIGN.md Sec. 6.3): every delay ring keeps the invariant that a
@@ -22,9 +31,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.arrivals import ref as arrivals_ref
 from repro_torch.netsim import faults, hashing
-from repro_torch.netsim.metrics import GOODPUT_BINS, isum
-from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState, pkt_size
+from repro_torch.netsim.metrics import isum
+from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState
 
 I32 = torch.int32
 F32 = torch.float32
@@ -115,137 +125,42 @@ def departures(dims: Dims, consts: Consts, st: SimState, clk: Clock) -> SimState
     return st._replace(q_head=q_head, q_size=q_size, infl=infl, m=m)
 
 
-def arrivals(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
-             enqueue) -> SimState:
-    """Phase 2: land this tick's wire slot — deliver at the edge (dedupe,
-    ACK generation) or enqueue mid-fabric (trim/drop on overflow).
+def flags(dims: Dims, consts: Consts, clk: Clock) -> arrivals_ref.Flags:
+    """The run's constants that shape the fused phase (one device read,
+    of the goodput bin width, a build)."""
+    return arrivals_ref.Flags(
+        trimming=dims.trimming, credit_based=dims.credit_based,
+        faulty=bool(dims.FK or dims.flapped), mtu=dims.mtu, qe=dims.QE,
+        ret=clk.ret, goodput_bin=int(consts.goodput_bin))
 
-    ``enqueue`` is the backend-resolved enqueue-rank callable
-    (``kernels/enqueue_arb/ops.get``)."""
-    t = clk.t
+
+def operands(consts: Consts, st: SimState, fault_active) -> arrivals_ref.Operands:
+    """The fused phase's tensors: the run's constants and the state's
+    buffers (updated in place by the phase)."""
     m = st.m
-    NF, NQ, N = dims.NF, dims.NQ, dims.N
-    CAP, L, R = dims.CAP, dims.L, dims.R
-    dev = st.now.device
+    return arrivals_ref.Operands(
+        enq_ids=consts.enq_ids, in_tbl=consts.in_tbl, in_pos=consts.in_pos,
+        sw_of_q=consts.sw_of_q, dst=consts.dst, size=consts.size,
+        t_start=consts.t_start, infl=st.infl, q_head=st.q_head, q_size=st.q_size,
+        q_fields=st.q_fields, ack_ring=st.ack_ring, trim_ring=st.trim_ring,
+        trim_seen=st.trim_seen, bitmap=st.bitmap, goodput=st.goodput, done=st.done,
+        fct=st.fct, delivered_pkts=m.delivered_pkts, n_trim=m.n_trim, n_drop=m.n_drop,
+        delivered_bytes=m.delivered_bytes, goodput_hist=m.goodput_hist,
+        delivered_bytes_fault=m.delivered_bytes_fault, fault_active=fault_active)
 
-    # read this tick's wire slot, then zero it in place: the wire ring then
-    # only ever holds live packets (what `horizon` relies on)
-    arr = st.infl[t % L].clone()                      # [NE, 7]
-    infl = st.infl
-    infl[t % L] = 0
 
-    # ---- deliveries (the t0_down rows [QE, QE+N): row i delivers to node i) ----
-    lo = dims.QE
-    darr = arr[lo:lo + N]
-    deliver = (darr[:, 0] == 1) & (darr[:, 1] < 0)
-    d_flow, d_seq, d_ent, d_ecn, d_ts = (darr[:, i] for i in range(2, 7))
-    # receiver ledgers in the flow-major view: flow f's packets can only
-    # land at node dst[f], one delivery per node per tick
-    dview = darr[consts.dst]                          # [NF, 7]
-    del_f = (dview[:, 0] == 1) & (dview[:, 1] < 0) & \
-        (dview[:, 2] == consts.flow_ids)
-    seq_f = torch.where(del_f, dview[:, 3], 0)
-    word_f = torch.div(seq_f, 32, rounding_mode="floor")
-    bit_f = torch.remainder(seq_f, 32)
-    wsel = word_f[:, None] == torch.arange(dims.MAXW, dtype=I32, device=dev)
-    bm = st.bitmap[:NF]
-    old_w = isum(torch.where(wsel, bm, 0), dim=1)
-    isnew_f = del_f & (((old_w >> bit_f) & 1) == 0)
-    bitmap = st.bitmap.clone()
-    bitmap[:NF] = bm + torch.where(wsel & isnew_f[:, None],
-                                   (torch.ones_like(bit_f) << bit_f)[:, None], 0)
-    psz_f = torch.where(isnew_f,
-                        (consts.size - seq_f * dims.mtu).clamp(0, dims.mtu), 0)
-    goodput = st.goodput + psz_f
-    newly_done = (goodput >= consts.size) & ~st.done
-    done = st.done | newly_done
-    fct = torch.where(newly_done, t + consts.ret - consts.t_start, st.fct)
-    # ACK generation (echoes entropy + ECN + timestamp; priority path): the
-    # return delay is constant, so slot (t+ret) % R is exclusively this
-    # tick's — written whole, in place
-    ack_payload = torch.where(deliver[:, None], torch.stack(
-        [deliver.to(I32), d_flow, d_seq, d_ecn, d_ent, d_ts], dim=1), 0)
-    ack_ring = st.ack_ring
-    ack_ring[(t + clk.ret) % R] = ack_payload
-    dbytes = isum(psz_f).to(F32)
-    # recovery metrics, only where a fault schedule exists: binned goodput
-    # history and the bytes delivered while the schedule is active (both
-    # accrue on delivery ticks only, so they are leap-exact)
-    goodput_hist = m.goodput_hist
-    delivered_bytes_fault = m.delivered_bytes_fault
-    if dims.FK or dims.flapped:
-        gbin = torch.div(consts.goodput_bin.new_full((), t), consts.goodput_bin,
-                         rounding_mode="floor").clamp_max(GOODPUT_BINS - 1)
-        goodput_hist = goodput_hist + torch.where(
-            torch.arange(GOODPUT_BINS, dtype=I32, device=dev) == gbin, dbytes, 0.0)
-        delivered_bytes_fault = delivered_bytes_fault + torch.where(
-            faults.fault_active(dims, consts, t), dbytes, 0.0)
-    m = m._replace(
-        delivered_pkts=m.delivered_pkts + isum(deliver),
-        delivered_bytes=m.delivered_bytes + dbytes,
-        goodput_hist=goodput_hist,
-        delivered_bytes_fault=delivered_bytes_fault,
-    )
-
-    # ---- enqueues, on the compact [EQ] axis of enqueue-capable emitters ----
-    earr = arr[consts.enq_ids]                        # [EQ, 7]
-    e_dstq, e_flow, e_seq, e_ent, e_ecn, e_ts = (earr[:, i] for i in range(1, 7))
-    enq = (earr[:, 0] == 1) & (e_dstq >= 0)
-    edst = torch.where(enq, e_dstq, NQ)
-    acc, pos, q_counts = enqueue(consts.in_tbl, consts.in_pos,
-                                 consts.sw_of_q, edst, st.q_head, st.q_size,
-                                 CAP, NQ)
-    row = torch.where(acc, edst, NQ)
-    posw = torch.where(acc, pos, 0)
-    # indices are NOT unique: every non-accepted emitter collapses onto the
-    # write-off cell (NQ, 0) under a zero payload, so whichever write lands
-    # there, the cell stays zero (fabric.py:274-282 of the reference);
-    # the accepted (row, pos) pairs are distinct.  Written in place.
-    q_fields = st.q_fields
-    q_fields.index_put_(
-        (row, posw),
-        torch.where(acc[:, None],
-                    torch.stack([e_flow, e_seq, e_ent, e_ecn, e_ts], dim=1), 0))
-    q_size = st.q_size.clone()
-    q_size[:NQ] += q_counts
-    rej = (edst < NQ) & ~acc
-    # trim (paper: only when the buffer is full) or drop
-    rflow = torch.where(rej, e_flow, NF)
-    rej_pkt = pkt_size(dims, consts, e_flow, e_seq)
-    rej_bytes_i = torch.where(rej, rej_pkt, 0)
-    trim_seen = st.trim_seen
-    if dims.credit_based:
-        # receiver-side trim visibility (EQDS: trimmed headers reach the
-        # receiver, which re-schedules the pull — paper Sec. 2.2); whole
-        # packet sizes, so the f32 sums are exact in any order
-        trim_seen = trim_seen.index_add(0, rflow, rej_bytes_i.to(F32))
-    if dims.trimming:
-        W, WW = dims.W, dims.WW
-        # one packed update feeds the delayed trim ledger (count, bytes and
-        # the WW per-slot loss words): staged flow-major with an integer
-        # scatter-add (order-free), then added into the ring slot in place
-        wslot = torch.div(torch.remainder(e_seq, W), 32, rounding_mode="floor")
-        wbit = torch.remainder(torch.remainder(e_seq, W), 32)
-        # bit 31 is 1 << 31 in i32, i.e. -2**31, exactly as in the reference
-        words = torch.where(
-            rej[:, None] & (wslot[:, None] == torch.arange(WW, dtype=I32, device=dev)),
-            (torch.ones_like(wbit) << wbit)[:, None], 0)
-        upd = torch.cat(
-            [rej.to(I32)[:, None], rej_bytes_i[:, None], words], dim=1)
-        staged = torch.zeros((NF + 1, 2 + WW), dtype=I32, device=dev)
-        staged.index_add_(0, rflow, upd)
-        trim_ring = st.trim_ring
-        trim_ring[(t + clk.trim_delay) % R] += staged
-        m = m._replace(n_trim=m.n_trim + isum(rej))
-    else:
-        trim_ring = st.trim_ring
-        m = m._replace(n_drop=m.n_drop + isum(rej))
-
-    return st._replace(
-        infl=infl, bitmap=bitmap, goodput=goodput, done=done, fct=fct,
-        ack_ring=ack_ring, q_fields=q_fields, q_size=q_size,
-        trim_seen=trim_seen, trim_ring=trim_ring, m=m,
-    )
+def arrivals(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
+             run, fl: arrivals_ref.Flags) -> SimState:
+    """Phase 2: land this tick's wire slot — deliver at the edge (dedupe,
+    ACK generation) or enqueue mid-fabric (trim/drop on overflow) — in one
+    call of ``run`` (the backend resolved by ``kernels/arrivals/ops.get``),
+    which updates the state's buffers in place."""
+    t = clk.t
+    slots = arrivals_ref.Slots(wire=t % dims.L, ack=(t + clk.ret) % dims.R,
+                               trim=(t + clk.trim_delay) % dims.R)
+    active = faults.fault_active(dims, consts, t) if fl.faulty else None
+    run(t, slots, fl, operands(consts, st, active))
+    return st
 
 
 def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):

@@ -66,8 +66,14 @@ class SimConfig:
     tree: FatTreeConfig = FatTreeConfig()
     algo: str = "smartt"
     cc_backend: str = "kernel"       # "kernel" | "plain" (kernels/cc_update)
-    fabric_backend: str = "kernel"   # "kernel" | "plain" — enqueue-rank +
-                                     # send arbitration (kernels/enqueue_arb)
+    fabric_backend: str = "kernel"   # "kernel" | "plain" | "split" — the
+                                     # arrivals phase: one fused launch
+                                     # (kernels/arrivals), its plain
+                                     # version, or the enqueue_rank kernel
+                                     # with PyTorch glue; and the send
+                                     # arbitration: the rr_pick kernel under
+                                     # "kernel" and "split" alike, its plain
+                                     # version under "plain"
     transport_backend: str = "kernel"  # "kernel" | "plain" | "split" —
                                      # the control phase: one fused launch
                                      # (kernels/control), its plain
@@ -272,6 +278,25 @@ class SimState(NamedTuple):
 # --------------------------------------------------------------------------
 
 
+def check_wire_rows(topo, n_nodes: int) -> None:
+    """Raise unless each wire row has exactly one reader in the arrivals
+    phase: the enqueue-capable emitters ``enq_ids`` and the delivery rows
+    ``[QE, QE+N)`` partition ``[0, NE)``, and the real slots of the fan-in
+    table ``in_tbl`` name each enqueue-capable emitter once.  The fused
+    kernel zeroes each row through its one reader."""
+    ne, eq = topo.n_emitters, len(topo.enq_ids)
+    qe = topo.n_queues - n_nodes
+    rows = np.concatenate([np.asarray(topo.enq_ids), np.arange(qe, qe + n_nodes)])
+    tbl = np.asarray(topo.in_tbl)
+    named = np.sort(tbl[tbl < eq])
+    if not (np.array_equal(np.sort(rows), np.arange(ne))
+            and np.array_equal(named, np.arange(eq))):
+        raise ValueError(
+            "the wire's rows need one reader each: enq_ids and the delivery rows "
+            f"[{qe}, {qe + n_nodes}) must partition [0, {ne}), and in_tbl name each "
+            "of the enqueue-capable emitters once")
+
+
 def derive(cfg: SimConfig, wl: Workload, device="cuda"):
     """Map (config, workload) -> (Topology, Timing, Dims, Consts), with the
     constants on ``device`` (see :func:`resolve_device`)."""
@@ -296,6 +321,7 @@ def derive(cfg: SimConfig, wl: Workload, device="cuda"):
     MAXW = (max_pkts + 31) // 32
     P, U, M = tree.racks, tree.uplinks, tree.nodes_per_rack
     QE = NQ - N                                   # edge-port block base
+    check_wire_rows(topo, N)
 
     # ---- per-flow constants (ACK return delay is globally constant) ----
     sr, dr = wl.src // M, wl.dst // M

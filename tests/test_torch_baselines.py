@@ -159,9 +159,12 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     the CPU: every operand check passes (the grant pick hands ``rr_pick`` a
     [N, FRMAX] plane and the receivers' cursors), so the only refusal left
     is the one that says the tensors are not on a card; the control phase
-    is the fused kernel with the CC update off, and the split design's
-    cc_update and ring_drain are never called."""
+    is the fused kernel with the CC update off, the arrivals phase the
+    fused kernel on the credit path, and the split designs' cc_update,
+    ring_drain and enqueue_rank are never called."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.arrivals import kernel as AK
+    from repro_torch.kernels.arrivals import ref as AR
     from repro_torch.kernels.cc_update import kernel as CK
     from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.control import ref as XR
@@ -189,8 +192,9 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     rehearse(DK, "ring_drain", lambda t, *a: DR.ring_drain_ref(
         t, *a, w=a[-1].shape[1], ww=a[4].shape[1], maxw=a[5].shape[1]))
     rehearse(XK, "control", XR.control_ref)
+    rehearse(AK, "arrivals", AR.arrivals_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario("incast8_16n", algo="eqds").build(device="cpu")
     assert sim.dims.FMAX == 1 and sim.dims.FRMAX == 8    # rr_pick: grants only
     sim.run(60)
-    assert calls == {"enqueue_rank": 60, "control": 60, "rr_pick": 60}, calls
+    assert calls == {"arrivals": 60, "control": 60, "rr_pick": 60}, calls

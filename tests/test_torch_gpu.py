@@ -1,9 +1,9 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version (bit for bit, at the main path's shapes and ragged
-ones; the fused control phase also on simulator states at chosen
-ticks), and small scenarios through the kernels against the same runs
-on the CPU (final states bit for bit, one launch of each tick kernel per
-executed tick).
+ones; the fused control and arrivals phases also on simulator states at
+chosen ticks), and small scenarios through the kernels against the same
+runs on the CPU (final states bit for bit, one launch of each tick kernel
+per executed tick).
 
 Every test is marked ``gpu`` and skips without a card; whether there is
 one is decided inside the fixture.  This file imports no JAX, so it runs
@@ -18,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import cases  # noqa: E402
+from repro_torch.kernels.arrivals import kernel as AK  # noqa: E402
+from repro_torch.kernels.arrivals import ref as AR  # noqa: E402
 from repro_torch.kernels.cc_update import kernel as CK  # noqa: E402
 from repro_torch.kernels.cc_update import ref as CR  # noqa: E402
 from repro_torch.kernels.control import kernel as XK  # noqa: E402
@@ -28,7 +30,8 @@ from repro_torch.kernels.red_mark import kernel as RK  # noqa: E402
 from repro_torch.kernels.red_mark import ref as RR  # noqa: E402
 from repro_torch.kernels.ring_drain import kernel as DK  # noqa: E402
 from repro_torch.kernels.ring_drain import ref as DR  # noqa: E402
-from repro_torch.netsim import scenarios  # noqa: E402
+from repro_torch.netsim import fabric, scenarios  # noqa: E402
+from repro_torch.netsim import faults as tfaults  # noqa: E402
 from repro_torch.netsim import state as tstate  # noqa: E402
 from repro_torch.netsim import transport  # noqa: E402
 
@@ -134,19 +137,20 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
 def test_scenario_through_kernels_equals_cpu(cuda, name):
     """A whole run through the kernels on the card ends in the CPU port's
     final state, bit for bit, with one launch of each tick kernel per
-    executed tick (the fused control phase, SMaRTT inside it; rr_pick
-    wherever senders hold several flows; the split design's cc_update and
-    ring_drain never)."""
+    executed tick (the fused control phase, SMaRTT inside it; the fused
+    arrivals phase; rr_pick wherever senders hold several flows; the split
+    designs' enqueue_rank, cc_update and ring_drain never)."""
     sc = scenarios.scenario(name)
     sim = sc.build(device=cuda)
-    fns = (XK.control, EK.enqueue_rank, CK.cc_update, DK.ring_drain, EK.rr_pick)
+    fns = (XK.control, AK.arrivals, EK.enqueue_rank, CK.cc_update, DK.ring_drain,
+           EK.rr_pick)
     for fn in fns:
         fn.launches = 0
     XK.control.launches_smartt = 0
     st = sim.run(sc.max_ticks)
     torch.cuda.synchronize()
     steps = sim.stats["steps"]
-    assert [fn.launches for fn in fns[:4]] == [steps, steps, 0, 0]
+    assert [fn.launches for fn in fns[:5]] == [steps, steps, 0, 0, 0]
     assert XK.control.launches_smartt == steps
     assert (EK.rr_pick.launches > 0) == (sim.dims.FMAX > 1)
     cpu = sc.build(device="cpu")
@@ -164,20 +168,24 @@ def test_scenario_through_kernels_equals_cpu(cuda, name):
 
 
 @pytest.mark.parametrize("name,overrides,ticks,on_path", [
-    ("incast8_16n", dict(algo="eqds"), None, ("enqueue_rank", "control", "rr_pick")),
-    ("corefail_128n_3t", {}, 700, ("enqueue_rank", "control")),
-], ids=["eqds", "corefail"])
+    ("incast8_16n", dict(algo="eqds"), None, ("arrivals", "control", "rr_pick")),
+    ("corefail_128n_3t", {}, 700, ("arrivals", "control")),
+    ("perm_128n_3t", dict(fabric_backend="split"), None, ("enqueue_rank", "control")),
+], ids=["eqds", "corefail", "split-arrivals"])
 def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks, on_path):
     """EQDS (credit grants through rr_pick, the fused control phase with
-    the CC update off) and a fault schedule (corefail_128n_3t to tick 700,
-    past the failure at 500 and its first timeouts, SMaRTT inside the
-    fused phase) through the kernels on the card end in the CPU port's
-    state."""
+    the CC update off, the fused arrivals phase on the credit path), a
+    fault schedule (corefail_128n_3t to tick 700, past the failure at 500
+    and its first timeouts, SMaRTT inside the fused control phase, the
+    fault metrics inside the fused arrivals phase) and the split design of
+    the arrivals phase (the enqueue_rank kernel once a tick) through the
+    kernels on the card end in the CPU port's state."""
     sc = scenarios.scenario(name, **overrides)
     ticks = ticks or sc.max_ticks
     sim = sc.build(device=cuda)
     fns = {"cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
-           "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick, "control": XK.control}
+           "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick, "control": XK.control,
+           "arrivals": AK.arrivals}
     for fn in fns.values():
         fn.launches = 0
     XK.control.launches_smartt = 0
@@ -187,7 +195,8 @@ def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks,
     assert {k: fn.launches for k, fn in fns.items()} == \
         {k: steps if k in on_path else 0 for k in fns}
     assert XK.control.launches_smartt == (steps if sc.cfg.algo == "smartt" else 0)
-    ref = sc.build(device="cpu").run(ticks)
+    ref = scenarios.scenario(name, **{**overrides, "fabric_backend": "kernel"}) \
+        .build(device="cpu").run(ticks)
     a, b = tstate.to_numpy(st), tstate.to_numpy(ref)
     for x, y in zip(_leaf_list(a), _leaf_list(b)):
         assert x[1].dtype == y[1].dtype and x[1].tobytes() == y[1].tobytes(), x[0]
@@ -300,3 +309,82 @@ def test_control_kernel_refuses_bad_operands(cuda):
     assert XK.control.launches == n0
     XK.control(t, fl, o)
     assert XK.control.launches == n0 + 1
+
+
+# ------------------------------------------------ the fused arrivals phase
+
+def _arrivals_both(t, s, fl, ok, orf):
+    """The fused kernel on ``ok`` and ``arrivals_ref`` on ``orf`` (two copies
+    of the same operands): every operand bit for bit."""
+    n0 = AK.arrivals.launches
+    AK.arrivals(t, s, fl, ok)
+    AR.arrivals_ref(t, s, fl, orf)
+    torch.cuda.synchronize()
+    assert AK.arrivals.launches == n0 + 1
+    for n, a, b in zip(ok._fields, ok, orf):
+        if a is not None:
+            assert _bit_equal(a, b), n
+
+
+@pytest.mark.parametrize("shape,seed,flags", cases.ARRIVALS_CASES)
+def test_arrivals_kernel_bit_equal(cuda, shape, seed, flags):
+    c = cases.arrivals_case(*shape, seed, **flags)
+    t, s, fl, ok = cases.arrivals_operands(c, cuda)
+    _, _, _, orf = cases.arrivals_operands(c, cuda)
+    _arrivals_both(t, s, fl, ok, orf)
+    assert not ok.infl[s.wire].any() and not ok.q_fields[-1].any()
+
+
+@pytest.mark.parametrize("name,overrides,ticks", [
+    ("perm_128n_3t", {}, (40, 70, 120, 200, 300)),
+    ("incast8_16n", dict(algo="eqds"), tuple(range(20, 120, 3))),
+    ("incast8_16n", dict(trimming=False), tuple(range(20, 120, 3))),
+    ("corefail_128n_3t", {}, (260, 270, 499, 500, 501, 520, 600)),
+], ids=["perm_128n_3t", "eqds", "drops", "corefail"])
+def test_arrivals_kernel_bit_equal_on_tick_states(cuda, name, overrides, ticks):
+    """The simulator's own states on the card: at each chosen tick, after
+    departures, the fused kernel and its plain version from two copies of
+    the state agree bit for bit."""
+    sc = scenarios.scenario(name, **overrides)
+    sim = sc.build(device=cuda)
+    phases = dict(sim.phases)
+    fl = fabric.flags(sim.dims, sim.consts, sim.clock0)
+    st = sim.init()
+    rejects = delivered = 0
+    for t in range(max(ticks) + 1):
+        clk = sim.clock0._replace(t=t)
+        st = phases["departures"](sim.consts, st, clk)
+        if t in ticks:
+            slots = AR.Slots(wire=t % sim.dims.L, ack=(t + clk.ret) % sim.dims.R,
+                             trim=(t + clk.trim_delay) % sim.dims.R)
+            active = tfaults.fault_active(sim.dims, sim.consts, t) if fl.faulty else None
+            a, b = _clone(st), _clone(st)
+            _arrivals_both(t, slots, fl, fabric.operands(sim.consts, a, active),
+                           fabric.operands(sim.consts, b, active))
+            rejects += int(a.m.n_trim + a.m.n_drop) - int(st.m.n_trim + st.m.n_drop)
+            delivered += int(a.m.delivered_pkts) - int(st.m.delivered_pkts)
+        for name_ in ("arrivals", "control", "grants", "sends", "metrics"):
+            st = phases[name_](sim.consts, st, clk)
+        st = st._replace(now=st.now + 1)
+    assert delivered > 0 and rejects > 0
+
+
+def test_arrivals_kernel_refuses_bad_operands(cuda):
+    c = cases.arrivals_case(4, 6, 8, 12, 10, 0, faulty=True)
+    t, s, fl, o = cases.arrivals_operands(c, cuda)
+    n0 = AK.arrivals.launches
+    with pytest.raises(TypeError, match="dtype"):
+        AK.arrivals(t, s, fl, o._replace(infl=o.infl.to(torch.int64)))
+    with pytest.raises(ValueError, match="shape"):
+        AK.arrivals(t, s, fl, o._replace(ack_ring=o.ack_ring[:, :, :5].contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        AK.arrivals(t, s, fl, o._replace(bitmap=o.bitmap.t().contiguous().t()))
+    with pytest.raises(ValueError, match="on cpu"):
+        AK.arrivals(t, s, fl, o._replace(q_size=o.q_size.cpu()))
+    with pytest.raises(TypeError, match="expected a tensor"):
+        AK.arrivals(t, s, fl, o._replace(fault_active=None))
+    with pytest.raises(ValueError, match="outside the rings"):
+        AK.arrivals(t, s._replace(wire=o.infl.shape[0]), fl, o)
+    assert AK.arrivals.launches == n0
+    AK.arrivals(t, s, fl, o)
+    assert AK.arrivals.launches == n0 + 1

@@ -204,6 +204,8 @@ def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
     tensors are not on a card; then its plain version runs.  Returns the
     calls by wrapper and the built simulator."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.arrivals import kernel as AK
+    from repro_torch.kernels.arrivals import ref as AR
     from repro_torch.kernels.cc_update import kernel as CK
     from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.control import ref as XR
@@ -232,6 +234,7 @@ def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
     rehearse(EK, "rr_pick", tarb.rr_pick_ref)
     rehearse(DK, "ring_drain", drain_plain)
     rehearse(XK, "control", XR.control_ref)
+    rehearse(AK, "arrivals", AR.arrivals_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario(name, **overrides).build(device="cpu")
     sim.run(ticks)
@@ -244,9 +247,10 @@ def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
     operand before it asks for the card.  Route the main path's real calls
     through the wrappers on the CPU: every check must pass, so the only
     refusal left is the one that says the tensors are not on a card.  The
-    control phase is the fused kernel (SMaRTT's update inside it)."""
+    control phase is the fused kernel (SMaRTT's update inside it), the
+    arrivals phase too (the split design's enqueue_rank never runs)."""
     calls, sim = _rehearse_wrappers(monkeypatch, name, ticks)
-    want = {"control", "enqueue_rank"} | ({"rr_pick"} if sim.dims.FMAX > 1 else set())
+    want = {"control", "arrivals"} | ({"rr_pick"} if sim.dims.FMAX > 1 else set())
     assert set(calls) == want and all(v == ticks for k, v in calls.items()
                                       if k != "rr_pick"), calls
 
@@ -254,15 +258,21 @@ def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
 @pytest.mark.parametrize("name,ticks,overrides", [
     ("perm_128n_3t", 80, dict(transport_backend="split")),
     ("tiny_incast3", 20, dict(algo="eqds", trimming=False, rto_backoff_max=3)),
-], ids=["split", "eqds-flags"])
+    ("perm_128n_3t", 80, dict(fabric_backend="split")),
+    ("corefail_128n_3t", 510, dict(algo="eqds")),
+], ids=["split", "eqds-flags", "split-arrivals", "faults-credit"])
 def test_other_paths_operands_pass_every_wrapper_check(monkeypatch, name, ticks,
                                                        overrides):
     """The same rehearsal for the earlier design of the control phase
-    (``transport_backend="split"``: the ring_drain and cc_update kernels)
-    and for the fused kernel with the CC update off and every flag of the
-    phase set otherwise (credits, no trimming, RTO backoff)."""
+    (``transport_backend="split"``: the ring_drain and cc_update kernels),
+    for the fused control kernel with the CC update off and every flag of
+    the phase set otherwise (credits, no trimming, RTO backoff), for the
+    earlier design of the arrivals phase (``fabric_backend="split"``: the
+    enqueue_rank kernel), and for the fused arrivals kernel with the fault
+    metrics and the credit path on (corefail_128n_3t past its failure)."""
     calls, sim = _rehearse_wrappers(monkeypatch, name, ticks, **overrides)
     want = ({"cc_update", "ring_drain"} if "transport_backend" in overrides
-            else {"control", "rr_pick"}) | {"enqueue_rank"}
+            else {"control"} | ({"rr_pick"} if sim.dims.credit_based else set()))
+    want |= {"enqueue_rank"} if "fabric_backend" in overrides else {"arrivals"}
     steps = sim.stats["steps"]
     assert set(calls) == want and all(v == steps for v in calls.values()), calls
