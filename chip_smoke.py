@@ -12,12 +12,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   3. kernels — each CUDA kernel against its plain PyTorch version on the
                card at its paths' shapes plus ragged and edge cases: the
                simulator kernels bit for bit (the fused control kernel
-               against control_ref and the fused arrivals kernel against
-               arrivals_ref on seeded operands, every flag on and off, a
-               ragged ring and a fan-in row past one warp, and both on the
-               simulator's own states: perm_1024n_3t, alltoall_3t,
-               corefail_128n_3t across its failure and to its first
-               timeouts, incast_256x1_3t under eqds); flash_attention within
+               against control_ref, the fused arrivals kernel against
+               arrivals_ref and the fused sends kernel against sends_ref on
+               seeded operands, every flag on and off, a ragged ring, a
+               fan-in row past one warp, sender rows of 1, 31, 70 and 254
+               flows, and all three on the simulator's own states:
+               perm_1024n_3t, alltoall_3t, corefail_128n_3t across its
+               failure and to its first timeouts, incast_256x1_3t under
+               eqds; the sends kernel also on allreduce_ring_128n_3t and
+               perm_128n_3t under bbr); flash_attention within
                2e-5 (f32, the SIMT kernel) / 2e-2 (bf16, the tensor-core
                kernel; every masking and ragged case in both dtypes, the
                launch counted on the dtype's kernel, a misaligned bf16
@@ -34,18 +37,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                kernel's time on the same bf16 inputs (variant="simt"),
                the earlier design; for the fused control kernel the split
                design's ring_drain + cc_update on the same state, for the
-               fused arrivals kernel the split design's enqueue_rank, and
-               each whole phase fused against split (device time and
-               launches of one call, captured in a CUDA graph)
+               fused arrivals kernel the split design's enqueue_rank, for
+               the fused sends kernel (on perm_1024n_3t and alltoall_3t)
+               the rr_pick kernel on alltoall_3t's rows, and each whole phase
+               fused against split (device time and launches of one call,
+               captured in a CUDA graph)
   4. main path — perm_1024n_3t (the paper's 1024-node, three-tier fat
                tree), alltoall_3t and perm_512n_3t end to end through the
-               kernels, the arrivals and control phases one fused launch a
-               tick each; launch counts reset just before each run and read
-               just after; the final states equal to the runs through the
-               split control phase, the split arrivals phase, the plain
-               versions on the card and the CPU, field by field; the
+               kernels, the arrivals, control and sends phases one fused
+               launch a tick each; launch counts reset just before each run
+               and read just after; the final states equal to the runs
+               through the split control, arrivals and sends phases, the
+               plain versions on the card and the CPU, field by field; the
                summaries equal to the JAX reference's; ticks/s in turns
-               (fused, split arrivals, plain; TURNS runs a way) on
+               (fused, split sends, plain; TURNS runs a way) on
                perm_1024n_3t and alltoall_3t
   4b. red_mark — the first 300 ticks of perm_1024n_3t on the card, the
                red_mark kernel beside every tick's departures: its marks
@@ -59,8 +64,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                runs corefail_128n_3t (without and with the recovery knobs)
                and flap_128n_3t, and the collective allreduce_ring_128n_3t
                (32 512 flows behind the dependency gate).  Each runs whole
-               through the kernels, the arrivals and control phases through
-               their fused launches (SMaRTT's update inside the control
+               through the kernels, the arrivals, control and sends phases
+               through their fused launches (SMaRTT's update inside the control
                launch for the SMaRTT runs, in PyTorch for the baselines;
                the credit path and the fault metrics inside the arrivals
                launch where the run has them), launch counts reset just before
@@ -83,11 +88,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                tokens/s, peak memory and the device's idle share while
                decoding
   6. profile — where perm_1024n_3t's tick time goes, through the fused
-               launches and through each split design (arrivals, control):
-               each phase's ms a tick, the device's busy share and kernels
-               a tick; beside them the arrivals and control phases'
-               launches and device time a call (phase 3: a CUDA graph of
-               the phase, its nodes counted)
+               launches and through each split design (arrivals, control,
+               sends): each phase's ms a tick, the device's busy share and
+               kernels a tick; beside them the arrivals, control and sends
+               phases' launches and device time a call (phase 3: a CUDA
+               graph of the phase, its nodes counted)
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
@@ -170,7 +175,7 @@ REFERENCE = {
 # cross the first failure (corefail: t = 500; flap: its first down
 # stretch starts at t = 500).
 RECOVERY = dict(rto_backoff_max=2, evict_on_timeout=True)   # benchmarks/failover.py
-TICK = ("control", "arrivals")
+TICK = ("control", "arrivals", "sends")
 SMARTT_TICK = TICK + ("control:smartt",)
 COMPARISON_RUNS = (
     ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"), TICK, None, 150),
@@ -182,29 +187,33 @@ COMPARISON_RUNS = (
     ("corefail_128n_3t", "corefail_128n_3t", {}, SMARTT_TICK, 540, 540),
     ("corefail_128n_3t/recovery", "corefail_128n_3t", RECOVERY, SMARTT_TICK, 540, 540),
     ("flap_128n_3t", "flap_128n_3t", {}, SMARTT_TICK, 540, 540),
-    ("allreduce_ring_128n_3t", "allreduce_ring_128n_3t", {},
-     SMARTT_TICK + ("rr_pick",), 100, 100),
+    ("allreduce_ring_128n_3t", "allreduce_ring_128n_3t", {}, SMARTT_TICK, 100, 100),
 )
 # phase 4: the main path's runs (all SMaRTT), and the ways timed in turns
-MAIN_RUNS = (("perm_1024n_3t", SMARTT_TICK), ("alltoall_3t", SMARTT_TICK + ("rr_pick",)),
+MAIN_RUNS = (("perm_1024n_3t", SMARTT_TICK), ("alltoall_3t", SMARTT_TICK),
              ("perm_512n_3t", SMARTT_TICK))
 # the ways a run goes: the backends of SimConfig, and the kernels each way
 # launches in place of the fused path's (split-control: the control phase
 # as the earlier ring_drain + cc_update kernels; split-arrivals: the
-# arrivals phase as the earlier enqueue_rank kernel with PyTorch glue)
+# arrivals phase as the earlier enqueue_rank kernel with PyTorch glue;
+# split-sends: the sends phase as the earlier rr_pick kernel with PyTorch
+# glue, which launches it only where a sender holds several flows)
+_FUSED = dict(cc_backend="kernel", fabric_backend="kernel", transport_backend="kernel",
+              sender_backend="kernel")
 WAYS = {
-    "kernel": dict(cc_backend="kernel", fabric_backend="kernel", transport_backend="kernel"),
-    "split-control": dict(cc_backend="kernel", fabric_backend="kernel",
-                          transport_backend="split"),
-    "split-arrivals": dict(cc_backend="kernel", fabric_backend="split",
-                           transport_backend="kernel"),
-    "plain": dict(cc_backend="plain", fabric_backend="plain", transport_backend="plain"),
+    "kernel": _FUSED,
+    "split-control": {**_FUSED, "transport_backend": "split"},
+    "split-arrivals": {**_FUSED, "fabric_backend": "split"},
+    "split-sends": {**_FUSED, "sender_backend": "split"},
+    "plain": dict(cc_backend="plain", fabric_backend="plain", transport_backend="plain",
+                  sender_backend="plain"),
 }
 SPLIT_KERNELS = {"split-control": {"control": ("cc_update", "ring_drain"),
                                    "control:smartt": ()},
-                 "split-arrivals": {"arrivals": ("enqueue_rank",)}}
-TURNS = 5                 # runs a way, in turns: fused, split arrivals, plain
-TURN_WAYS = ("kernel", "split-arrivals", "plain")
+                 "split-arrivals": {"arrivals": ("enqueue_rank",)},
+                 "split-sends": {"sends": ("rr_pick",)}}
+TURNS = 5                 # runs a way, in turns: fused, split sends, plain
+TURN_WAYS = ("kernel", "split-sends", "plain")
 TURN_RUNS = ("perm_1024n_3t", "alltoall_3t")
 # phase 3's fused control kernel against control_ref: seeded operands
 # ((NF, N, W, MAXW, R), seed, flags): one flow, a ragged ring (W = 1024,
@@ -221,24 +230,36 @@ CONTROL_CASES = (
 # phase 3's fused arrivals kernel against arrivals_ref: the seeded
 # kernels/cases.py ARRIVALS_CASES ...
 # ... and the simulator's own states, driven phase by phase on the card:
-# (scenario, overrides, control ticks, arrivals ticks, the arrivals work
-# the checked ticks must hold).  alltoall_3t never trims; corefail_128n_3t
-# trims until t = 282, its core uplinks die at t = 500 and its first
-# timeouts fire at t = 670;
-# incast_256x1_3t under eqds trims (and its receivers see the trims) from
-# t = INCAST_TRIMS on.  Both fused kernels are timed on perm_1024n_3t's
-# state at TIMED (trims and QuickAdapt under way).
+# (scenario, overrides, control ticks, arrivals ticks, sends ticks, the
+# work the checked ticks must hold).  alltoall_3t never trims;
+# corefail_128n_3t trims until t = 282, its core uplinks die at t = 500 and
+# its first timeouts fire at t = 670; incast_256x1_3t under eqds trims (and
+# its receivers see the trims) from t = INCAST_TRIMS on, and resends on
+# credits from t = 35; allreduce_ring_128n_3t's senders hold 254 flows
+# behind its dependency gate; perm_128n_3t under bbr paces every flow and
+# resends from t = 34.  The fused control, arrivals and sends kernels are
+# timed on perm_1024n_3t's state at TIMED (trims and QuickAdapt under
+# way); the sends kernel also on alltoall_3t's at SENDS_TIMED (31 flows a
+# sender, window 4), beside the rr_pick kernel on the same rows.
 INCAST_TRIMS = 14
 ARRIVALS_WORK = ("deliveries", "enqueued", "rejects")
+SENDS_WORK = ("emits", "picks")
 TICK_STATES = (
-    ("perm_1024n_3t", {}, (100, 300, 700), (100, 300, 700), ARRIVALS_WORK),
-    ("alltoall_3t", {}, (60, 200), (60, 200), ("deliveries", "enqueued")),
+    ("perm_1024n_3t", {}, (100, 300, 700), (100, 300, 700), (100, 300, 700),
+     ARRIVALS_WORK + ("emits", "resends")),
+    ("alltoall_3t", {}, (60, 200), (60, 200), (60, 100, 200),
+     ("deliveries", "enqueued") + SENDS_WORK),
     ("corefail_128n_3t", {}, tuple(range(665, 690)), (260, 270, 499, 500, 501, 520, 680),
-     ARRIVALS_WORK + ("fault_bytes",)),
+     (520, 680), ARRIVALS_WORK + ("fault_bytes", "emits")),
     ("incast_256x1_3t", dict(algo="eqds"), (),
-     tuple(range(INCAST_TRIMS, INCAST_TRIMS + 60, 4)), ARRIVALS_WORK + ("trim_seen",)),
+     tuple(range(INCAST_TRIMS, INCAST_TRIMS + 60, 4)), tuple(range(36, 72, 4)),
+     ARRIVALS_WORK + ("trim_seen", "emits", "resends", "credits")),
+    ("allreduce_ring_128n_3t", {}, (), (), (100, 120, 240, 460), SENDS_WORK),
+    ("perm_128n_3t", dict(algo="bbr"), (), (), (20, 40, 70, 120),
+     ("emits", "resends", "paced")),
 )
 TIMED = ("perm_1024n_3t", 300)
+SENDS_TIMED = ("alltoall_3t", 200)
 RED_MARK_TICKS = 300      # phase 4b: queues load and trims begin by then
 PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
 
@@ -619,26 +640,66 @@ def arrivals_cases(dev):
             f"{int((ok.q_size - o0.q_size).sum())} enqueued)")
 
 
+def sends_pair(t, wire, fl, ok, orf, what):
+    """The fused kernel on ``ok`` and ``sends_ref`` on ``orf`` (two copies
+    of the same operands): every operand bit for bit."""
+    from repro_torch.kernels.sends import kernel as SK, ref as SR
+    SK.sends(t, wire, fl, ok)
+    SR.sends_ref(t, wire, fl, orf)
+    torch.cuda.synchronize()
+    bad = [n for n, a, b in zip(ok._fields, ok, orf) if not bit_equal(a, b)]
+    if bad:
+        fail(f"sends {what}: the fused kernel differs from sends_ref in {bad}")
+
+
+def sends_work(o, o0, wire):
+    """What one call of the sends phase did: NICs that emitted, resends,
+    cursors moved, credit or budget paid, pacing budgets changed."""
+    n = o.flows_of.shape[0]
+    return dict(emits=int(o.infl[wire, -n:, 0].sum()), resends=int(o.n_retx - o0.n_retx),
+                picks=int((o.rr_send != o0.rr_send).sum()),
+                credits=int((o.credits != o0.credits).sum()
+                            + (o.spec_budget != o0.spec_budget).sum()),
+                paced=int((o.pace_accum != o0.pace_accum).sum()))
+
+
+def sends_cases(dev):
+    """The fused sends kernel against sends_ref on the card on the seeded
+    SENDS_CASES."""
+    from repro_torch.kernels import cases
+    for shape, seed, flags in cases.SENDS_CASES:
+        c = cases.sends_case(*shape, seed, **flags)
+        t, wire, fl, ok = cases.sends_operands(c, dev)
+        _, _, _, orf = cases.sends_operands(c, dev)
+        _, _, _, o0 = cases.sends_operands(c, dev)
+        sends_pair(t, wire, fl, ok, orf, f"{shape} {flags}")
+        log(f"[kernels] sends {str(shape):26s} {str(flags):45s}: bit-equal to sends_ref "
+            f"{sends_work(ok, o0, wire)}")
+
+
 def state_checks(dev):
     """Drive TICK_STATES phase by phase on the card; at the chosen ticks,
-    the fused control kernel against control_ref (after arrivals) and the
-    fused arrivals kernel against arrivals_ref (after departures), each on
-    two clones of the state.  Returns the states at TIMED, before the
-    arrivals and before the control phase."""
-    from repro_torch.netsim import fabric, faults, scenarios, transport
+    the fused arrivals kernel against arrivals_ref (after departures), the
+    fused control kernel against control_ref (after arrivals) and the
+    fused sends kernel against sends_ref (after grants), each on two clones
+    of the state.  Returns the states at TIMED (and SENDS_TIMED), before
+    the phase timed."""
+    from repro_torch.netsim import fabric, faults, scenarios, sender, transport
     from repro_torch.kernels.arrivals import ref as AR
     timed = {}
-    for name, ov, ctl_ticks, arr_ticks, needs in TICK_STATES:
+    for name, ov, ctl_ticks, arr_ticks, send_ticks, needs in TICK_STATES:
         sc = scenarios.scenario(name, **ov)
         sim = sc.build(device=dev)
         d, c = sim.dims, sim.consts
         cfl = transport.flags(sc.cfg, d)
         afl = fabric.flags(d, c, sim.clock0)
+        sfl = sender.flags(d)
         phases = dict(sim.phases)
         st = sim.init()
         seen = dict(acks=0, timeouts=0, trims=0, deliveries=0, rejects=0, enqueued=0,
-                    trim_seen=0, fault_bytes=0)
-        for t in range(max(ctl_ticks + arr_ticks) + 1):
+                    trim_seen=0, fault_bytes=0, emits=0, resends=0, picks=0, credits=0,
+                    paced=0)
+        for t in range(max(ctl_ticks + arr_ticks + send_ticks) + 1):
             clk = sim.clock0._replace(t=t)
             st = phases["departures"](c, st, clk)
             if t in arr_ticks:
@@ -665,19 +726,29 @@ def state_checks(dev):
                 seen["acks"] += int(ev.has_ack.sum())
                 seen["timeouts"] += int(ev.n_timeouts.sum())
                 seen["trims"] += int(ev.n_trims.sum())
-            for p in ("control", "grants", "sends", "metrics"):
+            for p in ("control", "grants"):
+                st = phases[p](c, st, clk)
+            if t in send_ticks:
+                if (name, t) in (TIMED, SENDS_TIMED):
+                    timed[f"sends {name}"] = (sim, sfl, t, clone_tree(st))
+                wire = (t + clk.lat_send) % d.L
+                a = sender.operands(c, clone_tree(st))
+                sends_pair(t, wire, sfl, a, sender.operands(c, clone_tree(st)),
+                           f"{name} t={t}")
+                for k, v in sends_work(a, sender.operands(c, st), wire).items():
+                    seen[k] += v
+            for p in ("sends", "metrics"):
                 st = phases[p](c, st, clk)
             st = st._replace(now=st.now + 1)
         if ctl_ticks and (not seen["acks"] or (name.startswith("corefail")
                                                and not seen["timeouts"])):
             fail(f"control {name}: the checked ticks hold no ACKs or no timeouts {seen}")
         if not all(seen[k] for k in needs):
-            fail(f"arrivals {name}: the checked ticks miss a kind of work {seen}, "
-                 f"needed {needs}")
-        log(f"[kernels] control and arrivals on {name} {ov or ''}: control at ticks "
-            f"{ctl_ticks[:1]}..{ctl_ticks[-1:]} ({len(ctl_ticks)}), arrivals at "
-            f"{arr_ticks} bit-equal to their plain versions on the simulator's "
-            f"states {seen}")
+            fail(f"{name}: the checked ticks miss a kind of work {seen}, needed {needs}")
+        log(f"[kernels] control, arrivals and sends on {name} {ov or ''}: control at "
+            f"ticks {ctl_ticks[:1]}..{ctl_ticks[-1:]} ({len(ctl_ticks)}), arrivals at "
+            f"{arr_ticks}, sends at {send_ticks} bit-equal to their plain versions on "
+            f"the simulator's states {seen}")
     return timed
 
 
@@ -867,6 +938,135 @@ def arrivals_timing(timed):
     return rec
 
 
+def sends_restoring(saved, o, fl, fn):
+    """``fn`` after restoring, from the operands ``saved``, what the sends
+    phase changes that its next call reads (the sent ring, sequences,
+    cursors, LB counters, credits and pacing budgets, as the flags make
+    the phase write them), so every timed call sends the same packets;
+    beside it the restore alone."""
+    from repro_torch.core import reps
+    names = ["sent", "next_seq", "rr_send"]
+    names += {reps.LB_REPS: ["next_entropy", "explore_sent"],
+              reps.LB_SPRAY: ["spray_ctr"]}.get(fl.lb_mode, [])
+    names += ["credits", "spec_budget"] if fl.credit_based else []
+    names += ["pace_accum"] if fl.paced else []
+
+    def restore():
+        for n in names:
+            getattr(o, n).copy_(getattr(saved, n))
+
+    def both():
+        restore()
+        fn()
+    return both, restore
+
+
+def sends_bytes(sim, fl, t, wire, st) -> int:
+    """Bytes the sends phase must move at this state, counting what this
+    tick's data needs: every sender's row of flows_of and cursor; every
+    flow's start tick and done flag; the dependency columns of a flow past
+    its start; for a flow that passes activation and the window, its
+    ring's state plane (the retransmission scan), next sequence, size,
+    unacked and cwnd (and credits or pacing budget where they gate); for a
+    sending flow its resent sequence, first-hop tables and LB words; and
+    each word the phase changes written once (a NIC row already zero, a
+    cursor left where it was, is not counted)."""
+    from repro_torch.kernels.sends import ref as SR
+    from repro_torch.netsim import sender
+    d, c = sim.dims, sim.consts
+    i = 4
+    o = sender.operands(c, st)
+    after = sender.operands(c, clone_tree(st))
+    SR.sends_ref(t, wire, fl, after)
+    by_time = (t >= o.t_start) & ~o.done
+    act = SR.activated(t, o.t_start, o.done, o.goodput, o.dep_par, o.dep_thr)
+    if fl.window < d.FMAX:
+        done_p = torch.cat([o.done, o.done.new_ones(1)])
+        unfin = ~done_p[o.flows_of] & (o.flows_of < d.NF)
+        prior = torch.cumsum(unfin, dim=1, dtype=torch.int32) - unfin.to(torch.int32)
+        act &= prior[o.src, o.slot_of] < fl.window
+    n_act, n_emit = int(act.sum()), int(after.infl[wire, d.NQ:, 0].sum())
+    out = (o.flows_of.numel() + d.N) * i + d.NF * (i + 1)
+    out += int(by_time.sum()) * d.D * 3 * i
+    out += n_act * (d.W + 4 + 2 * fl.credit_based) * i
+    out += d.NF * 2 * i * fl.paced
+    out += n_emit * (8 * i + 9) + 2 * i
+    for n in ("infl", "sent", "next_seq", "rr_send", "pace_accum", "credits",
+              "spec_budget", "next_entropy", "explore_sent", "spray_ctr", "n_retx"):
+        a, b = getattr(o, n), getattr(after, n)
+        if n == "infl":
+            a, b = a[wire, d.NQ:], b[wire, d.NQ:]
+        out += int((a != b).sum()) * a.element_size()
+    return out
+
+
+def sends_timing(timed):
+    """The fused sends kernel at TIMED's and SENDS_TIMED's states: against
+    its bound and its plain version, the rr_pick kernel on the same rows where
+    senders hold several flows, and the whole phase against the split
+    design's.  Every timed call first restores what the phase changed
+    (sends_restoring); the restore alone is timed too and taken off."""
+    from repro_torch.kernels.enqueue_arb import kernel as EK
+    from repro_torch.kernels.sends import kernel as SK, ops as SO, ref as SR
+    from repro_torch.netsim import sender
+    recs = {}
+    for run in (TIMED[0], SENDS_TIMED[0]):
+        sim, fl, t, base = timed[f"sends {run}"]
+        d, c = sim.dims, sim.consts
+        clk = sim.clock0._replace(t=t)
+        wire = (t + clk.lat_send) % d.L
+        nbytes = sends_bytes(sim, fl, t, wire, base)
+        saved = sender.operands(c, base)
+
+        def timed_pair(fn, o, per_graph=50, iters=200):
+            both, restore = sends_restoring(saved, o, fl, fn)
+            return dict(ms=device_ms(both, per_graph) - device_ms(restore, per_graph),
+                        call_ms=call_ms(both, iters) - call_ms(restore, iters),
+                        restore_ms=device_ms(restore, per_graph))
+
+        o_k, o_p = sender.operands(c, clone_tree(base)), sender.operands(c, clone_tree(base))
+        k = timed_pair(lambda: SK.sends(t, wire, fl, o_k), o_k)
+        p = timed_pair(lambda: SR.sends_ref(t, wire, fl, o_p), o_p, per_graph=10, iters=50)
+        rec = dict(shape=f"[{d.N}, {d.FMAX}] rows, {d.NF} flows, W = {d.W} ({run} t={t})",
+                   max_abs_err=0.0, ms=k["ms"], call_ms=k["call_ms"],
+                   restore_ms=k["restore_ms"], plain_ms=p["ms"], plain_call_ms=p["call_ms"],
+                   library_ms=None, **bound(nbytes))
+        if d.FMAX > 1:
+            # the rr_pick kernel on the same rows, as the split design hands them
+            elig, _, _, _ = SR.admission(t, fl, saved)
+            rows = torch.cat([elig, elig.new_zeros(1)])[c.flows_of]
+            rec["rr_pick_ms"] = device_ms(lambda: EK.rr_pick(rows, base.rr_send, kmax=d.FMAX))
+        run_k, run_s = SO.get("kernel"), SO.get("split")
+        st_f, st_s = clone_tree(base), clone_tree(base)
+        for way, st, go in (("fused", st_f, run_k), ("split", st_s, run_s)):
+            both, restore = sends_restoring(
+                saved, sender.operands(c, st), fl,
+                lambda st=st, go=go: sender.sends(d, c, st, clk, run=go, fl=fl))
+            pre = "" if way == "fused" else "split_"
+            rec[f"{pre}phase_ms"] = (device_ms(both, per_graph=10)
+                                     - device_ms(restore, per_graph=10))
+            rec[f"{pre}phase_launches"] = graph_launches(both) - graph_launches(restore)
+            rec[f"{pre}phase_call_ms"] = call_ms(both, 100) - call_ms(restore, 100)
+        rr = (f"the rr_pick kernel on the same rows {rec['rr_pick_ms'] * 1e3:.3f} us; "
+              if "rr_pick_ms" in rec else "")
+        log(f"[kernels] sends           {rec['shape']}: device time: fused kernel "
+            f"{rec['ms'] * 1e3:.3f} us, plain {rec['plain_ms'] * 1e3:.3f} us, bound "
+            f"{rec['bound_ms'] * 1e3:.4f} us ({nbytes} B); {rr}the whole phase (device): "
+            f"fused {rec['phase_ms'] * 1e3:.2f} us in {rec['phase_launches']} launches, "
+            f"split {rec['split_phase_ms'] * 1e3:.2f} us in {rec['split_phase_launches']} "
+            f"launches; a call with the host's work: kernel {rec['call_ms'] * 1e3:.1f} us, "
+            f"plain {rec['plain_call_ms'] * 1e3:.1f} us, phase fused "
+            f"{rec['phase_call_ms'] * 1e3:.1f} us, split "
+            f"{rec['split_phase_call_ms'] * 1e3:.1f} us (each less the restore: "
+            f"{rec['restore_ms'] * 1e3:.2f} us of device time)")
+        recs[run] = rec
+    rec = recs[TIMED[0]]
+    rec.update({f"a2a_{k}": v for k, v in recs[SENDS_TIMED[0]].items()
+                if k not in ("max_abs_err", "library_ms", "bf16_flops", "f32_flops",
+                             "tf32_flops")})
+    return rec
+
+
 # --------------------------------------------------------- 4. main path
 
 
@@ -877,15 +1077,16 @@ def counters():
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.red_mark import kernel as RK
     from repro_torch.kernels.ring_drain import kernel as DK
-    return {"control": XK.control, "arrivals": AK.arrivals, "cc_update": CK.cc_update,
-            "enqueue_rank": EK.enqueue_rank, "ring_drain": DK.ring_drain,
-            "rr_pick": EK.rr_pick, "red_mark": RK.red_mark}
+    from repro_torch.kernels.sends import kernel as SK
+    return {"control": XK.control, "arrivals": AK.arrivals, "sends": SK.sends,
+            "cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
+            "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick, "red_mark": RK.red_mark}
 
 
 def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
     """Run a scenario (with config ``overrides``) on ``device`` one of the
-    WAYS (``backend``: "kernel", "plain", "split-control" or
-    "split-arrivals"), to completion or ``max_ticks``; launch counts reset
+    WAYS (``backend``: "kernel", "plain", "split-control", "split-arrivals"
+    or "split-sends"), to completion or ``max_ticks``; launch counts reset
     just before the run and read just after."""
     from repro_torch.netsim import scenarios
     from repro_torch.netsim.metrics import summarize
@@ -910,19 +1111,21 @@ def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
     return sim, st, summ, launches, wall
 
 
-def way_kernels(on_path, way):
+def way_kernels(on_path, way, sim):
     """The kernels a run of ``way`` launches where the fused path launches
-    ``on_path`` (SPLIT_KERNELS)."""
+    ``on_path`` (SPLIT_KERNELS; the split sends phase launches rr_pick only
+    where a sender holds several flows)."""
     swap = SPLIT_KERNELS.get(way, {})
-    return tuple(k_ for k in on_path for k_ in swap.get(k, (k,)))
+    out = tuple(k_ for k in on_path for k_ in swap.get(k, (k,)))
+    if way == "split-sends" and sim.dims.FMAX == 1:
+        out = tuple(k for k in out if k != "rr_pick")
+    return out
 
 
 def expect_launches(what, launches, on_path, steps):
-    """Each kernel of ``on_path`` launched once an executed tick (rr_pick:
-    at least once), every other kernel never."""
+    """Each kernel of ``on_path`` launched once an executed tick, every
+    other kernel never."""
     want = {k: (steps if k in on_path else 0) for k in launches}
-    if "rr_pick" in on_path:
-        want["rr_pick"] = launches["rr_pick"] if launches["rr_pick"] else 1
     if launches != want:
         fail(f"{what}: launches {launches}, expected {want} over {steps} executed ticks")
 
@@ -937,10 +1140,10 @@ def quartiles(xs):
 
 
 def phase_main_path():
-    """The main path's runs (MAIN_RUNS) through the fused arrivals and
-    control launches: launches, the JAX reference's summary, the final state
-    against the runs through each split design, the plain versions on the
-    card and the CPU; then ticks/s in turns (TURN_WAYS) on TURN_RUNS."""
+    """The main path's runs (MAIN_RUNS) through the fused arrivals, control
+    and sends launches: launches, the JAX reference's summary, the final
+    state against the runs through each split design, the plain versions on
+    the card and the CPU; then ticks/s in turns (TURN_WAYS) on TURN_RUNS."""
     results = {}
     for name, on_path in MAIN_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel")
@@ -954,9 +1157,9 @@ def phase_main_path():
         by_way = {"kernel": launches}
         walls = {"kernel": wall}
         others = []
-        for way in ("split-control", "split-arrivals", "plain"):
+        for way in ("split-control", "split-arrivals", "split-sends", "plain"):
             _, st_w, _, by_way[way], walls[way] = run_path(name, "cuda", way)
-            expect_launches(f"{name} {way}", by_way[way], way_kernels(on_path, way)
+            expect_launches(f"{name} {way}", by_way[way], way_kernels(on_path, way, sim)
                             if way != "plain" else (), steps)
             others.append((st_w, f"{way} on the card"))
         _, st_c, _, _, walls["cpu"] = run_path(name, "cpu", "kernel")
@@ -968,7 +1171,7 @@ def phase_main_path():
             if a.is_floating_point() and not bool(torch.isfinite(a).all()):
                 fail(f"{name}: non-finite values in {n}")
         log(f"[main] {name}: final state bit-equal to the split-control, split-arrivals, "
-            f"plain-on-card and CPU runs ({len(list(leaves(st_k)))} leaves); summary "
+            f"split-sends, plain-on-card and CPU runs ({len(list(leaves(st_k)))} leaves); summary "
             f"equals the JAX reference")
         results[name] = dict(launches=launches, launches_by_way=by_way, steps=steps,
                              ticks=summ["ticks"], wall=wall, walls=walls,
@@ -1697,9 +1900,11 @@ def device_events(prof):
 
 
 def profile_way(backend):
-    """perm_1024n_3t one of the WAYS ("kernel": the fused arrivals and
-    control launches; "split-arrivals", "split-control": that phase as the
-    earlier kernels with PyTorch glue): each phase's wall time
+    """perm_1024n_3t one of the WAYS ("kernel": the fused arrivals, control
+    and sends launches; "split-arrivals", "split-control", "split-sends":
+    that phase as the earlier design, its kernel with PyTorch glue; on this
+    run's one flow a sender the split sends phase launches no kernel at
+    all): each phase's wall time
     with a synchronize after it over the first PROFILE_TICKS ticks (the
     queues load and trims start within them; this scenario never leaps),
     then a torch.profiler window of 100 ticks for the device's busy share
@@ -1757,6 +1962,7 @@ def profile_way(backend):
     return dict(phase_ms_per_tick=per_tick,
                 control_share=per_tick["control"] / total,
                 arrivals_share=per_tick["arrivals"] / total,
+                sends_share=per_tick["sends"] / total,
                 wall_ms_per_tick=wall / ticks * 1e3,
                 device_busy_ms_per_tick=busy / ticks * 1e3,
                 idle_share=1 - busy / wall if busy else None,
@@ -1768,7 +1974,8 @@ def profile_way(backend):
 def phase_profile():
     """Where perm_1024n_3t's tick time goes, through the fused launches and
     through each split design (profile_way)."""
-    return {way: profile_way(way) for way in ("kernel", "split-arrivals", "split-control")}
+    return {way: profile_way(way)
+            for way in ("kernel", "split-arrivals", "split-control", "split-sends")}
 
 
 # ------------------------------------------------------------------ main
@@ -1793,9 +2000,11 @@ def main():
     records = kernel_checks(dev, shapes)
     control_cases(dev)
     arrivals_cases(dev)
+    sends_cases(dev)
     timed_states = state_checks(dev)
     records["control"] = control_timing(timed_states)
     records["arrivals"] = arrivals_timing(timed_states)
+    records["sends"] = sends_timing(timed_states)
     records.update(serve_kernel_checks(dev))
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
@@ -1809,10 +2018,10 @@ def main():
         return out
 
     paths = timed_phase("main", phase_main_path)
-    log("[kernels] launches (fused; split-arrivals; split-control): " + ", ".join(
+    log("[kernels] launches (fused; split-arrivals; split-control; split-sends): " + ", ".join(
         f"{k}: " + ", ".join(f"{n} " + "; ".join(
             str(paths[n]["launches_by_way"][w][k])
-            for w in ("kernel", "split-arrivals", "split-control"))
+            for w in ("kernel", "split-arrivals", "split-control", "split-sends"))
             for n in ("perm_1024n_3t", "alltoall_3t")) for k in counters()))
     red = timed_phase("red_mark", phase_red_mark, dev)
     smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
@@ -1823,7 +2032,9 @@ def main():
     # (source, the TPU kernel it replaces, the path whose launches it reports);
     # cc_update and ring_drain run on the split control phase's path since
     # the control phase became one fused launch, enqueue_rank on the split
-    # arrivals phase's since the arrivals phase did
+    # arrivals phase's since the arrivals phase did, rr_pick's sends call
+    # site on the split sends phase's since the sends phase did (its grants
+    # call site, EQDS's, stays on the fused path: phase 4c)
     replaces = {
         "cc_update": ("src/repro_torch/csrc/cc_update.cu",
                       "src/repro/kernels/cc_update/kernel.py:60",
@@ -1840,7 +2051,9 @@ def main():
         "arrivals": ("src/repro_torch/csrc/arrivals.cu",
                      "src/repro/kernels/enqueue_arb/kernel.py:56", "perm_1024n_3t"),
         "rr_pick": ("src/repro_torch/csrc/rr_pick.cu",
-                    "src/repro/kernels/enqueue_arb/kernel.py:91", "alltoall_3t"),
+                    "src/repro/kernels/enqueue_arb/kernel.py:91", "alltoall_3t split-sends"),
+        "sends": ("src/repro_torch/csrc/sends.cu",
+                  "src/repro/kernels/enqueue_arb/kernel.py:91", "perm_1024n_3t"),
         "red_mark": ("src/repro_torch/csrc/red_mark.cu",
                      "src/repro/kernels/red_mark/kernel.py:42",
                      f"red_mark check (perm_1024n_3t, ticks 0-{RED_MARK_TICKS - 1})"),
@@ -1869,11 +2082,11 @@ def main():
             **({"simt_ms": rec["simt_ms"], "simt_source": SIMT_SOURCES[k]}
                if "simt_ms" in rec else {}),
             **({"simt_bound_ms": rec["simt_bound_ms"]} if "simt_bound_ms" in rec else {}),
-            **{k_: rec[k_] for k_ in ("split_ms", "ring_drain_ms", "cc_update_ms",
-                                      "enqueue_rank_ms", "restore_ms", "phase_ms",
-                                      "split_phase_ms", "phase_call_ms",
-                                      "split_phase_call_ms", "phase_launches",
-                                      "split_phase_launches") if k_ in rec}))
+            **{k_: v for k_, v in rec.items() if k_ in (
+                "split_ms", "ring_drain_ms", "cc_update_ms", "enqueue_rank_ms",
+                "rr_pick_ms", "restore_ms", "phase_ms", "split_phase_ms", "phase_call_ms",
+                "split_phase_call_ms", "phase_launches", "split_phase_launches")
+               or k_.startswith("a2a_")}))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":
                       v["ticks"] / wall for w, wall in v["walls"].items()},
@@ -1886,7 +2099,8 @@ def main():
                       cpu_ticks_per_s=v["cpu_ticks_per_s"], cpu_over_ticks=v["cpu_ticks"])
     log(f"[main] end to end: {json.dumps(e2e)}")
     prof = timed_phase("profile", phase_profile)
-    for phase, split in (("control", "split-control"), ("arrivals", "split-arrivals")):
+    for phase, split in (("control", "split-control"), ("arrivals", "split-arrivals"),
+                         ("sends", "split-sends")):
         rec = records[phase]
         log(f"[profile] perm_1024n_3t {phase} phase: fused "
             f"{prof['kernel']['phase_ms_per_tick'][phase]:.3f} ms a tick "

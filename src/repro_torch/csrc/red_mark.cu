@@ -23,21 +23,9 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hash.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-    x ^= x >> 16;
-    x *= 0x85EBCA6Bu;
-    x ^= x >> 13;
-    x *= 0xC2B2AE35u;
-    x ^= x >> 16;
-    return x;
-}
-
-__device__ __forceinline__ uint32_t hash2(uint32_t a, uint32_t b) {
-    return mix32(a * 0x9E3779B9u + mix32(b));
-}
 
 __global__ void red_mark_kernel(const int* __restrict__ q_size,
                                 const int* __restrict__ arrivals,

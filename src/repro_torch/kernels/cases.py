@@ -370,3 +370,165 @@ def arrivals_operands(case: dict, device):
     o = R.Operands(**{k: t(case[k]) for k in R.Operands._fields if k != "fault_active"},
                    fault_active=None if fa is None else t(np.bool_(fa)))
     return case["t"], R.Slots(**case["slots"]), R.Flags(**case["flags"]), o
+
+
+# the fused sends phase: ((N, FMAX, NF, W, D), seed, flags).  One flow a
+# sender with pad rows; spraying on the credit path; alltoall_3t's rows
+# ([512, 31] there) windowed; rows past two warps' chunks with a
+# dependency table under ECMP on the credit path; PLB paced with the
+# window inside the second chunk; perm_1024n_3t's shapes; and
+# allreduce_ring_128n_3t's rows ([128, 254], eight chunks) with its
+# dependency table
+SENDS_CASES = (
+    ((4, 1, 3, 32, 0), 1, {}),
+    ((16, 1, 12, 64, 0), 2, dict(credit_based=True, lb_mode=1)),
+    ((40, 31, 600, 64, 0), 3, dict(window=4)),
+    ((8, 70, 300, 64, 3), 4, dict(credit_based=True, lb_mode=2)),
+    ((12, 40, 250, 64, 0), 5, dict(paced=True, lb_mode=3, window=33)),
+    ((1024, 1, 1024, 64, 0), 6, {}),
+    ((128, 254, 32512, 32, 2), 7, {}),
+)
+
+
+def sends_case(N: int, FMAX: int, NF: int, W: int, D: int, seed: int, *,
+               window: int | None = None, credit_based: bool = False,
+               paced: bool = False, lb_mode: int = 0, L: int = 9,
+               NQ: int = 40) -> dict:
+    """Every operand of the fused sends phase (``kernels/sends``): ``NF``
+    flows over ``N`` senders of up to ``FMAX`` flows (one row full, some
+    rows empty: pad rows of ``flows_of``), a ``W``-slot sent ring, ``D``
+    dependency columns (parents below and above their thresholds, free
+    slots), wire rows ``[0, NQ + N)``.  Flows that are not started yet,
+    done, held by the window, short of window, credit or pacing budget;
+    retransmissions pending on ring slot 0, on slot 40 (where the ring has
+    it) and on two slots of one flow (the first wins), each on a flow its
+    row's cursor picks; new sequences whose ring slot is still occupied
+    and past the flow's last packet; last packets shorter than the MTU;
+    REPS inside and past its explore phase; a cursor past its row's last
+    eligible slot, so the pick wraps.  The NIC rows of the wire slot hold
+    noise the phase must overwrite."""
+    rng = np.random.default_rng(seed)
+    mtu = int(CC_MTU)
+    i32 = lambda a: np.asarray(a, np.int32)
+    f32 = lambda a: np.asarray(a, np.float32)
+    if window is None:
+        window = FMAX
+    if not FMAX <= NF <= N * FMAX:
+        raise ValueError(f"{NF} flows do not fit {N} rows of {FMAX}")
+    t = int(rng.integers(500, 5000))
+    # the rows: one full, some empty (pad rows, where the flows leave room),
+    # the other flows over the free slots of the rest
+    need = -(-(NF - FMAX) // FMAX)
+    n_empty = max(0, min(max(1, N // 8), N - 1 - need))
+    open_rows = rng.permutation(np.arange(1, N))[n_empty:]
+    free = np.repeat(open_rows, FMAX)
+    cnt = np.bincount(free[rng.choice(len(free), NF - FMAX, replace=False)], minlength=N)
+    cnt[0] = FMAX
+    order = rng.permutation(NF)
+    flows_of = np.full((N, FMAX), NF, np.int32)
+    src, slot_of = np.zeros(NF, np.int32), np.zeros(NF, np.int32)
+    at = 0
+    for s in range(N):
+        fl_s = order[at:at + cnt[s]]
+        at += cnt[s]
+        flows_of[s, :len(fl_s)] = fl_s
+        src[fl_s], slot_of[fl_s] = s, np.arange(len(fl_s))
+
+    npk = rng.integers(1, 200, NF)
+    size = i32(np.where(rng.random(NF) < 0.5, npk * mtu, npk * mtu - rng.integers(1, mtu, NF)))
+    t_start = i32(np.where(rng.random(NF) < 0.9, rng.integers(0, t + 1, NF),
+                           rng.integers(t + 1, t + 500, NF)))
+    done = rng.random(NF) < 0.15
+    goodput = i32(np.where(done, size, rng.integers(0, size + 1)))
+    dep_par = i32(np.where(rng.random((NF, D)) < 0.7, rng.integers(0, NF, (NF, D)), NF))
+    gp_par = np.append(goodput, 0)[dep_par]
+    dep_thr = i32(np.where(dep_par == NF, 0, np.where(rng.random((NF, D)) < 0.8,
+                                                      gp_par - rng.integers(0, 5000, (NF, D)),
+                                                      gp_par + rng.integers(1, 5000, (NF, D)))))
+    # the sent ring: states 0-2 with pending retransmissions (3) on a quarter
+    # of the flows, sequence and send-tick planes noise; the write-off row NF
+    # noise the phase leaves alone
+    sent = i32(np.stack([rng.choice(np.array([0, 0, 1, 1, 2], np.int32), (NF + 1, W)),
+                         rng.integers(0, 200, (NF + 1, W)),
+                         t - rng.integers(0, 300, (NF + 1, W))]))
+    retx = np.flatnonzero(rng.random(NF) < 0.25)
+    sent[0, retx, rng.integers(0, W, len(retx))] = 3
+    two = retx[rng.random(len(retx)) < 0.3]
+    sent[0, two, rng.integers(0, W, len(two))] = 3
+    next_seq = i32(np.minimum(rng.integers(0, 210, NF), npk + rng.integers(0, 3, NF)))
+    busy = rng.random(NF) < 0.3                 # the new sequence's slot still held
+    sent[0, np.arange(NF), next_seq % W] = np.where(busy, rng.integers(1, 3, NF), 0)
+    unacked = f32(rng.integers(0, 40, NF) * mtu)
+    cwnd = f32(np.where(rng.random(NF) < 0.85, unacked + rng.integers(1, 30, NF) * mtu,
+                        unacked + rng.integers(0, mtu, NF)))
+    credits = f32(np.where(rng.random(NF) < 0.5, rng.integers(0, 8, NF) * mtu,
+                           rng.integers(0, mtu, NF)))
+    spec_budget = f32(np.where(rng.random(NF) < 0.5, rng.integers(0, 80, NF) * mtu,
+                               rng.integers(0, mtu, NF)))
+    pacing_rate = f32(np.round(rng.uniform(0.0, 0.6 * mtu, NF), 2))
+    pace_accum = f32(np.round(rng.uniform(0.0, 4.0 * mtu, NF), 2))
+    rr_send = i32(rng.integers(0, FMAX, N))
+    # the special flows, each on a row of its own picked by its cursor:
+    # retransmissions on slot 0, on slot 40, and on two slots (the first
+    # wins); then a row whose cursor sits past its last eligible slot (the
+    # later slots done), so the pick wraps
+    rows = [s for s in range(N) if cnt[s]][:3]
+    rows += [s for s in range(N) if cnt[s] > 1 and s not in rows][:1]
+    for k, s in enumerate(rows):
+        col = int(rng.integers(0, min(cnt[s] - (k == 3), window)))
+        f = flows_of[s, col]
+        t_start[f], done[f] = rng.integers(0, t + 1), False
+        goodput[f] = min(goodput[f], size[f] - 1)
+        dep_par[f] = NF
+        cwnd[f] = unacked[f] + 64 * mtu
+        credits[f], spec_budget[f], pace_accum[f] = 8 * mtu, 80 * mtu, 4 * mtu
+        sent[0, f] = np.where(sent[0, f] == 3, 1, sent[0, f])
+        if k < 3:
+            for j in ((0,), (min(40, W - 1),), (min(7, W - 2), W - 1))[k]:
+                sent[0, f, j] = 3
+                sent[1, f, j] = int(rng.integers(0, npk[f]))
+            rr_send[s] = col
+        else:                                   # a new sequence, its slot free
+            next_seq[f] = min(next_seq[f], npk[f] - 1)
+            sent[0, f, next_seq[f] % W] = 0
+            done[flows_of[s, col + 1:cnt[s]]] = True
+            rr_send[s] = col + 1
+    goodput = i32(np.where(done, size, goodput))
+
+    NE = NQ + N
+    infl = i32(rng.integers(-3, 50, (L, NE, 7)))
+    wire = int((t + 3) % L)
+    fdn = rng.random(NF) < 0.3
+    return dict(
+        t=t, wire=wire,
+        flags=dict(window=int(window), credit_based=credit_based, paced=paced,
+                   lb_mode=int(lb_mode), mtu=mtu),
+        src=src, t_start=t_start, size=size, dep_par=dep_par, dep_thr=dep_thr,
+        flows_of=flows_of, slot_of=slot_of, flow_ids=i32(np.arange(NF)),
+        node_ids=i32(np.arange(N)), f_down=fdn, f_dn_q=i32(rng.integers(0, NQ, NF)),
+        f_up_base=i32(rng.integers(0, NQ - 16, NF)),
+        f_up_cnt=i32(rng.choice([0, 1, 2, 4, 16], NF)),
+        f_salt=rng.integers(0, 2**32, NF, dtype=np.int64),
+        num_entropies=np.int32(rng.choice([256, 250])), bdp_pkts=np.int32(32),
+        done=done, goodput=goodput, unacked=unacked, cwnd=cwnd, pacing_rate=pacing_rate,
+        credits=credits, spec_budget=spec_budget, pace_accum=pace_accum, sent=sent,
+        next_seq=next_seq, rr_send=rr_send,
+        next_entropy=i32(rng.integers(0, 2000, NF)),
+        cached_entropy=i32(rng.integers(0, 2000, NF)),
+        explore_sent=i32(np.where(rng.random(NF) < 0.2, 256, rng.integers(0, 300, NF))),
+        spray_ctr=i32(rng.integers(0, 10**6, NF)),
+        plb_entropy=i32(rng.integers(0, 2**31 - 1, NF)),
+        infl=infl, n_retx=np.int32(rng.integers(0, 10**5)),
+    )
+
+
+def sends_operands(case: dict, device):
+    """``(t, wire, Flags, Operands)`` of a :func:`sends_case` on ``device``
+    (fresh tensors: the phase updates them in place)."""
+    import torch
+
+    from repro_torch.kernels.sends import ref as R
+
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
+    o = R.Operands(**{k: t(case[k]) for k in R.Operands._fields})
+    return case["t"], case["wire"], R.Flags(**case["flags"]), o

@@ -1,10 +1,11 @@
 """Backend dispatch for the enqueue-rank + arbitration kernels.
 
-``get(backend)`` resolves a backend name to a pair of phase-facing
-callables (the engine passes ``arb`` into ``sender.sends``/``sender.grants``;
-``arrivals_ref``, the fused arrivals phase's plain version, calls
-``enqueue_rank``: with the ``"plain"`` backend, or with ``"kernel"`` under
-the split design):
+Two phase-facing callables: ``arrivals_ref``, the fused arrivals phase's
+plain version, calls ``enqueue_rank`` (with the ``"plain"`` backend, or
+with ``"kernel"`` under the split design); ``sends_ref``, the fused sends
+phase's plain version, and the EQDS grants call ``rr_pick``
+(``kernels/sends/ops``: the kernel under the split design and for the
+grants):
 
   ``enqueue(in_tbl, in_pos, sw_of_q, edst, q_head, q_size, cap, nq)
       -> (acc, pos, q_counts)``
@@ -27,8 +28,6 @@ plain version for CPU tensors; ``"plain"`` always takes the plain version.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import build
@@ -36,9 +35,6 @@ from repro_torch.kernels.enqueue_arb import kernel as K
 from repro_torch.kernels.enqueue_arb import ref as R
 
 I32 = torch.int32
-
-BACKENDS = ("kernel", "plain")
-
 
 def enqueue_rank(in_tbl, in_pos, sw_of_q, edst, q_head, q_size, cap: int,
                  nq: int, *, backend: str = "kernel"):
@@ -67,11 +63,3 @@ def rr_pick(elig, rr, kmax: int, *, backend: str = "kernel"):
         return K.rr_pick(elig, rr, kmax=kmax)
     return R.rr_pick_ref(elig, rr, kmax=kmax)
 
-
-def get(backend: str):
-    """Resolve a fabric backend name to ``(enqueue, arb)`` callables."""
-    if backend not in BACKENDS:
-        raise KeyError(
-            f"unknown fabric backend {backend!r}; have {BACKENDS}")
-    return (functools.partial(enqueue_rank, backend=backend),
-            functools.partial(rr_pick, backend=backend))

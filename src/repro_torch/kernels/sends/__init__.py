@@ -1,0 +1,1 @@
+"""sends kernel: plain version (ref), CUDA wrapper (kernel), dispatch (ops)."""

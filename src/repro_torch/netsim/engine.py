@@ -13,18 +13,23 @@ phases, each ``(Dims, Consts, SimState, Clock) -> SimState``:
   6. metrics    : ``metrics.account``    (occupancy accounting)
 
 ``build`` resolves the backends once, as the reference does: the CC update
-(``cc_backend``), the arrivals phase and the send arbitration
-(``fabric_backend``) and the control phase (``transport_backend``).
-``"kernel"`` (the default) launches the hand-written CUDA kernels on the
-card and takes their plain versions on the CPU; ``"plain"`` takes the
-plain versions everywhere.  The arrivals phase is one fused launch
-(``kernels/arrivals``); ``fabric_backend="split"`` runs it as the earlier
-design, the ``enqueue_rank`` kernel with PyTorch around it, and keeps the
-``rr_pick`` kernel for the send arbitration.  The control phase is one fused
-launch (``kernels/control``), which runs SMaRTT's window update too when
-the CC backend is ``"kernel"``; ``transport_backend="split"`` runs it as
-the earlier design, the ``ring_drain`` and ``cc_update`` kernels with
-PyTorch between them.
+(``cc_backend``), the arrivals phase (``fabric_backend``), the control
+phase (``transport_backend``) and the sends phase with the EQDS grants'
+pick (``sender_backend``).  ``"kernel"`` (the default) launches the
+hand-written CUDA kernels on the card and takes their plain versions on
+the CPU; ``"plain"`` takes the plain versions everywhere.  The arrivals
+phase is one fused launch (``kernels/arrivals``); ``fabric_backend=
+"split"`` runs it as the earlier design, the ``enqueue_rank`` kernel with
+PyTorch around it.  The control phase is one fused launch
+(``kernels/control``), which runs SMaRTT's window update too when the CC
+backend is ``"kernel"``; ``transport_backend="split"`` runs it as the
+earlier design, the ``ring_drain`` and ``cc_update`` kernels with PyTorch
+between them.  The sends phase is one fused launch (``kernels/sends``);
+``sender_backend="split"`` runs it as the earlier design, the ``rr_pick``
+kernel with PyTorch around it.  The grants phase (EQDS only) picks
+through the ``rr_pick`` kernel under ``"kernel"`` and ``"split"`` alike.
+Every phase updates the state's buffers in place: a state passed to a
+phase (or to ``Sim.step``) is consumed.
 
 The run loop is the reference's gated superstep loop written as a Python
 loop: each superstep first leaps ``now`` to the next event horizon (one
@@ -44,8 +49,8 @@ import torch
 from repro_torch.core import registry
 from repro_torch.kernels.arrivals import ops as arrivals_ops
 from repro_torch.kernels.control import ops as control_ops
-from repro_torch.kernels.enqueue_arb import ops as enqueue_arb_ops
 from repro_torch.kernels.ring_drain import ops as ring_drain_ops
+from repro_torch.kernels.sends import ops as sends_ops
 from repro_torch.netsim import fabric, metrics, sender, transport
 from repro_torch.netsim.metrics import HIST_BINS, jain_fairness, summarize  # noqa: F401
 from repro_torch.netsim.state import (Clock, Consts, Dims, SimConfig,  # noqa: F401
@@ -108,13 +113,13 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
     the default; ``device="cpu"`` runs the plain versions on the CPU."""
     cc_update = registry.get(cfg.algo, cfg.cc_backend)
     land = arrivals_ops.get(cfg.fabric_backend)
-    # the split design keeps the rr_pick kernel: only the arrivals phase differs
-    _, arb = enqueue_arb_ops.get("plain" if cfg.fabric_backend == "plain" else "kernel")
+    send, arb = sends_ops.get(cfg.sender_backend), sends_ops.grant_pick(cfg.sender_backend)
     run = None if cfg.transport_backend == "split" else \
         control_ops.get(cfg.transport_backend)
     topo, tm, dims, consts = derive(cfg, wl, device)
     clock0 = clock(consts)
     afl = fabric.flags(dims, consts, clock0)
+    sfl = sender.flags(dims)
 
     def arrivals(c, st, k):
         return fabric.arrivals(dims, c, st, k, run=land, fl=afl)
@@ -133,7 +138,7 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
         ("arrivals", arrivals),
         ("control", control),
         ("grants", lambda c, st, k: sender.grants(dims, c, st, k, arb=arb)),
-        ("sends", lambda c, st, k: sender.sends(dims, c, st, k, arb=arb)),
+        ("sends", lambda c, st, k: sender.sends(dims, c, st, k, run=send, fl=sfl)),
         ("metrics", lambda c, st, k: metrics.account(dims, c, st, k)),
     )
     return Sim(cfg=cfg, topo=topo, timing=tm, wl=wl, dims=dims, consts=consts,

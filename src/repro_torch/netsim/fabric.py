@@ -46,6 +46,20 @@ def _ecmp(ent, salt, cnt):
     return torch.remainder(h, cnt.clamp_min(1).to(torch.int64)).to(I32)
 
 
+def route_switch(dims: Dims, consts: Consts, sw, d, ent):
+    """Table-driven next hop at switch ``sw`` for a packet to node ``d``
+    carrying path entropy ``ent`` (all broadcastable tensors): *down* when
+    ``d`` lies in the switch's subtree interval (the run-length lookup
+    ``dn_base[sw] + d // dn_stride[sw]``), *up* otherwise, the ECMP hash
+    of the entropy with the switch's salt picking among its equal-cost up
+    ports."""
+    down = (d >= consts.sw_lo[sw]) & (d < consts.sw_hi[sw])
+    h = _ecmp(ent, consts.sw_salt[sw], consts.sw_up_cnt[sw])
+    return torch.where(
+        down, consts.dn_base[sw] + torch.div(d, consts.dn_stride[sw], rounding_mode="floor"),
+        consts.sw_up_base[sw] + h)
+
+
 def route_from_queue(dims: Dims, consts: Consts, flow, ent):
     """Next queue for the packet departing each fabric port (``flow`` /
     ``ent`` are [NQ], one head-of-line packet per port; negative ids encode
@@ -67,6 +81,23 @@ def route_first_hop(dims: Dims, consts: Consts, ent):
     edge queue and the hashed rack uplink."""
     h = _ecmp(ent, consts.f_salt, consts.f_up_cnt)
     return torch.where(consts.f_down, consts.f_dn_q, consts.f_up_base + h)
+
+
+def route_from_sender(dims: Dims, consts: Consts, f, ent):
+    """First queue for a fresh packet of flow ``f`` carrying entropy
+    ``ent`` (broadcastable: the routing property tests walk [NF, 1] x
+    [1, E] grids); the same per-flow tables and integers as
+    :func:`route_first_hop`, which the tick uses for all flows at once."""
+    h = _ecmp(ent, consts.f_salt[f], consts.f_up_cnt[f])
+    return torch.where(consts.f_down[f], consts.f_dn_q[f], consts.f_up_base[f] + h)
+
+
+def route_step(dims: Dims, consts: Consts, q, d, ent):
+    """Next queue after departing port ``q`` toward node ``d``: the
+    single-port form of :func:`route_from_queue` (delivery to node ``d``
+    encoded as ``-(d + 1)``)."""
+    nxt = route_switch(dims, consts, consts.nbr_q[q], d, ent)
+    return torch.where(consts.edge_q[q], -(d + 1), nxt)
 
 
 def red_marks(dims: Dims, consts: Consts, st: SimState, t: int):

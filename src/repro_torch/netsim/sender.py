@@ -7,6 +7,15 @@
      pacing admission, REPS entropy assignment, emission onto the wire,
      sent-ring bookkeeping
 
+``sends`` runs the whole phase in one call of the backend-resolved
+``kernels/sends`` callable: the fused CUDA kernel on the card, its plain
+version ``sends_ref`` otherwise, or under ``SimConfig.sender_backend=
+"split"`` the earlier design, ``sends_ref`` with the ``rr_pick`` kernel
+in it.  The phase updates the wire's NIC rows, the sent ring, the send
+cursors and sequences, the LB counters, credits and pacing budgets and
+the retransmission count in place: a state passed to a phase is consumed,
+as the reference's run loops consume (donate) theirs.
+
 Static branch selectors (credit_based / paced / lb_mode / window) come
 from ``Dims``.  ``horizon`` reduces the same admission/demand predicates
 to "ticks until a NIC or a receiver next acts" (DESIGN.md Sec. 6.3).
@@ -16,9 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import reps
-from repro_torch.netsim.fabric import route_first_hop
-from repro_torch.netsim.metrics import isum
+from repro_torch.kernels.sends import ref as sends_ref
 from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState
 
 I32 = torch.int32
@@ -26,16 +33,9 @@ F32 = torch.float32
 
 
 def activated(dims: Dims, consts: Consts, st: SimState, clk: Clock):
-    """The activation predicate (DESIGN.md Sec. 11): a flow is live once
-    ``t >= t_start``, it is unfinished, and — when the workload carries a
-    dependency table — every parent has delivered its threshold bytes."""
-    act = (clk.t >= consts.t_start) & ~st.done
-    if dims.D:
-        # goodput of each parent (pad row NF covers the free-slot sentinel)
-        gp = torch.cat([st.goodput, st.goodput.new_zeros(1)])[consts.dep_par]
-        ok = (consts.dep_par == dims.NF) | (gp >= consts.dep_thr)
-        act = act & torch.all(ok, dim=1)
-    return act
+    """The activation predicate (``kernels/sends/ref.activated``)."""
+    return sends_ref.activated(clk.t, consts.t_start, st.done, st.goodput,
+                               consts.dep_par, consts.dep_thr)
 
 
 def _grant_demand(dims: Dims, consts: Consts, st: SimState, clk: Clock):
@@ -72,130 +72,46 @@ def grants(dims: Dims, consts: Consts, st: SimState, clk: Clock, *, arb) -> SimS
     return st._replace(credit_ring=credit_ring, granted=granted, rr_recv=rr_recv)
 
 
+def flags(dims: Dims) -> sends_ref.Flags:
+    """The run's constants that shape the sends phase."""
+    return sends_ref.Flags(window=dims.window, credit_based=dims.credit_based,
+                           paced=dims.paced, lb_mode=dims.lb_mode, mtu=dims.mtu)
+
+
+def operands(consts: Consts, st: SimState) -> sends_ref.Operands:
+    """The sends phase's tensors: the run's constants and the state's
+    buffers (updated in place by the phase)."""
+    cc, lb = st.cc, st.lb
+    return sends_ref.Operands(
+        src=consts.src, t_start=consts.t_start, size=consts.size, dep_par=consts.dep_par,
+        dep_thr=consts.dep_thr, flows_of=consts.flows_of, slot_of=consts.slot_of,
+        flow_ids=consts.flow_ids, node_ids=consts.node_ids, f_down=consts.f_down,
+        f_dn_q=consts.f_dn_q, f_up_base=consts.f_up_base, f_up_cnt=consts.f_up_cnt,
+        f_salt=consts.f_salt, num_entropies=consts.lb.num_entropies,
+        bdp_pkts=consts.lb.bdp_pkts, done=st.done, goodput=st.goodput,
+        unacked=st.unacked, cwnd=cc.cwnd, pacing_rate=cc.pacing_rate, credits=cc.credits,
+        spec_budget=cc.spec_budget, pace_accum=st.pace_accum, sent=st.sent,
+        next_seq=st.next_seq, rr_send=st.rr_send, next_entropy=lb.next_entropy,
+        cached_entropy=lb.cached_entropy, explore_sent=lb.explore_sent,
+        spray_ctr=lb.spray_ctr, plb_entropy=lb.plb_entropy, infl=st.infl,
+        n_retx=st.m.n_retx)
+
+
 def admission(dims: Dims, consts: Consts, st: SimState, clk: Clock):
     """Send admission for every flow at the current tick, *excluding* rate
     pacing (``sends`` folds in the freshly accrued pacing budget; the leap
     ``horizon`` runs only for unpaced configurations, where this is the
     full admission).  Returns ``(elig, has_retx, seq_emit, nsize)``."""
-    NF, W, FMAX, window = dims.NF, dims.W, dims.FMAX, dims.window
-    mtu_i = dims.mtu
-    flow_ids = consts.flow_ids
-    cc = st.cc
-
-    started = activated(dims, consts, st, clk)
-    if window < FMAX:
-        # windowed-alltoall eligibility: < window unfinished predecessors,
-        # gathered from the per-sender prefix count
-        done_p = torch.cat([st.done, st.done.new_ones(1)])
-        unfin = ~done_p[consts.flows_of] & (consts.flows_of < NF)   # [N, FMAX]
-        prior_unfin = torch.cumsum(unfin, dim=1, dtype=I32) - unfin.to(I32)
-        started = started & (prior_unfin[consts.src, consts.slot_of] < window)
-
-    is_retx = st.sent[0, :NF] == 3
-    has_retx = torch.any(is_retx, dim=1)
-    retx_slot = torch.argmax(is_retx.to(I32), dim=1)     # first index on ties
-    retx_seq = st.sent[1, flow_ids, retx_slot]
-    new_seq = st.next_seq
-    new_slot = torch.remainder(new_seq, W)
-    new_ok = (new_seq * mtu_i < consts.size) & \
-        (st.sent[0, flow_ids, new_slot] == 0)
-    seq_emit = torch.where(has_retx, retx_seq, new_seq)
-    nsize = (consts.size - seq_emit * mtu_i).clamp(0, mtu_i).to(F32)
-    win_ok = st.unacked + nsize <= cc.cwnd
-    elig = started & (has_retx | new_ok) & win_ok & (nsize > 0)
-    if dims.credit_based:
-        elig = elig & ((cc.credits >= nsize) | (cc.spec_budget >= nsize))
-    return elig, has_retx, seq_emit, nsize
+    return sends_ref.admission(clk.t, flags(dims), operands(consts, st))
 
 
-def sends(dims: Dims, consts: Consts, st: SimState, clk: Clock, *, arb) -> SimState:
-    """Phase 5: one packet per NIC per tick, arbitration + admission.
-
-    ``arb`` is the backend-resolved round-robin arbitration callable
-    (``kernels/enqueue_arb/ops.get``).  The wire ring and the sent ring
-    are updated in place."""
-    t = clk.t
-    m = st.m
-    NF, N, NQ, L, W = dims.NF, dims.N, dims.NQ, dims.L, dims.W
-    FMAX = dims.FMAX
-    flow_ids = consts.flow_ids
-    dev = st.now.device
-    cc = st.cc
-
-    pace = st.pace_accum
-    if dims.paced:
-        pace = torch.clamp_max(pace + cc.pacing_rate, 4.0 * float(dims.mtu))
-
-    elig, has_retx, seq_emit, nsize = admission(dims, consts, st, clk)
-    if dims.paced:
-        elig = elig & (pace >= nsize)
-
-    # per-sender round-robin arbitration (one packet per NIC per tick)
-    elig_p = torch.cat([elig, elig.new_zeros(1)])
-    if FMAX == 1:
-        # at most one flow per sender: arbitration is the identity
-        has_s = elig_p[consts.flows_of[:, 0]]
-        sflow = torch.where(has_s, consts.flows_of[:, 0], NF)
-        rr_send = st.rr_send
-    else:
-        E = elig_p[consts.flows_of]                             # [N, FMAX]
-        has_s, sel = arb(E, st.rr_send, FMAX)
-        sflow = torch.where(has_s, consts.flows_of[consts.node_ids, sel], NF)
-        rr_send = torch.where(has_s, torch.remainder(sel + 1, FMAX), st.rr_send)
-
-    # flow f emits iff its own sender selected it (gather, not scatter)
-    emit_mask = sflow[consts.src] == flow_ids
-    lb, entropy = reps.on_send(dims.lb_mode, consts.lb, st.lb, emit_mask,
-                               seq_emit, flow_ids, t)
-    first_q = route_first_hop(dims, consts, entropy)
-
-    # place on the wire: the NIC emitter rows [NQ, NE) of the (uniform)
-    # sender-latency slot, zeros for idle NICs, in place
-    sf = sflow.clamp(0, NF - 1)
-    spay = torch.where(has_s[:, None], torch.stack([
-        has_s.to(I32),
-        first_q[sf],
-        sflow,
-        seq_emit[sf],
-        entropy[sf],
-        torch.zeros((N,), dtype=I32, device=dev),
-        torch.full((N,), t, dtype=I32, device=dev),
-    ], dim=1), 0)
-    infl = st.infl
-    infl[(t + clk.lat_send) % L, NQ:] = spay
-
-    # sent-ring bookkeeping: one-hot masked write of the [3, NF, W] body
-    # (the emitting flow's slot is seq_emit % W), in place; the write-off
-    # row NF is never touched
-    hit = emit_mask[:, None] & \
-        (torch.arange(W, dtype=I32, device=dev)[None, :]
-         == torch.remainder(seq_emit, W)[:, None])
-    body = st.sent[:, :NF]
-    new_body = torch.stack([
-        torch.where(hit, 1, body[0]),
-        torch.where(hit, seq_emit[:, None], body[1]),
-        torch.where(hit, t, body[2]),
-    ])
-    sent = st.sent
-    sent[:, :NF] = new_body
-    is_new_send = emit_mask & ~has_retx
-    next_seq = st.next_seq + is_new_send.to(I32)
-    m = m._replace(n_retx=m.n_retx + isum(emit_mask & has_retx))
-
-    spend = torch.where(emit_mask, nsize, 0.0)
-    if dims.credit_based:
-        use_credit = cc.credits >= nsize
-        cc = cc._replace(
-            credits=cc.credits - spend * use_credit,
-            spec_budget=cc.spec_budget - spend * ~use_credit,
-        )
-    if dims.paced:
-        pace = pace - spend
-
-    return st._replace(
-        infl=infl, sent=sent, next_seq=next_seq, rr_send=rr_send,
-        pace_accum=pace, cc=cc, lb=lb, m=m,
-    )
+def sends(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
+          run, fl: sends_ref.Flags) -> SimState:
+    """Phase 5: one packet per NIC per tick, arbitration + admission, in
+    one call of ``run`` (the backend resolved by ``kernels/sends/ops.get``),
+    which updates the state's buffers in place."""
+    run(clk.t, (clk.t + clk.lat_send) % dims.L, fl, operands(consts, st))
+    return st
 
 
 def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):

@@ -70,10 +70,13 @@ class SimConfig:
                                      # arrivals phase: one fused launch
                                      # (kernels/arrivals), its plain
                                      # version, or the enqueue_rank kernel
-                                     # with PyTorch glue; and the send
-                                     # arbitration: the rr_pick kernel under
-                                     # "kernel" and "split" alike, its plain
-                                     # version under "plain"
+                                     # with PyTorch glue
+    sender_backend: str = "kernel"   # "kernel" | "plain" | "split" — the
+                                     # sends phase: one fused launch
+                                     # (kernels/sends), its plain version,
+                                     # or the rr_pick kernel with PyTorch
+                                     # glue; and the EQDS grants' pick:
+                                     # the rr_pick kernel but under "plain"
     transport_backend: str = "kernel"  # "kernel" | "plain" | "split" —
                                      # the control phase: one fused launch
                                      # (kernels/control), its plain

@@ -160,7 +160,8 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     [N, FRMAX] plane and the receivers' cursors), so the only refusal left
     is the one that says the tensors are not on a card; the control phase
     is the fused kernel with the CC update off, the arrivals phase the
-    fused kernel on the credit path, and the split designs' cc_update,
+    fused kernel on the credit path, the sends phase the fused kernel
+    with credits (its pick inside it), and the split designs' cc_update,
     ring_drain and enqueue_rank are never called."""
     from repro_torch.kernels import build
     from repro_torch.kernels.arrivals import kernel as AK
@@ -172,6 +173,8 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     from repro_torch.kernels.enqueue_arb import ref as ER
     from repro_torch.kernels.ring_drain import kernel as DK
     from repro_torch.kernels.ring_drain import ref as DR
+    from repro_torch.kernels.sends import kernel as SK
+    from repro_torch.kernels.sends import ref as SR
     from repro_torch.netsim import scenarios
 
     calls = {}
@@ -193,8 +196,9 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
         t, *a, w=a[-1].shape[1], ww=a[4].shape[1], maxw=a[5].shape[1]))
     rehearse(XK, "control", XR.control_ref)
     rehearse(AK, "arrivals", AR.arrivals_ref)
+    rehearse(SK, "sends", SR.sends_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario("incast8_16n", algo="eqds").build(device="cpu")
     assert sim.dims.FMAX == 1 and sim.dims.FRMAX == 8    # rr_pick: grants only
     sim.run(60)
-    assert calls == {"arrivals": 60, "control": 60, "rr_pick": 60}, calls
+    assert calls == {"arrivals": 60, "control": 60, "rr_pick": 60, "sends": 60}, calls

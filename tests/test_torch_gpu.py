@@ -1,7 +1,7 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version (bit for bit, at the main path's shapes and ragged
-ones; the fused control and arrivals phases also on simulator states at
-chosen ticks), and small scenarios through the kernels against the same
+ones; the fused control, arrivals and sends phases also on simulator
+states at chosen ticks), and small scenarios through the kernels against the same
 runs on the CPU (final states bit for bit, one launch of each tick kernel
 per executed tick).
 
@@ -30,7 +30,9 @@ from repro_torch.kernels.red_mark import kernel as RK  # noqa: E402
 from repro_torch.kernels.red_mark import ref as RR  # noqa: E402
 from repro_torch.kernels.ring_drain import kernel as DK  # noqa: E402
 from repro_torch.kernels.ring_drain import ref as DR  # noqa: E402
-from repro_torch.netsim import fabric, scenarios  # noqa: E402
+from repro_torch.kernels.sends import kernel as SK  # noqa: E402
+from repro_torch.kernels.sends import ref as SR  # noqa: E402
+from repro_torch.netsim import fabric, scenarios, sender  # noqa: E402
 from repro_torch.netsim import faults as tfaults  # noqa: E402
 from repro_torch.netsim import state as tstate  # noqa: E402
 from repro_torch.netsim import transport  # noqa: E402
@@ -138,21 +140,21 @@ def test_scenario_through_kernels_equals_cpu(cuda, name):
     """A whole run through the kernels on the card ends in the CPU port's
     final state, bit for bit, with one launch of each tick kernel per
     executed tick (the fused control phase, SMaRTT inside it; the fused
-    arrivals phase; rr_pick wherever senders hold several flows; the split
-    designs' enqueue_rank, cc_update and ring_drain never)."""
+    arrivals and sends phases, the sends' pick inside it where senders hold
+    several flows; the split designs' enqueue_rank, cc_update, ring_drain
+    and rr_pick never)."""
     sc = scenarios.scenario(name)
     sim = sc.build(device=cuda)
-    fns = (XK.control, AK.arrivals, EK.enqueue_rank, CK.cc_update, DK.ring_drain,
-           EK.rr_pick)
+    fns = (XK.control, AK.arrivals, SK.sends, EK.enqueue_rank, CK.cc_update,
+           DK.ring_drain, EK.rr_pick)
     for fn in fns:
         fn.launches = 0
     XK.control.launches_smartt = 0
     st = sim.run(sc.max_ticks)
     torch.cuda.synchronize()
     steps = sim.stats["steps"]
-    assert [fn.launches for fn in fns[:5]] == [steps, steps, 0, 0, 0]
+    assert [fn.launches for fn in fns] == [steps, steps, steps, 0, 0, 0, 0]
     assert XK.control.launches_smartt == steps
-    assert (EK.rr_pick.launches > 0) == (sim.dims.FMAX > 1)
     cpu = sc.build(device="cpu")
     ref = cpu.run(sc.max_ticks)
     a, b = tstate.to_numpy(st), tstate.to_numpy(ref)
@@ -168,24 +170,29 @@ def test_scenario_through_kernels_equals_cpu(cuda, name):
 
 
 @pytest.mark.parametrize("name,overrides,ticks,on_path", [
-    ("incast8_16n", dict(algo="eqds"), None, ("arrivals", "control", "rr_pick")),
-    ("corefail_128n_3t", {}, 700, ("arrivals", "control")),
-    ("perm_128n_3t", dict(fabric_backend="split"), None, ("enqueue_rank", "control")),
-], ids=["eqds", "corefail", "split-arrivals"])
+    ("incast8_16n", dict(algo="eqds"), None, ("arrivals", "control", "rr_pick", "sends")),
+    ("corefail_128n_3t", {}, 700, ("arrivals", "control", "sends")),
+    ("perm_128n_3t", dict(fabric_backend="split"), None,
+     ("enqueue_rank", "control", "sends")),
+    ("tiny_sparse", dict(sender_backend="split"), None, ("arrivals", "control", "rr_pick")),
+    ("perm_128n_3t", dict(algo="bbr", lb="spray"), 300, ("arrivals", "control", "sends")),
+], ids=["eqds", "corefail", "split-arrivals", "split-sends", "paced-spray"])
 def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks, on_path):
     """EQDS (credit grants through rr_pick, the fused control phase with
-    the CC update off, the fused arrivals phase on the credit path), a
-    fault schedule (corefail_128n_3t to tick 700, past the failure at 500
-    and its first timeouts, SMaRTT inside the fused control phase, the
-    fault metrics inside the fused arrivals phase) and the split design of
-    the arrivals phase (the enqueue_rank kernel once a tick) through the
-    kernels on the card end in the CPU port's state."""
+    the CC update off, the fused arrivals and sends phases on the credit
+    path), a fault schedule (corefail_128n_3t to tick 700, past the failure
+    at 500 and its first timeouts, SMaRTT inside the fused control phase,
+    the fault metrics inside the fused arrivals phase), the split designs
+    of the arrivals phase (the enqueue_rank kernel once a tick) and of the
+    sends phase (the rr_pick kernel once a tick), and BBR's pacing with
+    spraying through the fused sends phase, through the kernels on the
+    card end in the CPU port's state."""
     sc = scenarios.scenario(name, **overrides)
     ticks = ticks or sc.max_ticks
     sim = sc.build(device=cuda)
     fns = {"cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
            "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick, "control": XK.control,
-           "arrivals": AK.arrivals}
+           "arrivals": AK.arrivals, "sends": SK.sends}
     for fn in fns.values():
         fn.launches = 0
     XK.control.launches_smartt = 0
@@ -195,8 +202,8 @@ def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks,
     assert {k: fn.launches for k, fn in fns.items()} == \
         {k: steps if k in on_path else 0 for k in fns}
     assert XK.control.launches_smartt == (steps if sc.cfg.algo == "smartt" else 0)
-    ref = scenarios.scenario(name, **{**overrides, "fabric_backend": "kernel"}) \
-        .build(device="cpu").run(ticks)
+    ref = scenarios.scenario(name, **{**overrides, "fabric_backend": "kernel",
+                                      "sender_backend": "kernel"}).build(device="cpu").run(ticks)
     a, b = tstate.to_numpy(st), tstate.to_numpy(ref)
     for x, y in zip(_leaf_list(a), _leaf_list(b)):
         assert x[1].dtype == y[1].dtype and x[1].tobytes() == y[1].tobytes(), x[0]
@@ -388,3 +395,92 @@ def test_arrivals_kernel_refuses_bad_operands(cuda):
     assert AK.arrivals.launches == n0
     AK.arrivals(t, s, fl, o)
     assert AK.arrivals.launches == n0 + 1
+
+
+# --------------------------------------------------- the fused sends phase
+
+def _sends_both(t, wire, fl, ok, orf):
+    """The fused kernel on ``ok`` and ``sends_ref`` on ``orf`` (two copies
+    of the same operands): every operand bit for bit."""
+    n0 = SK.sends.launches
+    SK.sends(t, wire, fl, ok)
+    SR.sends_ref(t, wire, fl, orf)
+    torch.cuda.synchronize()
+    assert SK.sends.launches == n0 + 1
+    for n, a, b in zip(ok._fields, ok, orf):
+        assert _bit_equal(a, b), n
+
+
+@pytest.mark.parametrize("shape,seed,flags", cases.SENDS_CASES)
+def test_sends_kernel_bit_equal(cuda, shape, seed, flags):
+    c = cases.sends_case(*shape, seed, **flags)
+    t, wire, fl, ok = cases.sends_operands(c, cuda)
+    _, _, _, orf = cases.sends_operands(c, cuda)
+    _, _, _, o0 = cases.sends_operands(c, cuda)
+    _sends_both(t, wire, fl, ok, orf)
+    N = ok.flows_of.shape[0]
+    assert bool(ok.infl[wire, -N:, 0].any()) and int(ok.n_retx) > int(o0.n_retx)
+
+
+@pytest.mark.parametrize("name,overrides,ticks", [
+    ("perm_128n_3t", {}, (40, 70, 120, 200, 300)),
+    ("alltoall16_w4", {}, tuple(range(10, 400, 13))),
+    ("tiny_allreduce_ring", {}, tuple(range(10, 600, 17))),
+    ("incast8_16n", dict(algo="eqds"), tuple(range(0, 120, 3))),
+    ("perm_128n_3t", dict(algo="bbr", lb="plb"), (5, 40, 70, 120)),
+], ids=["perm_128n_3t", "alltoall16_w4", "allreduce", "eqds", "bbr-plb"])
+def test_sends_kernel_bit_equal_on_tick_states(cuda, name, overrides, ticks):
+    """The simulator's own states on the card: at each chosen tick, after
+    departures, arrivals, control and grants, the fused kernel and its
+    plain version from two copies of the state agree bit for bit."""
+    sc = scenarios.scenario(name, **overrides)
+    sim = sc.build(device=cuda)
+    phases = dict(sim.phases)
+    fl = sender.flags(sim.dims)
+    st = sim.init()
+    emitted = 0
+    for t in range(max(ticks) + 1):
+        clk = sim.clock0._replace(t=t)
+        for name_ in ("departures", "arrivals", "control", "grants"):
+            st = phases[name_](sim.consts, st, clk)
+        if t in ticks:
+            wire = (t + clk.lat_send) % sim.dims.L
+            a, b = _clone(st), _clone(st)
+            _sends_both(t, wire, fl, sender.operands(sim.consts, a),
+                        sender.operands(sim.consts, b))
+            emitted += int(a.infl[wire, sim.dims.NQ:, 0].sum())
+        for name_ in ("sends", "metrics"):
+            st = phases[name_](sim.consts, st, clk)
+        st = st._replace(now=st.now + 1)
+    assert emitted > 0
+
+
+def test_sends_kernel_refuses_bad_operands(cuda):
+    c = cases.sends_case(8, 70, 300, 64, 3, 0, credit_based=True)
+    t, wire, fl, o = cases.sends_operands(c, cuda)
+    n0 = SK.sends.launches
+    with pytest.raises(TypeError, match="dtype"):
+        SK.sends(t, wire, fl, o._replace(sent=o.sent.to(torch.int64)))
+    with pytest.raises(TypeError, match="dtype"):
+        SK.sends(t, wire, fl, o._replace(f_salt=o.f_salt.to(torch.int32)))
+    with pytest.raises(ValueError, match="shape"):
+        SK.sends(t, wire, fl, o._replace(infl=o.infl[:, :, :6].contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.sends(t, wire, fl, o._replace(flows_of=o.flows_of.t().contiguous().t()))
+    with pytest.raises(ValueError, match="on cpu"):
+        SK.sends(t, wire, fl, o._replace(next_seq=o.next_seq.cpu()))
+    with pytest.raises(ValueError, match="unknown lb mode"):
+        SK.sends(t, wire, fl._replace(lb_mode=7), o)
+    with pytest.raises(ValueError, match="outside the wire ring"):
+        SK.sends(t, o.infl.shape[0], fl, o)
+    # the tick's operands are checked on every launch, the block's reused
+    SK.sends(t, wire, fl, o)
+    with pytest.raises(TypeError, match="dtype"):
+        SK.sends(t, wire, fl, o._replace(cwnd=o.cwnd.to(torch.float64)))
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.sends(t, wire, fl, o._replace(credits=torch.stack([o.credits, o.credits], 1)[:, 0]))
+    with pytest.raises(ValueError, match="on cpu"):
+        SK.sends(t, wire, fl, o._replace(next_entropy=o.next_entropy.cpu()))
+    assert SK.sends.launches == n0 + 1
+    SK.sends(t, wire, fl, o)
+    assert SK.sends.launches == n0 + 2

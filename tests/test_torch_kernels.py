@@ -211,6 +211,8 @@ def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
     from repro_torch.kernels.control import ref as XR
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.ring_drain import kernel as DK
+    from repro_torch.kernels.sends import kernel as SK
+    from repro_torch.kernels.sends import ref as SR
     from repro_torch.netsim import scenarios
 
     calls = {}
@@ -235,6 +237,7 @@ def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
     rehearse(DK, "ring_drain", drain_plain)
     rehearse(XK, "control", XR.control_ref)
     rehearse(AK, "arrivals", AR.arrivals_ref)
+    rehearse(SK, "sends", SR.sends_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario(name, **overrides).build(device="cpu")
     sim.run(ticks)
@@ -248,11 +251,11 @@ def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
     through the wrappers on the CPU: every check must pass, so the only
     refusal left is the one that says the tensors are not on a card.  The
     control phase is the fused kernel (SMaRTT's update inside it), the
-    arrivals phase too (the split design's enqueue_rank never runs)."""
+    arrivals and sends phases too (the split designs' enqueue_rank and
+    rr_pick never run, alltoall_3t's 31 flows a sender included)."""
     calls, sim = _rehearse_wrappers(monkeypatch, name, ticks)
-    want = {"control", "arrivals"} | ({"rr_pick"} if sim.dims.FMAX > 1 else set())
-    assert set(calls) == want and all(v == ticks for k, v in calls.items()
-                                      if k != "rr_pick"), calls
+    assert set(calls) == {"control", "arrivals", "sends"} and \
+        all(v == ticks for v in calls.values()), calls
 
 
 @pytest.mark.parametrize("name,ticks,overrides", [
@@ -260,7 +263,10 @@ def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
     ("tiny_incast3", 20, dict(algo="eqds", trimming=False, rto_backoff_max=3)),
     ("perm_128n_3t", 80, dict(fabric_backend="split")),
     ("corefail_128n_3t", 510, dict(algo="eqds")),
-], ids=["split", "eqds-flags", "split-arrivals", "faults-credit"])
+    ("alltoall_3t", 40, dict(sender_backend="split")),
+    ("perm_128n_3t", 40, dict(algo="bbr", lb="spray")),
+], ids=["split", "eqds-flags", "split-arrivals", "faults-credit", "split-sends",
+        "paced-spray"])
 def test_other_paths_operands_pass_every_wrapper_check(monkeypatch, name, ticks,
                                                        overrides):
     """The same rehearsal for the earlier design of the control phase
@@ -268,11 +274,15 @@ def test_other_paths_operands_pass_every_wrapper_check(monkeypatch, name, ticks,
     for the fused control kernel with the CC update off and every flag of
     the phase set otherwise (credits, no trimming, RTO backoff), for the
     earlier design of the arrivals phase (``fabric_backend="split"``: the
-    enqueue_rank kernel), and for the fused arrivals kernel with the fault
-    metrics and the credit path on (corefail_128n_3t past its failure)."""
+    enqueue_rank kernel), for the fused arrivals kernel with the fault
+    metrics and the credit path on (corefail_128n_3t past its failure),
+    for the earlier design of the sends phase (``sender_backend="split"``:
+    the rr_pick kernel over alltoall_3t's [512, 31] rows) and for the fused
+    sends kernel paced and spraying."""
     calls, sim = _rehearse_wrappers(monkeypatch, name, ticks, **overrides)
     want = ({"cc_update", "ring_drain"} if "transport_backend" in overrides
             else {"control"} | ({"rr_pick"} if sim.dims.credit_based else set()))
     want |= {"enqueue_rank"} if "fabric_backend" in overrides else {"arrivals"}
+    want |= {"rr_pick"} if "sender_backend" in overrides else {"sends"}
     steps = sim.stats["steps"]
     assert set(calls) == want and all(v == steps for v in calls.values()), calls
