@@ -13,14 +13,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                card at its paths' shapes plus ragged and edge cases: the
                simulator kernels bit for bit (the fused control kernel
                against control_ref, the fused arrivals kernel against
-               arrivals_ref and the fused sends kernel against sends_ref on
+               arrivals_ref, the fused sends kernel against sends_ref and
+               the fused departures kernel against departures_ref on
                seeded operands, every flag on and off, a ragged ring, a
                fan-in row past one warp, sender rows of 1, 31, 70 and 254
                flows, and all three on the simulator's own states:
                perm_1024n_3t, alltoall_3t, corefail_128n_3t across its
                failure and to its first timeouts, incast_256x1_3t under
                eqds; the sends kernel also on allreduce_ring_128n_3t and
-               perm_128n_3t under bbr); flash_attention within
+               perm_128n_3t under bbr; the departures kernel on the
+               start-of-tick states of perm_1024n_3t, alltoall_3t,
+               corefail_128n_3t across its failure and repair,
+               flap_128n_3t before its flap and in a down window,
+               perm_512n_3t_degraded and incast_256x1_3t under eqds);
+               flash_attention within
                2e-5 (f32, the SIMT kernel) / 2e-2 (bf16, the tensor-core
                kernel; every masking and ragged case in both dtypes, the
                launch counted on the dtype's kernel, a misaligned bf16
@@ -39,19 +45,21 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                design's ring_drain + cc_update on the same state, for the
                fused arrivals kernel the split design's enqueue_rank, for
                the fused sends kernel (on perm_1024n_3t and alltoall_3t)
-               the rr_pick kernel on alltoall_3t's rows, and each whole phase
-               fused against split (device time and launches of one call,
-               captured in a CUDA graph)
+               the rr_pick kernel on alltoall_3t's rows, for the fused
+               departures kernel the standalone red_mark kernel on the same queue
+               sizes, and each whole phase fused against its earlier design
+               (split; plain departures) (device time and launches of one
+               call, captured in a CUDA graph)
   4. main path — perm_1024n_3t (the paper's 1024-node, three-tier fat
                tree), alltoall_3t and perm_512n_3t end to end through the
-               kernels, the arrivals, control and sends phases one fused
-               launch a tick each; launch counts reset just before each run
-               and read just after; the final states equal to the runs
-               through the split control, arrivals and sends phases, the
-               plain versions on the card and the CPU, field by field; the
-               summaries equal to the JAX reference's; ticks/s in turns
-               (fused, split sends, plain; TURNS runs a way) on
-               perm_1024n_3t and alltoall_3t
+               kernels, the departures, arrivals, control and sends phases
+               one fused launch a tick each; launch counts reset just before
+               each run and read just after; the final states equal to the
+               runs through the split control, arrivals and sends phases,
+               the plain departures phase, the plain versions on the card
+               and the CPU, field by field; the summaries equal to the JAX
+               reference's; ticks/s in turns (fused, plain departures,
+               plain; TURNS runs a way) on perm_1024n_3t and alltoall_3t
   4b. red_mark — the first 300 ticks of perm_1024n_3t on the card, the
                red_mark kernel beside every tick's departures: its marks
                equal to the flip departures applies (fabric.red_marks on
@@ -64,8 +72,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                runs corefail_128n_3t (without and with the recovery knobs)
                and flap_128n_3t, and the collective allreduce_ring_128n_3t
                (32 512 flows behind the dependency gate).  Each runs whole
-               through the kernels, the arrivals, control and sends phases
-               through their fused launches (SMaRTT's update inside the control
+               through the kernels, the departures, arrivals, control and
+               sends phases through their fused launches (SMaRTT's update inside the control
                launch for the SMaRTT runs, in PyTorch for the baselines;
                the credit path and the fault metrics inside the arrivals
                launch where the run has them), launch counts reset just before
@@ -88,11 +96,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                tokens/s, peak memory and the device's idle share while
                decoding
   6. profile — where perm_1024n_3t's tick time goes, through the fused
-               launches and through each split design (arrivals, control,
-               sends): each phase's ms a tick, the device's busy share and
-               kernels a tick; beside them the arrivals, control and sends
-               phases' launches and device time a call (phase 3: a CUDA
-               graph of the phase, its nodes counted)
+               launches and through each earlier design (plain departures,
+               split arrivals, control, sends): each phase's ms a tick, the
+               device's busy share and kernels a tick; beside them the
+               departures, arrivals, control and sends phases' launches and
+               device time a call (phase 3: a CUDA graph of the phase, its
+               nodes counted)
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
@@ -175,7 +184,7 @@ REFERENCE = {
 # cross the first failure (corefail: t = 500; flap: its first down
 # stretch starts at t = 500).
 RECOVERY = dict(rto_backoff_max=2, evict_on_timeout=True)   # benchmarks/failover.py
-TICK = ("control", "arrivals", "sends")
+TICK = ("departures", "control", "arrivals", "sends")
 SMARTT_TICK = TICK + ("control:smartt",)
 COMPARISON_RUNS = (
     ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"), TICK, None, 150),
@@ -197,23 +206,27 @@ MAIN_RUNS = (("perm_1024n_3t", SMARTT_TICK), ("alltoall_3t", SMARTT_TICK),
 # as the earlier ring_drain + cc_update kernels; split-arrivals: the
 # arrivals phase as the earlier enqueue_rank kernel with PyTorch glue;
 # split-sends: the sends phase as the earlier rr_pick kernel with PyTorch
-# glue, which launches it only where a sender holds several flows)
-_FUSED = dict(cc_backend="kernel", fabric_backend="kernel", transport_backend="kernel",
-              sender_backend="kernel")
+# glue, which launches it only where a sender holds several flows;
+# plain-departures: the departures phase as its earlier design, PyTorch
+# with the RED flip inline, which launches no kernel of ours)
+_FUSED = dict(cc_backend="kernel", departures_backend="kernel", fabric_backend="kernel",
+              transport_backend="kernel", sender_backend="kernel")
 WAYS = {
     "kernel": _FUSED,
     "split-control": {**_FUSED, "transport_backend": "split"},
     "split-arrivals": {**_FUSED, "fabric_backend": "split"},
     "split-sends": {**_FUSED, "sender_backend": "split"},
-    "plain": dict(cc_backend="plain", fabric_backend="plain", transport_backend="plain",
-                  sender_backend="plain"),
+    "plain-departures": {**_FUSED, "departures_backend": "plain"},
+    "plain": dict(cc_backend="plain", departures_backend="plain", fabric_backend="plain",
+                  transport_backend="plain", sender_backend="plain"),
 }
 SPLIT_KERNELS = {"split-control": {"control": ("cc_update", "ring_drain"),
                                    "control:smartt": ()},
                  "split-arrivals": {"arrivals": ("enqueue_rank",)},
-                 "split-sends": {"sends": ("rr_pick",)}}
-TURNS = 5                 # runs a way, in turns: fused, split sends, plain
-TURN_WAYS = ("kernel", "split-sends", "plain")
+                 "split-sends": {"sends": ("rr_pick",)},
+                 "plain-departures": {"departures": ()}}
+TURNS = 5                 # runs a way, in turns: fused, plain departures, plain
+TURN_WAYS = ("kernel", "plain-departures", "plain")
 TURN_RUNS = ("perm_1024n_3t", "alltoall_3t")
 # phase 3's fused control kernel against control_ref: seeded operands
 # ((NF, N, W, MAXW, R), seed, flags): one flow, a ragged ring (W = 1024,
@@ -260,6 +273,26 @@ TICK_STATES = (
 )
 TIMED = ("perm_1024n_3t", 300)
 SENDS_TIMED = ("alltoall_3t", 200)
+# phase 3's fused departures kernel against departures_ref on the
+# simulator's start-of-tick states: (scenario, overrides, ticks, the work
+# the checked ticks must hold).  Each run goes to the next checked tick as
+# Sim.run goes (leaping where it leaps).  corefail_128n_3t's core uplinks
+# die at t = 500 and come back at 5990; flap_128n_3t's port flaps from
+# t = 200 (healthy to 499, down 500-799); perm_512n_3t_degraded has a dead
+# port and a half-rate one (served on even ticks) from t = 0.  The kernel
+# is timed on perm_1024n_3t's state at DEPARTURES_TIMED, beside the
+# standalone red_mark kernel on the same queue sizes.
+DEPARTURES_STATES = (
+    ("perm_1024n_3t", {}, (100, 300, 700), ("emits", "marks", "deliveries", "wraps")),
+    ("alltoall_3t", {}, (60, 200), ("emits", "deliveries")),
+    ("corefail_128n_3t", {}, (499, 500, 501, 520, 680, 5989, 5990, 5991),
+     ("emits", "marks", "black")),
+    ("flap_128n_3t", {}, (150, 199, 200, 499, 500, 501, 650), ("emits", "black")),
+    ("perm_512n_3t_degraded", {}, (20, 21, 40, 41, 100), ("emits", "black", "held")),
+    ("incast_256x1_3t", dict(algo="eqds"), (20, 60, 200), ("emits", "deliveries")),
+)
+DEPARTURES_TIMED = ("perm_1024n_3t", 300)
+DEPARTURES_WORK = ("emits", "marks", "deliveries", "black", "held", "wraps")
 RED_MARK_TICKS = 300      # phase 4b: queues load and trims begin by then
 PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
 
@@ -1067,6 +1100,197 @@ def sends_timing(timed):
     return rec
 
 
+def departures_pair(t, lat, fl, ok, orf, what):
+    """The fused kernel on ``ok`` and ``departures_ref`` on ``orf`` (two
+    copies of the same operands): every operand bit for bit."""
+    from repro_torch.kernels.departures import kernel as PK, ref as PR
+    PK.departures(t, lat, fl, ok)
+    PR.departures_ref(t, lat, fl, orf)
+    torch.cuda.synchronize()
+    bad = [n for n, a, b in zip(ok._fields, ok, orf) if not bit_equal(a, b)]
+    if bad:
+        fail(f"departures {what}: the fused kernel differs from departures_ref in {bad}")
+
+
+def departures_work(t, lat, fl, o, o0):
+    """What one call of the departures phase did (``o0`` before, ``o``
+    after): packets emitted, RED marks it set, deliveries to a node,
+    packets blackholed, busy ports a fault period held, heads that wrapped."""
+    nq, L = o.qidx.shape[0], o.infl.shape[0]
+    rows = torch.cat([o.infl[(t + lat.core) % L, :fl.qe], o.infl[(t + lat.edge) % L, fl.qe:nq]])
+    emitted = rows[:, 0] == 1
+    hol = o0.q_fields[o0.qidx, o0.q_head[:nq]]
+    busy = o0.q_size[:nq] > 0
+    return dict(emits=int(emitted.sum()),
+                marks=int((emitted & (rows[:, 5] == 1) & (hol[:, 3] == 0)).sum()),
+                deliveries=int((emitted & (rows[:, 1] < 0)).sum()),
+                black=int(o.n_black - o0.n_black),
+                held=int((busy & (o.q_size[:nq] == o0.q_size[:nq])).sum()),
+                wraps=int((busy & (o.q_head[:nq] < o0.q_head[:nq])).sum()))
+
+
+def departures_cases(dev):
+    """The fused departures kernel against departures_ref on the card on the
+    seeded DEPARTURES_CASES."""
+    from repro_torch.kernels import cases
+    for shape, seed, flags in cases.DEPARTURES_CASES:
+        c = cases.departures_case(*shape, seed, **flags)
+        t, lat, fl, ok = cases.departures_operands(c, dev)
+        _, _, _, orf = cases.departures_operands(c, dev)
+        _, _, _, o0 = cases.departures_operands(c, dev)
+        departures_pair(t, lat, fl, ok, orf, f"{shape} {flags}")
+        log(f"[kernels] departures {str(shape):27s} {str(flags):42s}: bit-equal to "
+            f"departures_ref {departures_work(t, lat, fl, ok, o0)}")
+
+
+def departures_states(dev):
+    """The fused departures kernel against departures_ref on the card on the
+    simulator's start-of-tick states (DEPARTURES_STATES), each run driven to
+    its next checked tick as Sim.run drives it; returns the state at
+    DEPARTURES_TIMED."""
+    from repro_torch.kernels.departures import ref as PR
+    from repro_torch.netsim import engine, fabric, scenarios
+    timed = None
+    for name, ov, ticks, needs in DEPARTURES_STATES:
+        sim = scenarios.scenario(name, **ov).build(device=dev)
+        c, fl = sim.consts, fabric.departures_flags(sim.dims)
+        st = sim.init()
+        seen = dict.fromkeys(DEPARTURES_WORK, 0)
+        for t in ticks:
+            st = engine._run_until_done(sim, st, t)
+            if int(st.now) != t:
+                fail(f"departures {name}: the run stopped at t = {int(st.now)}, before {t}")
+            clk = sim.clock0._replace(t=t)
+            lat = PR.Lat(core=clk.lat_core, edge=clk.lat_edge)
+            if (name, t) == DEPARTURES_TIMED:
+                timed = (sim, fl, t, clone_tree(st))
+            a = fabric.departures_operands(c, clone_tree(st))
+            departures_pair(t, lat, fl, a, fabric.departures_operands(c, clone_tree(st)),
+                            f"{name} t={t}")
+            for k, v in departures_work(t, lat, fl, a,
+                                        fabric.departures_operands(c, st)).items():
+                seen[k] += v
+        if not all(seen[k] for k in needs):
+            fail(f"departures {name}: the checked ticks miss a kind of work {seen}, "
+                 f"needed {needs}")
+        log(f"[kernels] departures on {name} {ov or ''} at ticks {ticks}: bit-equal to "
+            f"departures_ref on the simulator's states {seen}")
+    return timed
+
+
+def departures_bytes(sim, fl, t, lat, st) -> int:
+    """Bytes the departures phase must move at this state, counting what
+    this tick's data needs: every port's size; a busy port's fault tables
+    (under a schedule); an active port's head; an emitting port's
+    head-of-line row, its flow's destination and the routing words its
+    branch reads (edge flag; subtree bounds; the down table or the up
+    ports and salt); the four device scalars; and each word the phase
+    changes written once (a wire row already zero is not counted), the
+    blackholed count read too where it changes."""
+    from repro_torch.kernels.departures import ref as PR
+    from repro_torch.netsim import fabric
+    d, c = sim.dims, sim.consts
+    i, nq = 4, d.NQ
+    o = fabric.departures_operands(c, st)
+    after = fabric.departures_operands(c, clone_tree(st))
+    PR.departures_ref(t, lat, fl, after)
+    L = o.infl.shape[0]
+    core, edge = (t + lat.core) % L, (t + lat.edge) % L
+    rows = torch.cat([after.infl[core, :fl.qe], after.infl[edge, fl.qe:nq]])
+    emitted = rows[:, 0] == 1
+    busy = o.q_size[:nq] > 0
+    active = after.q_size[:nq] != o.q_size[:nq]
+    flow = rows[:, 2].clamp(0, d.NF - 1)
+    dn = o.dst[flow]
+    down = (dn >= o.q_lo) & (dn < o.q_hi)
+    inner = emitted & ~o.edge_q
+    out = nq * i + 4 * i
+    if fl.fk or fl.flapped:
+        out += int(busy.sum()) * ((fl.fk + 1) * i * bool(fl.fk) + 5 * i * fl.flapped)
+    out += int(active.sum()) * i
+    out += int(emitted.sum()) * (5 * i + i + 1)
+    out += int(inner.sum()) * 2 * i + int((inner & down).sum()) * 2 * i
+    out += int((inner & ~down).sum()) * (2 * i + 8)
+    for a, b in ((o.infl[core, :fl.qe], after.infl[core, :fl.qe]),
+                 (o.infl[edge, fl.qe:nq], after.infl[edge, fl.qe:nq]),
+                 (o.q_head, after.q_head), (o.q_size, after.q_size)):
+        out += int((a != b).sum()) * i
+    out += 2 * i * int(after.n_black != o.n_black)
+    return out
+
+
+def departures_timing(timed):
+    """The fused departures kernel at DEPARTURES_TIMED's state: against its
+    bound and its plain version, the standalone red_mark kernel on the same queue
+    sizes, and the whole phase against its earlier design (the plain
+    version in PyTorch).  Every timed call first restores what the phase
+    changed that it reads (heads, sizes, the blackholed count), so it
+    departs the same packets; the restore alone is timed too and taken off."""
+    from repro_torch.kernels.departures import kernel as PK, ops as PO, ref as PR
+    from repro_torch.kernels.red_mark import kernel as RK
+    from repro_torch.netsim import fabric
+    sim, fl, t, base = timed
+    d, c = sim.dims, sim.consts
+    clk = sim.clock0._replace(t=t)
+    lat = PR.Lat(core=clk.lat_core, edge=clk.lat_edge)
+    nbytes = departures_bytes(sim, fl, t, lat, base)
+    saved = fabric.departures_operands(c, base)
+
+    def restoring_dep(o, fn):
+        def restore():
+            for n in ("q_head", "q_size", "n_black"):
+                getattr(o, n).copy_(getattr(saved, n))
+
+        def both():
+            restore()
+            fn()
+        return both, restore
+
+    def timed_pair(fn, o, per_graph=50, iters=200):
+        both, restore = restoring_dep(o, fn)
+        return dict(ms=device_ms(both, per_graph) - device_ms(restore, per_graph),
+                    call_ms=call_ms(both, iters) - call_ms(restore, iters),
+                    restore_ms=device_ms(restore, per_graph))
+
+    o_k = fabric.departures_operands(c, clone_tree(base))
+    o_p = fabric.departures_operands(c, clone_tree(base))
+    k = timed_pair(lambda: PK.departures(t, lat, fl, o_k), o_k)
+    p = timed_pair(lambda: PR.departures_ref(t, lat, fl, o_p), o_p, per_graph=10, iters=50)
+    rec = dict(shape=f"[{d.NQ}] ports of {d.CAP}, {d.NF} flows ({DEPARTURES_TIMED[0]} t={t})",
+               max_abs_err=0.0, ms=k["ms"], call_ms=k["call_ms"], restore_ms=k["restore_ms"],
+               plain_ms=p["ms"], plain_call_ms=p["call_ms"], library_ms=None, **bound(nbytes))
+    # the standalone red_mark kernel on the same queue sizes, as phase 4b calls it
+    q = base.q_size[:d.NQ]
+    zeros = torch.zeros_like(q)
+    kmin, kmax, salt = float(c.kmin), float(c.kmin + c.kspan), int(base.salt) + 0xECD
+    rec["red_mark_ms"] = device_ms(lambda: RK.red_mark(q, zeros, cap=d.CAP, kmin=kmin,
+                                                       kmax=kmax, tick=t, salt=salt))
+    # the whole phase: the fused launch against the earlier design
+    for way in ("kernel", "plain"):
+        st = clone_tree(base)
+        run = PO.get(way)
+        both, restore = restoring_dep(
+            fabric.departures_operands(c, st),
+            lambda st=st, run=run: fabric.departures(d, c, st, clk, run=run, fl=fl))
+        pre = "" if way == "kernel" else "plain_"
+        rec[f"{pre}phase_ms"] = (device_ms(both, per_graph=10)
+                                 - device_ms(restore, per_graph=10))
+        rec[f"{pre}phase_launches"] = graph_launches(both) - graph_launches(restore)
+        rec[f"{pre}phase_call_ms"] = call_ms(both, 100) - call_ms(restore, 100)
+    log(f"[kernels] departures      {rec['shape']}: device time: fused kernel "
+        f"{rec['ms'] * 1e3:.3f} us, plain {rec['plain_ms'] * 1e3:.3f} us, bound "
+        f"{rec['bound_ms'] * 1e3:.4f} us ({nbytes} B); the red_mark kernel on the same "
+        f"queue sizes {rec['red_mark_ms'] * 1e3:.3f} us; the whole phase (device): fused "
+        f"{rec['phase_ms'] * 1e3:.2f} us in {rec['phase_launches']} launches, plain "
+        f"departures {rec['plain_phase_ms'] * 1e3:.2f} us in "
+        f"{rec['plain_phase_launches']} launches; a call with the host's work: kernel "
+        f"{rec['call_ms'] * 1e3:.1f} us, plain {rec['plain_call_ms'] * 1e3:.1f} us, "
+        f"phase fused {rec['phase_call_ms'] * 1e3:.1f} us, plain departures "
+        f"{rec['plain_phase_call_ms'] * 1e3:.1f} us (each less the restore: "
+        f"{rec['restore_ms'] * 1e3:.2f} us of device time)")
+    return rec
+
+
 # --------------------------------------------------------- 4. main path
 
 
@@ -1074,20 +1298,22 @@ def counters():
     from repro_torch.kernels.arrivals import kernel as AK
     from repro_torch.kernels.cc_update import kernel as CK
     from repro_torch.kernels.control import kernel as XK
+    from repro_torch.kernels.departures import kernel as PK
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.red_mark import kernel as RK
     from repro_torch.kernels.ring_drain import kernel as DK
     from repro_torch.kernels.sends import kernel as SK
-    return {"control": XK.control, "arrivals": AK.arrivals, "sends": SK.sends,
+    return {"departures": PK.departures, "control": XK.control, "arrivals": AK.arrivals,
+            "sends": SK.sends,
             "cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
             "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick, "red_mark": RK.red_mark}
 
 
 def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
     """Run a scenario (with config ``overrides``) on ``device`` one of the
-    WAYS (``backend``: "kernel", "plain", "split-control", "split-arrivals"
-    or "split-sends"), to completion or ``max_ticks``; launch counts reset
-    just before the run and read just after."""
+    WAYS (``backend``: "kernel", "plain", "split-control", "split-arrivals",
+    "split-sends" or "plain-departures"), to completion or ``max_ticks``;
+    launch counts reset just before the run and read just after."""
     from repro_torch.netsim import scenarios
     from repro_torch.netsim.metrics import summarize
     sc = scenarios.scenario(name, **WAYS[backend], **overrides)
@@ -1140,10 +1366,11 @@ def quartiles(xs):
 
 
 def phase_main_path():
-    """The main path's runs (MAIN_RUNS) through the fused arrivals, control
-    and sends launches: launches, the JAX reference's summary, the final
-    state against the runs through each split design, the plain versions on
-    the card and the CPU; then ticks/s in turns (TURN_WAYS) on TURN_RUNS."""
+    """The main path's runs (MAIN_RUNS) through the fused departures,
+    arrivals, control and sends launches: launches, the JAX reference's
+    summary, the final state against the runs through each split design,
+    the plain departures, the plain versions on the card and the CPU; then
+    ticks/s in turns (TURN_WAYS) on TURN_RUNS."""
     results = {}
     for name, on_path in MAIN_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel")
@@ -1157,7 +1384,8 @@ def phase_main_path():
         by_way = {"kernel": launches}
         walls = {"kernel": wall}
         others = []
-        for way in ("split-control", "split-arrivals", "split-sends", "plain"):
+        for way in ("split-control", "split-arrivals", "split-sends", "plain-departures",
+                    "plain"):
             _, st_w, _, by_way[way], walls[way] = run_path(name, "cuda", way)
             expect_launches(f"{name} {way}", by_way[way], way_kernels(on_path, way, sim)
                             if way != "plain" else (), steps)
@@ -1171,7 +1399,8 @@ def phase_main_path():
             if a.is_floating_point() and not bool(torch.isfinite(a).all()):
                 fail(f"{name}: non-finite values in {n}")
         log(f"[main] {name}: final state bit-equal to the split-control, split-arrivals, "
-            f"split-sends, plain-on-card and CPU runs ({len(list(leaves(st_k)))} leaves); summary "
+            f"split-sends, plain-departures, plain-on-card and CPU runs "
+            f"({len(list(leaves(st_k)))} leaves); summary "
             f"equals the JAX reference")
         results[name] = dict(launches=launches, launches_by_way=by_way, steps=steps,
                              ticks=summ["ticks"], wall=wall, walls=walls,
@@ -1217,6 +1446,9 @@ def phase_red_mark(dev):
         clk = sim.clock0._replace(t=t)
         for name, phase in sim.phases:
             if name == "departures":
+                # the flip and the kernel read q_size before the departures
+                # phase (which updates it in place) is launched: the compare
+                # below waits for both
                 q = st.q_size[:NQ]
                 flip = fabric.red_marks(d, c, st, t) & (q > 0)
                 mark, _, _ = red_mark_op(q, torch.zeros_like(q), cap=d.CAP, kmin=c.kmin,
@@ -1900,11 +2132,12 @@ def device_events(prof):
 
 
 def profile_way(backend):
-    """perm_1024n_3t one of the WAYS ("kernel": the fused arrivals, control
-    and sends launches; "split-arrivals", "split-control", "split-sends":
-    that phase as the earlier design, its kernel with PyTorch glue; on this
-    run's one flow a sender the split sends phase launches no kernel at
-    all): each phase's wall time
+    """perm_1024n_3t one of the WAYS ("kernel": the fused departures,
+    arrivals, control and sends launches; "split-arrivals", "split-control",
+    "split-sends": that phase as the earlier design, its kernel with PyTorch
+    glue; on this run's one flow a sender the split sends phase launches no
+    kernel at all; "plain-departures": the departures phase in PyTorch):
+    each phase's wall time
     with a synchronize after it over the first PROFILE_TICKS ticks (the
     queues load and trims start within them; this scenario never leaps),
     then a torch.profiler window of 100 ticks for the device's busy share
@@ -1960,6 +2193,7 @@ def profile_way(backend):
         log(f"[profile]   {dev_us(e) / ticks:9.3f} us/tick  x{e.count / ticks:5.2f}  "
             f"{e.key[:90]}")
     return dict(phase_ms_per_tick=per_tick,
+                departures_share=per_tick["departures"] / total,
                 control_share=per_tick["control"] / total,
                 arrivals_share=per_tick["arrivals"] / total,
                 sends_share=per_tick["sends"] / total,
@@ -1973,9 +2207,9 @@ def profile_way(backend):
 
 def phase_profile():
     """Where perm_1024n_3t's tick time goes, through the fused launches and
-    through each split design (profile_way)."""
-    return {way: profile_way(way)
-            for way in ("kernel", "split-arrivals", "split-control", "split-sends")}
+    through each earlier design (profile_way)."""
+    return {way: profile_way(way) for way in (
+        "kernel", "plain-departures", "split-arrivals", "split-control", "split-sends")}
 
 
 # ------------------------------------------------------------------ main
@@ -2001,10 +2235,13 @@ def main():
     control_cases(dev)
     arrivals_cases(dev)
     sends_cases(dev)
+    departures_cases(dev)
     timed_states = state_checks(dev)
+    timed_departures = departures_states(dev)
     records["control"] = control_timing(timed_states)
     records["arrivals"] = arrivals_timing(timed_states)
     records["sends"] = sends_timing(timed_states)
+    records["departures"] = departures_timing(timed_departures)
     records.update(serve_kernel_checks(dev))
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
@@ -2018,10 +2255,10 @@ def main():
         return out
 
     paths = timed_phase("main", phase_main_path)
-    log("[kernels] launches (fused; split-arrivals; split-control; split-sends): " + ", ".join(
+    ways = ("kernel", "split-arrivals", "split-control", "split-sends", "plain-departures")
+    log(f"[kernels] launches ({'; '.join(ways)}): " + ", ".join(
         f"{k}: " + ", ".join(f"{n} " + "; ".join(
-            str(paths[n]["launches_by_way"][w][k])
-            for w in ("kernel", "split-arrivals", "split-control", "split-sends"))
+            str(paths[n]["launches_by_way"][w][k]) for w in ways)
             for n in ("perm_1024n_3t", "alltoall_3t")) for k in counters()))
     red = timed_phase("red_mark", phase_red_mark, dev)
     smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
@@ -2054,6 +2291,8 @@ def main():
                     "src/repro/kernels/enqueue_arb/kernel.py:91", "alltoall_3t split-sends"),
         "sends": ("src/repro_torch/csrc/sends.cu",
                   "src/repro/kernels/enqueue_arb/kernel.py:91", "perm_1024n_3t"),
+        "departures": ("src/repro_torch/csrc/departures.cu",
+                       "src/repro/kernels/red_mark/kernel.py:42", "perm_1024n_3t"),
         "red_mark": ("src/repro_torch/csrc/red_mark.cu",
                      "src/repro/kernels/red_mark/kernel.py:42",
                      f"red_mark check (perm_1024n_3t, ticks 0-{RED_MARK_TICKS - 1})"),
@@ -2084,8 +2323,10 @@ def main():
             **({"simt_bound_ms": rec["simt_bound_ms"]} if "simt_bound_ms" in rec else {}),
             **{k_: v for k_, v in rec.items() if k_ in (
                 "split_ms", "ring_drain_ms", "cc_update_ms", "enqueue_rank_ms",
-                "rr_pick_ms", "restore_ms", "phase_ms", "split_phase_ms", "phase_call_ms",
-                "split_phase_call_ms", "phase_launches", "split_phase_launches")
+                "rr_pick_ms", "red_mark_ms", "restore_ms", "phase_ms", "split_phase_ms",
+                "plain_phase_ms", "phase_call_ms", "split_phase_call_ms",
+                "plain_phase_call_ms", "phase_launches", "split_phase_launches",
+                "plain_phase_launches")
                or k_.startswith("a2a_")}))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":
@@ -2099,16 +2340,18 @@ def main():
                       cpu_ticks_per_s=v["cpu_ticks_per_s"], cpu_over_ticks=v["cpu_ticks"])
     log(f"[main] end to end: {json.dumps(e2e)}")
     prof = timed_phase("profile", phase_profile)
-    for phase, split in (("control", "split-control"), ("arrivals", "split-arrivals"),
-                         ("sends", "split-sends")):
+    for phase, split, pre in (("departures", "plain-departures", "plain_"),
+                              ("control", "split-control", "split_"),
+                              ("arrivals", "split-arrivals", "split_"),
+                              ("sends", "split-sends", "split_")):
         rec = records[phase]
         log(f"[profile] perm_1024n_3t {phase} phase: fused "
             f"{prof['kernel']['phase_ms_per_tick'][phase]:.3f} ms a tick "
             f"({100 * prof['kernel'][f'{phase}_share']:.1f}%), {rec['phase_launches']} "
-            f"launches and {rec['phase_ms'] * 1e3:.2f} us of device time a call; split "
+            f"launches and {rec['phase_ms'] * 1e3:.2f} us of device time a call; {split} "
             f"{prof[split]['phase_ms_per_tick'][phase]:.3f} ms a tick "
-            f"({100 * prof[split][f'{phase}_share']:.1f}%), {rec['split_phase_launches']} "
-            f"launches and {rec['split_phase_ms'] * 1e3:.2f} us; device kernels a tick "
+            f"({100 * prof[split][f'{phase}_share']:.1f}%), {rec[f'{pre}phase_launches']} "
+            f"launches and {rec[f'{pre}phase_ms'] * 1e3:.2f} us; device kernels a tick "
             f"{prof['kernel']['kernels_per_tick']:.1f} fused, "
             f"{prof[split]['kernels_per_tick']:.1f} {split}")
     log(f"[done] total {time.perf_counter() - t0:.1f} s; by phase " + ", ".join(

@@ -55,6 +55,8 @@ struct ArrivalsArgs {
     // state, updated in place
     int *infl;                  // [l, ne, 7]; slot `wire` read, then zeroed
     int *q_fields;              // [nq + 1, cap, 5]
+    const int *q_head;          // [nq + 1] (read)
+    int *q_size;                // [nq + 1]
     int *ack_ring;              // [r, n, 6]; slot `ack` written whole
     int *trim_ring;             // [r, nf + 1, 2 + ww]; slot `trim` added to
     float *trim_seen;           // [nf + 1]
@@ -77,8 +79,7 @@ __device__ __forceinline__ int pkt_bytes(int size, int seq, int mtu) {
     return rem < 0 ? 0 : (rem > mtu ? mtu : rem);
 }
 
-__device__ __forceinline__ void enqueue_row(const ArrivalsArgs& a, int wire, int tslot,
-                            const int* __restrict__ q_head, int* q_size) {
+__device__ __forceinline__ void enqueue_row(const ArrivalsArgs& a, int wire, int tslot) {
     __shared__ int s_key[kMaxRow];
     const int sw = blockIdx.x, j = threadIdx.x;
     const int lane = j & 31, warp = j >> 5;
@@ -105,8 +106,8 @@ __device__ __forceinline__ void enqueue_row(const ArrivalsArgs& a, int wire, int
     const bool live = g < a.nq;
     int size = 0, head = 0;
     if (live) {
-        size = q_size[g];
-        head = q_head[g];
+        size = a.q_size[g];
+        head = a.q_head[g];
     }
     __syncthreads();                            // every q_size read before a write
     const bool acc = live && rank < a.cap - size;
@@ -119,7 +120,7 @@ __device__ __forceinline__ void enqueue_row(const ArrivalsArgs& a, int wire, int
     if (live && last) {                         // the queue's new size
         const int space = a.cap - size > 0 ? a.cap - size : 0;
         const int count = rank + 1 < space ? rank + 1 : space;
-        if (count) q_size[g] = size + count;
+        if (count) a.q_size[g] = size + count;
     }
     if (rej) {
         const int f = v[2], seq = v[3];
@@ -191,9 +192,9 @@ __device__ __forceinline__ void deliver_nodes(const ArrivalsArgs& a, int wire, i
 
 __global__ void __launch_bounds__(kMaxRow)
 arrivals_kernel(ArrivalsArgs a, int wire, int aslot, int tslot, int gbin, int fct_base,
-                const int* __restrict__ q_head, int* q_size, const bool* fault_active) {
+                const bool* fault_active) {
     if (blockIdx.x < a.nsw)
-        enqueue_row(a, wire, tslot, q_head, q_size);
+        enqueue_row(a, wire, tslot);
     else
         deliver_nodes(a, wire, aslot, fct_base);
 
@@ -224,13 +225,13 @@ arrivals_kernel(ArrivalsArgs a, int wire, int aslot, int tslot, int gbin, int fc
 }
 
 REPRO_EXPORT int repro_arrivals(const ArrivalsArgs* a, int wire, int aslot, int tslot,
-                                int gbin, int fct_base, const int* q_head, int* q_size,
-                                const bool* fault_active, void* stream) {
+                                int gbin, int fct_base, const bool* fault_active,
+                                void* stream) {
     if (a->d < 1 || a->d > kMaxRow || (a->faulty && !fault_active))
         return (int)cudaErrorInvalidValue;
     const int threads = ((a->d + 31) / 32) * 32;
     const int blocks = a->nsw + (a->n + threads - 1) / threads;
     arrivals_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        *a, wire, aslot, tslot, gbin, fct_base, q_head, q_size, fault_active);
+        *a, wire, aslot, tslot, gbin, fct_base, fault_active);
     return (int)cudaGetLastError();
 }

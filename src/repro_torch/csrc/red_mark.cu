@@ -11,19 +11,17 @@
 //
 // Design: one thread per queue; the (8, 128) tile padding of the TPU
 // kernel is dropped and the global queue index is the thread's own.  The
-// splitmix32 hash runs natively in uint32 (the reference's lanes,
-// repro/netsim/hashing.py:38-44): the first lane tick * 131071 + q wraps
-// modulo 2^32 as the reference's i32 product does, computed unsigned
-// because signed overflow is undefined in C++.  uint32 -> f32 rounds to
-// nearest, as astype(float32) does.  The probability is an IEEE divide
-// (built without --use_fast_math, and --fmad=false contracts nothing), so
-// every decision is bit-equal to the plain PyTorch version.  tick and salt
-// arrive as i32, as the reference's ref takes them (its Pallas kernel packs
-// them into an f32 row, which rounds them from 2^24 on).
+// coin flip is red.cuh's red_flip (the splitmix32 hash natively in uint32,
+// the reference's lanes, repro/netsim/hashing.py:38-44; an IEEE divide),
+// shared with the fused departures phase, with the span max(kmax - kmin,
+// 1e-6) in f32, so every decision is bit-equal to the plain PyTorch
+// version.  tick and salt arrive as i32, as the reference's ref takes them
+// (its Pallas kernel packs them into an f32 row, which rounds them from
+// 2^24 on).
 #include <cstdint>
 
 #include "common.cuh"
-#include "hash.cuh"
+#include "red.cuh"
 
 namespace {
 
@@ -38,10 +36,7 @@ __global__ void red_mark_kernel(const int* __restrict__ q_size,
     if (q >= n) return;
     const int qs = q_size[q];
     const float span = fmax_t(kmax - kmin, 1e-6f);
-    const float p = fmin_t(fmax_t(((float)qs - kmin) / span, 0.0f), 1.0f);
-    const uint32_t h = mix32(hash2(tick * 131071u + (uint32_t)q, salt));
-    const float u = __uint2float_rn(h) * (1.0f / 4294967296.0f);
-    mark[q] = (u < p) && (qs > 0);
+    mark[q] = red_flip(qs, kmin, span, tick, (uint32_t)q, salt) && (qs > 0);
     const int space = cap - qs > 0 ? cap - qs : 0;
     const int a = arrivals[q];
     const int ad = a < space ? a : space;

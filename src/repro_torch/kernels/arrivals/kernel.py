@@ -8,9 +8,8 @@ its delivery row, writes its ACK row and updates the ledgers of the flow
 it delivers; integer counters are added with atomics, and the last block
 to finish adds each f32 metric's integer total once.
 
-The argument block (every pointer but ``q_head`` and ``q_size``, which the
-departures phase replaces each tick, and ``fault_active``, made each
-tick, plus a scratch row for the tick's totals) is built once per run:
+The argument block (every pointer but ``fault_active``, made each tick,
+plus a scratch row for the tick's totals) is built once per run:
 when the wrapper first sees a run's buffers, after checking every
 operand.  On later ticks it checks that the operands are the same tensors
 (the block holds them, so their storage cannot be reused) and allocates
@@ -32,8 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_ROW = 1024                  # fan-in slots a block (one thread each)
 
-_PTRS = ("enq_ids", "in_tbl", "dst", "size", "t_start", "infl", "q_fields",
-         "ack_ring", "trim_ring", "trim_seen", "bitmap", "goodput", "done", "fct",
+_PTRS = ("enq_ids", "in_tbl", "dst", "size", "t_start", "infl", "q_fields", "q_head",
+         "q_size", "ack_ring", "trim_ring", "trim_seen", "bitmap", "goodput", "done", "fct",
          "delivered_pkts", "n_rej", "delivered_bytes", "goodput_hist",
          "delivered_bytes_fault", "scratch")
 _INTS = ("nsw", "d", "eq", "ne", "nq", "qe", "n", "nf", "cap", "ww", "maxw", "mtu",
@@ -48,16 +47,15 @@ class _Args(ctypes.Structure):
 @functools.cache
 def _fn():
     fn = build.library().repro_arrivals
-    fn.argtypes = [ctypes.POINTER(_Args)] + [_I] * 5 + [_P] * 4
+    fn.argtypes = [ctypes.POINTER(_Args)] + [_I] * 5 + [_P] * 2
     fn.restype = ctypes.c_int
     return fn
 
 
 def _stable(o: R.Operands) -> tuple:
-    """The operands the argument block holds: every tensor but ``q_head``,
-    ``q_size`` and ``fault_active``."""
-    return tuple(x for n, x in zip(o._fields, o)
-                 if n not in ("q_head", "q_size", "fault_active"))
+    """The operands the argument block holds: every tensor but
+    ``fault_active``."""
+    return tuple(x for n, x in zip(o._fields, o) if n != "fault_active")
 
 
 class _Block:
@@ -86,6 +84,8 @@ class _Block:
             t_start=req(o.t_start, "t_start", i32, (nf,), dev),
             infl=req(o.infl, "infl", i32, (l, ne, 7), dev),
             q_fields=req(o.q_fields, "q_fields", i32, (nq + 1, cap, 5), dev),
+            q_head=req(o.q_head, "q_head", i32, (nq + 1,), dev),
+            q_size=req(o.q_size, "q_size", i32, (nq + 1,), dev),
             ack_ring=req(o.ack_ring, "ack_ring", i32, (r, n, 6), dev),
             trim_ring=req(o.trim_ring, "trim_ring", i32, (r, nf + 1, 2 + ww), dev),
             trim_seen=req(o.trim_seen, "trim_seen", f32, (nf + 1,), dev),
@@ -113,7 +113,7 @@ class _Block:
             nsw=nsw, d=d, eq=eq, ne=ne, nq=nq, qe=fl.qe, n=n, nf=nf, cap=cap, ww=ww,
             maxw=maxw, mtu=fl.mtu, trimming=int(fl.trimming),
             credit=int(fl.credit_based), faulty=int(fl.faulty))
-        self.fl, self.nq, self.l, self.r, self.dev = fl, nq, l, r, dev
+        self.fl, self.l, self.r, self.dev = fl, l, r, dev
         self.operands = _stable(o)         # held: their storage stays theirs
 
     def serves(self, fl: R.Flags, o: R.Operands) -> bool:
@@ -130,8 +130,6 @@ def arrivals(t: int, s: R.Slots, fl: R.Flags, o: R.Operands) -> None:
     if blk is None or not blk.serves(fl, o):
         _block[0] = None                 # let the last run's buffers go first
         blk = _block[0] = _Block(fl, o)
-    q_head = build.require(o.q_head, "q_head", torch.int32, (blk.nq + 1,), blk.dev)
-    q_size = build.require(o.q_size, "q_size", torch.int32, (blk.nq + 1,), blk.dev)
     active = (build.require(o.fault_active, "fault_active", torch.bool, (), blk.dev)
               if fl.faulty else None)
     gbin = R.goodput_bin(t, fl)
@@ -140,7 +138,7 @@ def arrivals(t: int, s: R.Slots, fl: R.Flags, o: R.Operands) -> None:
         raise ValueError(f"slots {tuple(s)} (goodput bin {gbin}) outside the rings "
                          f"(wire {blk.l}, control {blk.r})")
     build.check(_fn()(ctypes.byref(blk.args), int(s.wire), int(s.ack), int(s.trim), gbin,
-                      int(t) + fl.ret, q_head, q_size, active, build.stream(blk.dev)),
+                      int(t) + fl.ret, active, build.stream(blk.dev)),
                 "arrivals")
     arrivals.launches += 1
 

@@ -532,3 +532,119 @@ def sends_operands(case: dict, device):
     t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
     o = R.Operands(**{k: t(case[k]) for k in R.Operands._fields})
     return case["t"], case["wire"], R.Flags(**case["flags"]), o
+
+
+# the fused departures phase: ((NQ, QE, NF, CAP, FKC), seed, flags).  A
+# few ports; fault tables and flaps on a small fabric; perm_1024n_3t's
+# shapes with no schedule (t past 2**14, where t * 131071 wraps i32) and
+# with a four-column table and flaps; flaps alone and tables alone
+DEPARTURES_CASES = (
+    ((5, 3, 4, 4, 1), 1, {}),
+    ((40, 24, 30, 8, 3), 2, dict(fk=3, flapped=True)),
+    ((2304, 1280, 1024, 40, 1), 3, dict(big_t=True)),
+    ((2304, 1280, 1024, 40, 4), 4, dict(fk=4, flapped=True, big_t=True)),
+    ((300, 200, 128, 16, 1), 5, dict(flapped=True)),
+    ((300, 200, 128, 16, 3), 6, dict(fk=2)),
+)
+
+
+def departures_case(NQ: int, QE: int, NF: int, CAP: int, FKC: int, seed: int, *,
+                    fk: int = 0, flapped: bool = False, big_t: bool = False,
+                    L: int = 9) -> dict:
+    """Every operand of the fused departures phase (``kernels/departures``):
+    ``NQ`` ports of ``CAP`` packets (``[QE, NQ)`` the edge ports, one a
+    node), ``NF`` flows, a wire of ``L`` slots of ``NE = NQ + N`` rows.
+    Ports hold 0, 1, ``CAP`` packets and between; heads sit at ``CAP - 1``
+    (the head wraps); head-of-line flows past both ends of ``[0, NF)``;
+    ECMP salts with bit 31 set, up-port counts of 0; the run's salt near
+    ``2**31`` (the RED salt wraps) or negative; thresholds of the
+    simulator's (``0.2 * CAP``, ``0.6 * CAP``) and odd ones; ``t`` past
+    ``2**14`` where ``big_t``.
+    Under ``fk`` the transition tables hold periods 0, 1 and k > 1 with
+    times on either side of ``t - fault_start``; under ``flapped`` some
+    ports flap, windows starting before and after ``t - fault_start``
+    (``tr - fl_start < 0``), down and up, closed and open, and three busy
+    ports sit on the window's and the cycle's boundaries."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: np.asarray(a, np.int32)
+    N = NQ - QE
+    NE = NQ + N
+    t = int(rng.integers(1 << 14, 1 << 27)) if big_t else int(rng.integers(0, 5000))
+    fault_start = int(rng.integers(-50, 200))
+    tr = t - fault_start
+    q_size = i32(np.append(rng.choice([0, 0, 1, CAP, 2, CAP // 2 + 1, CAP - 1], NQ), 0))
+    q_head = i32(np.append(np.where(rng.random(NQ) < 0.3, CAP - 1,
+                                    rng.integers(0, CAP, NQ)), 0))
+    q_fields = i32(rng.integers(-2**31, 2**31, (NQ + 1, CAP, 5), dtype=np.int64))
+    q_fields[:, :, 0] = rng.integers(-3, NF + 3, (NQ + 1, CAP))
+    q_fields[:, :, 1] = rng.integers(0, 1 << 20, (NQ + 1, CAP))
+    q_fields[:, :, 3] = rng.integers(0, 2, (NQ + 1, CAP))
+    q_fields[:, :, 4] = rng.integers(0, max(t, 1), (NQ + 1, CAP))
+    q_fields[NQ] = 0                                        # the write-off row
+    # routing: a subtree interval, a run-length down table and up ports
+    lo = rng.integers(0, N, NQ)
+    hi = lo + rng.integers(0, N + 1, NQ)
+    up_cnt = rng.choice([0, 1, 2, 3, 8], NQ)
+    q_salt = rng.integers(0, 1 << 32, NQ, dtype=np.int64)
+    q_salt[::3] |= 1 << 31
+    # faults: column 0 healthy from 0; later columns around tr, sorted
+    ft_time = np.full((NQ, FKC), 1 << 30, np.int64)
+    ft_period = np.ones((NQ, FKC), np.int64)
+    ft_time[:, 0] = 0
+    if fk:
+        ev = np.sort(tr + rng.integers(-40, 40, (NQ, fk - 1)), axis=1)
+        ft_time[:, 1:fk] = np.where(rng.random((NQ, fk - 1)) < 0.8, ev, 1 << 30)
+        ft_time[:, 1:fk].sort(axis=1)
+        ft_period[:, 1:fk] = rng.choice([0, 1, 2, 3, 5], (NQ, fk - 1))
+    fl_cycle = np.zeros(NQ, np.int64)
+    fl_start = np.zeros(NQ, np.int64)
+    fl_end = np.zeros(NQ, np.int64)
+    fl_up = np.zeros(NQ, np.int64)
+    fl_period = np.zeros(NQ, np.int64)
+    if flapped:
+        f = rng.random(NQ) < 0.5
+        fl_cycle[f] = rng.integers(2, 60, f.sum())
+        fl_up[f] = rng.integers(0, fl_cycle[f] + 1)
+        fl_start[f] = tr + rng.integers(-300, 60, f.sum())   # some start after tr
+        fl_end[f] = np.where(rng.random(f.sum()) < 0.3, 1 << 30,
+                             fl_start[f] + rng.integers(1, 400, f.sum()))
+        fl_period[f] = rng.choice([0, 0, 2, 3], f.sum())
+        # three busy ports on a boundary, each dead if it is in the window
+        # and down: a window opening now, one closing now, a port going down
+        b0, b1, b2 = np.flatnonzero(f)[:3]
+        fl_start[b0], fl_up[b0] = tr, 0
+        fl_start[b1], fl_end[b1], fl_up[b1] = tr - 7, tr, 0
+        fl_start[b2], fl_end[b2] = tr - 50, 1 << 30
+        fl_up[b2] = 50 % fl_cycle[b2]
+        fl_period[[b0, b1, b2]] = 0
+        q_size[[b0, b1, b2]] = 1
+    return dict(
+        t=t, lat=dict(core=int(rng.integers(1, L)), edge=int(rng.integers(1, L))),
+        flags=dict(qe=QE, fk=fk, flapped=flapped),
+        q_fields=q_fields, q_head=q_head, q_size=q_size,
+        infl=i32(rng.integers(-3, 50, (L, NE, 7))),
+        n_black=np.int32(rng.integers(0, 10**5)),
+        kmin=np.float32(0.2 * CAP if seed % 2 else 5.2),
+        kspan=np.float32(0.8 * CAP - 0.2 * CAP if seed % 2 else 15.6),
+        salt=np.int32((2**31 - 1 - int(rng.integers(0, 0xECD)), -int(rng.integers(1, 999)),
+                       int(rng.integers(1, 999)))[seed % 3]),
+        qidx=np.arange(NQ, dtype=np.int32), dst=i32(rng.integers(0, N, NF)),
+        q_lo=i32(lo), q_hi=i32(hi), q_dn_base=i32(rng.integers(0, NQ, NQ)),
+        q_dn_stride=i32(rng.integers(1, 9, NQ)), q_up_base=i32(rng.integers(0, NQ, NQ)),
+        q_up_cnt=i32(up_cnt), q_salt=q_salt, edge_q=np.arange(NQ) >= QE,
+        ft_time=i32(ft_time), ft_period=i32(ft_period), fl_start=i32(fl_start),
+        fl_end=i32(fl_end), fl_cycle=i32(fl_cycle), fl_up=i32(fl_up),
+        fl_period=i32(fl_period), fault_start=np.int32(fault_start),
+    )
+
+
+def departures_operands(case: dict, device):
+    """``(t, Lat, Flags, Operands)`` of a :func:`departures_case` on
+    ``device`` (fresh tensors: the phase updates them in place)."""
+    import torch
+
+    from repro_torch.kernels.departures import ref as R
+
+    t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
+    o = R.Operands(**{k: t(case[k]) for k in R.Operands._fields})
+    return case["t"], R.Lat(**case["lat"]), R.Flags(**case["flags"]), o

@@ -13,12 +13,15 @@ phases, each ``(Dims, Consts, SimState, Clock) -> SimState``:
   6. metrics    : ``metrics.account``    (occupancy accounting)
 
 ``build`` resolves the backends once, as the reference does: the CC update
-(``cc_backend``), the arrivals phase (``fabric_backend``), the control
-phase (``transport_backend``) and the sends phase with the EQDS grants'
-pick (``sender_backend``).  ``"kernel"`` (the default) launches the
+(``cc_backend``), the departures phase (``departures_backend``), the
+arrivals phase (``fabric_backend``), the control phase
+(``transport_backend``) and the sends phase with the EQDS grants' pick
+(``sender_backend``).  ``"kernel"`` (the default) launches the
 hand-written CUDA kernels on the card and takes their plain versions on
-the CPU; ``"plain"`` takes the plain versions everywhere.  The arrivals
-phase is one fused launch (``kernels/arrivals``); ``fabric_backend=
+the CPU; ``"plain"`` takes the plain versions everywhere.  The departures
+phase is one fused launch (``kernels/departures``, the RED flip inside
+it); ``"plain"`` is also its earlier design, the phase in PyTorch.  The
+arrivals phase is one fused launch (``kernels/arrivals``); ``fabric_backend=
 "split"`` runs it as the earlier design, the ``enqueue_rank`` kernel with
 PyTorch around it.  The control phase is one fused launch
 (``kernels/control``), which runs SMaRTT's window update too when the CC
@@ -49,6 +52,7 @@ import torch
 from repro_torch.core import registry
 from repro_torch.kernels.arrivals import ops as arrivals_ops
 from repro_torch.kernels.control import ops as control_ops
+from repro_torch.kernels.departures import ops as departures_ops
 from repro_torch.kernels.ring_drain import ops as ring_drain_ops
 from repro_torch.kernels.sends import ops as sends_ops
 from repro_torch.netsim import fabric, metrics, sender, transport
@@ -112,12 +116,14 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
     """Derive the tables on ``device`` and compose the tick.  The card is
     the default; ``device="cpu"`` runs the plain versions on the CPU."""
     cc_update = registry.get(cfg.algo, cfg.cc_backend)
+    depart = departures_ops.get(cfg.departures_backend)
     land = arrivals_ops.get(cfg.fabric_backend)
     send, arb = sends_ops.get(cfg.sender_backend), sends_ops.grant_pick(cfg.sender_backend)
     run = None if cfg.transport_backend == "split" else \
         control_ops.get(cfg.transport_backend)
     topo, tm, dims, consts = derive(cfg, wl, device)
     clock0 = clock(consts)
+    dfl = fabric.departures_flags(dims)
     afl = fabric.flags(dims, consts, clock0)
     sfl = sender.flags(dims)
 
@@ -134,7 +140,8 @@ def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
             return transport.control(dims, c, cc_update, st, k, run=run, fl=fl)
 
     phases = (
-        ("departures", lambda c, st, k: fabric.departures(dims, c, st, k)),
+        ("departures", lambda c, st, k: fabric.departures(dims, c, st, k, run=depart,
+                                                          fl=dfl)),
         ("arrivals", arrivals),
         ("control", control),
         ("grants", lambda c, st, k: sender.grants(dims, c, st, k, arb=arb)),

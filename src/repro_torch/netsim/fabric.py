@@ -9,18 +9,21 @@ Both are ``(Dims, Consts, SimState, Clock) -> SimState``; they communicate
 with the rest of the pipeline only through ``SimState`` fields (the wire
 ring ``infl``, the delayed control rings, and the receiver ledgers).
 
-``arrivals`` runs the whole phase in one call of the backend-resolved
-``kernels/arrivals`` callable: the fused CUDA kernel on the card, its
-plain version ``arrivals_ref`` otherwise, or under
-``SimConfig.fabric_backend="split"`` the earlier design, ``arrivals_ref``
-with the ``enqueue_rank`` kernel in it.
+Each runs the whole phase in one call of a backend-resolved callable.
+``departures`` calls ``kernels/departures``: the fused CUDA kernel on the
+card (the RED flip, the ``red_mark`` kernel's function, inside it), its
+plain version ``departures_ref`` otherwise (``SimConfig.departures_backend
+="plain"``: the earlier design, the phase in PyTorch).  ``arrivals`` calls
+``kernels/arrivals``: the fused CUDA kernel on the card, its plain version
+``arrivals_ref`` otherwise, or under ``SimConfig.fabric_backend="split"``
+the earlier design, ``arrivals_ref`` with the ``enqueue_rank`` kernel in
+it.
 
 The rings (``infl``, ``ack_ring``, ``trim_ring``, ``q_fields``), the
-queue sizes, the receiver ledgers (``bitmap``, ``goodput``, ``done``,
-``fct``, ``trim_seen``) and the counters the phase adds to are updated in
-place by ``arrivals``, which saves copying megabytes a tick: a state
-passed to a phase is consumed, as the reference's run loops consume
-(donate) theirs.
+queue heads and sizes, the receiver ledgers (``bitmap``, ``goodput``,
+``done``, ``fct``, ``trim_seen``) and the counters the phases add to are
+updated in place, which saves copying megabytes a tick: a state passed to
+a phase is consumed, as the reference's run loops consume (donate) theirs.
 
 ``horizon`` is the phases' next-event reduction for event-horizon time
 leaping (DESIGN.md Sec. 6.3): every delay ring keeps the invariant that a
@@ -32,18 +35,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.arrivals import ref as arrivals_ref
-from repro_torch.netsim import faults, hashing
-from repro_torch.netsim.metrics import isum
+from repro_torch.kernels.departures import ref as departures_ref
+from repro_torch.netsim import faults
 from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState
 
-I32 = torch.int32
-F32 = torch.float32
-
-
-def _ecmp(ent, salt, cnt):
-    """``hash2(ent, salt) % max(cnt, 1)`` in uint32 arithmetic, as i32."""
-    h = hashing.hash2(ent, salt)
-    return torch.remainder(h, cnt.clamp_min(1).to(torch.int64)).to(I32)
+_ecmp = departures_ref.ecmp
 
 
 def route_switch(dims: Dims, consts: Consts, sw, d, ent):
@@ -65,14 +61,10 @@ def route_from_queue(dims: Dims, consts: Consts, flow, ent):
     ``ent`` are [NQ], one head-of-line packet per port; negative ids encode
     delivery to node -(id+1)).  Each port's wire feeds the switch
     ``consts.nbr_q`` names, read through the pre-gathered per-queue tables
-    ``q_*``; the last N ports (``consts.edge_q``) feed host NICs."""
-    d = consts.dst[flow.clamp(0, dims.NF - 1)]
-    down = (d >= consts.q_lo) & (d < consts.q_hi)
-    h = _ecmp(ent, consts.q_salt, consts.q_up_cnt)
-    nxt = torch.where(
-        down, consts.q_dn_base + torch.div(d, consts.q_dn_stride, rounding_mode="floor"),
-        consts.q_up_base + h)
-    return torch.where(consts.edge_q, -(d + 1), nxt)
+    ``q_*``; the last N ports (``consts.edge_q``) feed host NICs.  The
+    departures phase's own routing (``departures_ref.route``), which reads
+    the same tables under the same names."""
+    return departures_ref.route(consts, flow, ent)
 
 
 def route_first_hop(dims: Dims, consts: Consts, ent):
@@ -102,58 +94,44 @@ def route_step(dims: Dims, consts: Consts, q, d, ent):
 
 def red_marks(dims: Dims, consts: Consts, st: SimState, t: int):
     """RED marking at dequeue (paper Sec. 2.1 / 3.5): the coin flip of
-    every port at tick ``t``, bool [NQ], before the ``active`` guard.
-    The first hash lane t * 131071 + q wraps in i32 in the reference; the
-    hash takes it mod 2**32, so computing it in int64 gives the same bits.
+    every port at tick ``t``, bool [NQ], before the ``active`` guard: the
+    departures phase's flip (``departures_ref.red_flip``).
 
     The same function as the ``red_mark`` kernel's mark
     (``kernels/red_mark``) wherever ``kspan`` equals that kernel's
     ``max(kmax - kmin, 1e-6)``, with the salt ``0xECD + st.salt``."""
-    qsz = st.q_size[:dims.NQ].to(F32)
-    pmark = torch.clamp((qsz - consts.kmin) / consts.kspan, 0.0, 1.0)
-    return hashing.uniform01(consts.qidx.to(torch.int64) + t * 131071,
-                             st.salt + 0xECD) < pmark
+    return departures_ref.red_flip(st.q_size[:dims.NQ], consts.qidx, consts.kmin,
+                                   consts.kspan, t, st.salt + departures_ref.RED_SALT)
 
 
-def departures(dims: Dims, consts: Consts, st: SimState, clk: Clock) -> SimState:
-    """Phase 1: one head-of-line packet per active port onto the wire."""
-    t = clk.t
-    m = st.m
-    NQ, CAP, L = dims.NQ, dims.CAP, dims.L
-    B = dims.QE                                       # core/edge port split
+def departures_flags(dims: Dims) -> departures_ref.Flags:
+    """The run's constants that shape the departures phase."""
+    return departures_ref.Flags(qe=dims.QE, fk=dims.FK, flapped=dims.flapped)
 
-    qidx = consts.qidx
-    # fault schedule: per-port service period at tick t (1 = healthy,
-    # 0 = dead, k > 1 = serve when t % k == 0), only where a schedule exists
-    faulty = bool(dims.FK or dims.flapped)
-    active = st.q_size[:NQ] > 0
-    if faulty:
-        per = faults.port_period(dims, consts, t)
-        svc = torch.where(per > 1, torch.remainder(t, per.clamp_min(1)) == 0, True)
-        active = active & svc
-    head = st.q_head[:NQ]
-    hf = st.q_fields[qidx, head]                      # [NQ, 5]
-    d_flow, d_seq, d_ent, d_ecn, d_ts = hf.unbind(1)
-    d_ecn = d_ecn | (red_marks(dims, consts, st, t) & active).to(I32)
-    emit = active
-    if faulty:
-        black = (per == 0) & active                   # dead link: blackhole
-        emit = active & ~black
-        m = m._replace(n_black=m.n_black + isum(black))
-    next_q = route_from_queue(dims, consts, d_flow, d_ent)
-    q_head = st.q_head.clone()
-    q_head[:NQ] = torch.where(active, torch.remainder(head + 1, CAP), head)
-    q_size = st.q_size.clone()
-    q_size[:NQ] -= active.to(I32)
-    payload = torch.where(emit[:, None], torch.stack(
-        [emit.to(I32), next_q, d_flow, d_seq, d_ent, d_ecn, d_ts], dim=1), 0)
-    # wire placement: each emitter's target slot (t + lat) % L holds nothing
-    # still live, so blanket-writing zeros for inactive ports is exact
-    # (fabric.py:146-152 of the reference); written in place
-    infl = st.infl
-    infl[(t + clk.lat_core) % L, :B] = payload[:B]
-    infl[(t + clk.lat_edge) % L, B:NQ] = payload[B:]
-    return st._replace(q_head=q_head, q_size=q_size, infl=infl, m=m)
+
+# the departures operands the run's constants hold, under the same names
+_DEPARTURES_CONSTS = tuple(n for n in departures_ref.Operands._fields if n not in (
+    "q_fields", "q_head", "q_size", "infl", "n_black", "salt"))
+
+
+def departures_operands(consts: Consts, st: SimState) -> departures_ref.Operands:
+    """The departures phase's tensors: the run's constants and the state's
+    buffers (updated in place by the phase)."""
+    return departures_ref.Operands(
+        q_fields=st.q_fields, q_head=st.q_head, q_size=st.q_size, infl=st.infl,
+        n_black=st.m.n_black, salt=st.salt,
+        **{n: getattr(consts, n) for n in _DEPARTURES_CONSTS})
+
+
+def departures(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
+               run, fl: departures_ref.Flags) -> SimState:
+    """Phase 1: one head-of-line packet per active port onto the wire, in
+    one call of ``run`` (the backend resolved by ``kernels/departures/
+    ops.get``), which updates the state's buffers in place."""
+    del dims
+    run(clk.t, departures_ref.Lat(core=clk.lat_core, edge=clk.lat_edge), fl,
+        departures_operands(consts, st))
+    return st
 
 
 def flags(dims: Dims, consts: Consts, clk: Clock) -> arrivals_ref.Flags:

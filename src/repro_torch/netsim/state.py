@@ -66,6 +66,10 @@ class SimConfig:
     tree: FatTreeConfig = FatTreeConfig()
     algo: str = "smartt"
     cc_backend: str = "kernel"       # "kernel" | "plain" (kernels/cc_update)
+    departures_backend: str = "kernel"  # "kernel" | "plain" — the
+                                     # departures phase: one fused launch
+                                     # (kernels/departures, the RED flip
+                                     # inside it) or its plain version
     fabric_backend: str = "kernel"   # "kernel" | "plain" | "split" — the
                                      # arrivals phase: one fused launch
                                      # (kernels/arrivals), its plain

@@ -11,8 +11,10 @@ sums add whole packet sizes).
 
 Besides: ``arrivals_by_owner`` (the kernel's formulation) equals
 ``arrivals_ref`` on every seeded ``arrivals_case``; the three
-``fabric_backend`` values give identical whole runs; and every registered
-scenario gives each wire row one reader.
+``fabric_backend`` values give identical whole runs; every registered
+scenario gives each wire row one reader; and the operands the kernel's run
+block holds (all but ``fault_active``, the queue heads and sizes among
+them) are the same tensors every tick of a run.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro_torch.kernels import cases  # noqa: E402
+from repro_torch.kernels.arrivals import kernel as AK  # noqa: E402
 from repro_torch.kernels.arrivals import ref as AR  # noqa: E402
 from repro_torch.netsim import scenarios as tscen  # noqa: E402
 from repro_torch.netsim import state as tstate  # noqa: E402
@@ -152,3 +155,28 @@ def test_wire_rows_without_one_reader_raise():
     with pytest.raises(ValueError, match="one reader"):
         tstate.check_wire_rows(dataclasses.replace(topo, enq_ids=np.array(topo.enq_ids)[1:]),
                                tree.n_nodes)
+
+
+@pytest.mark.parametrize("name,overrides,ticks", [
+    ("perm_128n_3t", {}, 120),
+    ("perm_128n_3t", dict(departures_backend="plain", transport_backend="split"), 120),
+    ("tiny_3t", dict(algo="eqds"), 120),
+    ("corefail_128n_3t", {}, 520),
+], ids=["smartt", "plain-departures-split-control", "eqds", "faults"])
+def test_run_block_operands_stay_put(monkeypatch, name, overrides, ticks):
+    """The fused kernel's run block holds every operand but
+    ``fault_active``: over a run those must be the same tensors each tick
+    (else the wrapper would rebuild the block every tick).  The departures
+    phase updates the queue heads and sizes in place, so they are among
+    them."""
+    seen = []
+    plain = AR.arrivals_ref
+
+    def record(t, s, fl, o, **kw):
+        seen.append(AK._stable(o))
+        return plain(t, s, fl, o, **kw)
+    monkeypatch.setattr(AR, "arrivals_ref", record)
+    sim = tscen.scenario(name, fabric_backend="plain", **overrides).build(device="cpu")
+    sim.run(ticks)
+    assert len(seen) == sim.stats["steps"] > 10
+    assert all(all(a is b for a, b in zip(seen[0], x)) for x in seen[1:])

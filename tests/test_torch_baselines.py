@@ -158,8 +158,9 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     """EQDS's real calls on incast8_16n routed through the CUDA wrappers on
     the CPU: every operand check passes (the grant pick hands ``rr_pick`` a
     [N, FRMAX] plane and the receivers' cursors), so the only refusal left
-    is the one that says the tensors are not on a card; the control phase
-    is the fused kernel with the CC update off, the arrivals phase the
+    is the one that says the tensors are not on a card; the departures
+    phase is the fused kernel, the control phase
+    the fused kernel with the CC update off, the arrivals phase the
     fused kernel on the credit path, the sends phase the fused kernel
     with credits (its pick inside it), and the split designs' cc_update,
     ring_drain and enqueue_rank are never called."""
@@ -169,6 +170,8 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     from repro_torch.kernels.cc_update import kernel as CK
     from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.control import ref as XR
+    from repro_torch.kernels.departures import kernel as PK
+    from repro_torch.kernels.departures import ref as PR
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.enqueue_arb import ref as ER
     from repro_torch.kernels.ring_drain import kernel as DK
@@ -197,8 +200,10 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     rehearse(XK, "control", XR.control_ref)
     rehearse(AK, "arrivals", AR.arrivals_ref)
     rehearse(SK, "sends", SR.sends_ref)
+    rehearse(PK, "departures", PR.departures_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario("incast8_16n", algo="eqds").build(device="cpu")
     assert sim.dims.FMAX == 1 and sim.dims.FRMAX == 8    # rr_pick: grants only
     sim.run(60)
-    assert calls == {"arrivals": 60, "control": 60, "rr_pick": 60, "sends": 60}, calls
+    assert calls == {"arrivals": 60, "control": 60, "departures": 60, "rr_pick": 60,
+                     "sends": 60}, calls

@@ -1,7 +1,7 @@
 """PyTorch port on a CUDA card: each hand-written kernel against its plain
 PyTorch version (bit for bit, at the main path's shapes and ragged
-ones; the fused control, arrivals and sends phases also on simulator
-states at chosen ticks), and small scenarios through the kernels against the same
+ones; the fused departures, control, arrivals and sends phases also on
+simulator states at chosen ticks), and small scenarios through the kernels against the same
 runs on the CPU (final states bit for bit, one launch of each tick kernel
 per executed tick).
 
@@ -24,6 +24,8 @@ from repro_torch.kernels.cc_update import kernel as CK  # noqa: E402
 from repro_torch.kernels.cc_update import ref as CR  # noqa: E402
 from repro_torch.kernels.control import kernel as XK  # noqa: E402
 from repro_torch.kernels.control import ref as XR  # noqa: E402
+from repro_torch.kernels.departures import kernel as PK  # noqa: E402
+from repro_torch.kernels.departures import ref as PR  # noqa: E402
 from repro_torch.kernels.enqueue_arb import kernel as EK  # noqa: E402
 from repro_torch.kernels.enqueue_arb import ref as ER  # noqa: E402
 from repro_torch.kernels.red_mark import kernel as RK  # noqa: E402
@@ -139,21 +141,21 @@ def test_kernel_wrappers_refuse_bad_operands(cuda):
 def test_scenario_through_kernels_equals_cpu(cuda, name):
     """A whole run through the kernels on the card ends in the CPU port's
     final state, bit for bit, with one launch of each tick kernel per
-    executed tick (the fused control phase, SMaRTT inside it; the fused
-    arrivals and sends phases, the sends' pick inside it where senders hold
+    executed tick (the fused departures phase; the fused control phase,
+    SMaRTT inside it; the fused arrivals and sends phases, the sends' pick inside it where senders hold
     several flows; the split designs' enqueue_rank, cc_update, ring_drain
     and rr_pick never)."""
     sc = scenarios.scenario(name)
     sim = sc.build(device=cuda)
-    fns = (XK.control, AK.arrivals, SK.sends, EK.enqueue_rank, CK.cc_update,
-           DK.ring_drain, EK.rr_pick)
+    fns = (PK.departures, XK.control, AK.arrivals, SK.sends, EK.enqueue_rank,
+           CK.cc_update, DK.ring_drain, EK.rr_pick)
     for fn in fns:
         fn.launches = 0
     XK.control.launches_smartt = 0
     st = sim.run(sc.max_ticks)
     torch.cuda.synchronize()
     steps = sim.stats["steps"]
-    assert [fn.launches for fn in fns] == [steps, steps, steps, 0, 0, 0, 0]
+    assert [fn.launches for fn in fns] == [steps, steps, steps, steps, 0, 0, 0, 0]
     assert XK.control.launches_smartt == steps
     cpu = sc.build(device="cpu")
     ref = cpu.run(sc.max_ticks)
@@ -170,13 +172,18 @@ def test_scenario_through_kernels_equals_cpu(cuda, name):
 
 
 @pytest.mark.parametrize("name,overrides,ticks,on_path", [
-    ("incast8_16n", dict(algo="eqds"), None, ("arrivals", "control", "rr_pick", "sends")),
-    ("corefail_128n_3t", {}, 700, ("arrivals", "control", "sends")),
+    ("incast8_16n", dict(algo="eqds"), None,
+     ("departures", "arrivals", "control", "rr_pick", "sends")),
+    ("corefail_128n_3t", {}, 700, ("departures", "arrivals", "control", "sends")),
     ("perm_128n_3t", dict(fabric_backend="split"), None,
-     ("enqueue_rank", "control", "sends")),
-    ("tiny_sparse", dict(sender_backend="split"), None, ("arrivals", "control", "rr_pick")),
-    ("perm_128n_3t", dict(algo="bbr", lb="spray"), 300, ("arrivals", "control", "sends")),
-], ids=["eqds", "corefail", "split-arrivals", "split-sends", "paced-spray"])
+     ("departures", "enqueue_rank", "control", "sends")),
+    ("tiny_sparse", dict(sender_backend="split"), None,
+     ("departures", "arrivals", "control", "rr_pick")),
+    ("perm_128n_3t", dict(algo="bbr", lb="spray"), 300,
+     ("departures", "arrivals", "control", "sends")),
+    ("flap_128n_3t", dict(departures_backend="plain"), 700, ("arrivals", "control", "sends")),
+], ids=["eqds", "corefail", "split-arrivals", "split-sends", "paced-spray",
+        "plain-departures"])
 def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks, on_path):
     """EQDS (credit grants through rr_pick, the fused control phase with
     the CC update off, the fused arrivals and sends phases on the credit
@@ -184,15 +191,17 @@ def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks,
     at 500 and its first timeouts, SMaRTT inside the fused control phase,
     the fault metrics inside the fused arrivals phase), the split designs
     of the arrivals phase (the enqueue_rank kernel once a tick) and of the
-    sends phase (the rr_pick kernel once a tick), and BBR's pacing with
-    spraying through the fused sends phase, through the kernels on the
-    card end in the CPU port's state."""
+    sends phase (the rr_pick kernel once a tick), BBR's pacing with
+    spraying through the fused sends phase, and flap_128n_3t with the
+    departures phase in PyTorch (``departures_backend="plain"``, its
+    earlier design), through the kernels on the card end in the CPU port's
+    state."""
     sc = scenarios.scenario(name, **overrides)
     ticks = ticks or sc.max_ticks
     sim = sc.build(device=cuda)
     fns = {"cc_update": CK.cc_update, "enqueue_rank": EK.enqueue_rank,
            "ring_drain": DK.ring_drain, "rr_pick": EK.rr_pick, "control": XK.control,
-           "arrivals": AK.arrivals, "sends": SK.sends}
+           "arrivals": AK.arrivals, "sends": SK.sends, "departures": PK.departures}
     for fn in fns.values():
         fn.launches = 0
     XK.control.launches_smartt = 0
@@ -203,11 +212,13 @@ def test_comparison_run_through_kernels_equals_cpu(cuda, name, overrides, ticks,
         {k: steps if k in on_path else 0 for k in fns}
     assert XK.control.launches_smartt == (steps if sc.cfg.algo == "smartt" else 0)
     ref = scenarios.scenario(name, **{**overrides, "fabric_backend": "kernel",
-                                      "sender_backend": "kernel"}).build(device="cpu").run(ticks)
+                                      "sender_backend": "kernel",
+                                      "departures_backend": "kernel"}).build(
+        device="cpu").run(ticks)
     a, b = tstate.to_numpy(st), tstate.to_numpy(ref)
     for x, y in zip(_leaf_list(a), _leaf_list(b)):
         assert x[1].dtype == y[1].dtype and x[1].tobytes() == y[1].tobytes(), x[0]
-    if name == "corefail_128n_3t":
+    if name in ("corefail_128n_3t", "flap_128n_3t"):
         assert int(st.m.n_black) > 0 and float(st.m.delivered_bytes_fault) > 0
 
 
@@ -484,3 +495,79 @@ def test_sends_kernel_refuses_bad_operands(cuda):
     assert SK.sends.launches == n0 + 1
     SK.sends(t, wire, fl, o)
     assert SK.sends.launches == n0 + 2
+
+
+# ----------------------------------------------- the fused departures phase
+
+def _departures_both(t, lat, fl, ok, orf):
+    """The fused kernel on ``ok`` and ``departures_ref`` on ``orf`` (two
+    copies of the same operands): every operand bit for bit."""
+    n0 = PK.departures.launches
+    PK.departures(t, lat, fl, ok)
+    PR.departures_ref(t, lat, fl, orf)
+    torch.cuda.synchronize()
+    assert PK.departures.launches == n0 + 1
+    for n, a, b in zip(ok._fields, ok, orf):
+        assert _bit_equal(a, b), n
+
+
+@pytest.mark.parametrize("shape,seed,flags", cases.DEPARTURES_CASES)
+def test_departures_kernel_bit_equal(cuda, shape, seed, flags):
+    c = cases.departures_case(*shape, seed, **flags)
+    t, lat, fl, ok = cases.departures_operands(c, cuda)
+    _, _, _, orf = cases.departures_operands(c, cuda)
+    _, _, _, o0 = cases.departures_operands(c, cuda)
+    _departures_both(t, lat, fl, ok, orf)
+    assert int((o0.q_size - ok.q_size).sum()) > 0
+    assert bool(fl.fk or fl.flapped) == (int(ok.n_black) > int(o0.n_black))
+
+
+@pytest.mark.parametrize("name,overrides,ticks", [
+    ("perm_128n_3t", {}, (20, 40, 70, 120, 200)),
+    ("corefail_128n_3t", {}, (499, 500, 501, 520, 680)),
+    ("flap_128n_3t", {}, (150, 199, 200, 499, 500, 650)),
+    ("tiny_3t", dict(faults=(("t1_up", 0, 0, 0), ("t2_down", 1, 0, 2))), tuple(range(0, 30))),
+], ids=["perm_128n_3t", "corefail", "flap", "degraded"])
+def test_departures_kernel_bit_equal_on_tick_states(cuda, name, overrides, ticks):
+    """The simulator's own states on the card: at each chosen tick, the
+    fused kernel and its plain version from two copies of the start-of-tick
+    state agree bit for bit."""
+    sim = scenarios.scenario(name, **overrides).build(device=cuda)
+    fl = fabric.departures_flags(sim.dims)
+    st = sim.init()
+    emitted = 0
+    for t in range(max(ticks) + 1):
+        clk = sim.clock0._replace(t=t)
+        if t in ticks:
+            lat = PR.Lat(core=clk.lat_core, edge=clk.lat_edge)
+            a, b = _clone(st), _clone(st)
+            _departures_both(t, lat, fl, fabric.departures_operands(sim.consts, a),
+                             fabric.departures_operands(sim.consts, b))
+            emitted += int((st.q_size - a.q_size).sum())
+        for _, phase in sim.phases:
+            st = phase(sim.consts, st, clk)
+        st = st._replace(now=st.now + 1)
+    assert emitted > 0
+
+
+def test_departures_kernel_refuses_bad_operands(cuda):
+    c = cases.departures_case(40, 24, 30, 8, 3, 2, fk=3, flapped=True)
+    t, lat, fl, o = cases.departures_operands(c, cuda)
+    n0 = PK.departures.launches
+    with pytest.raises(TypeError, match="dtype"):
+        PK.departures(t, lat, fl, o._replace(q_fields=o.q_fields.to(torch.int64)))
+    with pytest.raises(TypeError, match="dtype"):
+        PK.departures(t, lat, fl, o._replace(q_salt=o.q_salt.to(torch.int32)))
+    with pytest.raises(ValueError, match="shape"):
+        PK.departures(t, lat, fl, o._replace(infl=o.infl[:, :, :6].contiguous()))
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.departures(t, lat, fl, o._replace(ft_time=o.ft_time.t().contiguous().t()))
+    with pytest.raises(ValueError, match="on cpu"):
+        PK.departures(t, lat, fl, o._replace(q_size=o.q_size.cpu()))
+    with pytest.raises(ValueError, match="on cpu"):
+        PK.departures(t, lat, fl, o._replace(kspan=o.kspan.cpu()))
+    with pytest.raises(ValueError, match="fault columns"):
+        PK.departures(t, lat, fl._replace(fk=4), o)
+    assert PK.departures.launches == n0
+    PK.departures(t, lat, fl, o)
+    assert PK.departures.launches == n0 + 1

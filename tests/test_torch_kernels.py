@@ -209,6 +209,8 @@ def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
     from repro_torch.kernels.cc_update import kernel as CK
     from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.control import ref as XR
+    from repro_torch.kernels.departures import kernel as PK
+    from repro_torch.kernels.departures import ref as PR
     from repro_torch.kernels.enqueue_arb import kernel as EK
     from repro_torch.kernels.ring_drain import kernel as DK
     from repro_torch.kernels.sends import kernel as SK
@@ -238,6 +240,7 @@ def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
     rehearse(XK, "control", XR.control_ref)
     rehearse(AK, "arrivals", AR.arrivals_ref)
     rehearse(SK, "sends", SR.sends_ref)
+    rehearse(PK, "departures", PR.departures_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario(name, **overrides).build(device="cpu")
     sim.run(ticks)
@@ -251,10 +254,11 @@ def test_main_path_operands_pass_every_wrapper_check(monkeypatch, name, ticks):
     through the wrappers on the CPU: every check must pass, so the only
     refusal left is the one that says the tensors are not on a card.  The
     control phase is the fused kernel (SMaRTT's update inside it), the
-    arrivals and sends phases too (the split designs' enqueue_rank and
-    rr_pick never run, alltoall_3t's 31 flows a sender included)."""
+    departures, arrivals and sends phases too (the split designs'
+    enqueue_rank and rr_pick never run, alltoall_3t's 31 flows a sender
+    included)."""
     calls, sim = _rehearse_wrappers(monkeypatch, name, ticks)
-    assert set(calls) == {"control", "arrivals", "sends"} and \
+    assert set(calls) == {"departures", "control", "arrivals", "sends"} and \
         all(v == ticks for v in calls.values()), calls
 
 
@@ -278,9 +282,10 @@ def test_other_paths_operands_pass_every_wrapper_check(monkeypatch, name, ticks,
     metrics and the credit path on (corefail_128n_3t past its failure),
     for the earlier design of the sends phase (``sender_backend="split"``:
     the rr_pick kernel over alltoall_3t's [512, 31] rows) and for the fused
-    sends kernel paced and spraying."""
+    sends kernel paced and spraying; the fused departures kernel on every
+    one (under a fault schedule on corefail_128n_3t)."""
     calls, sim = _rehearse_wrappers(monkeypatch, name, ticks, **overrides)
-    want = ({"cc_update", "ring_drain"} if "transport_backend" in overrides
+    want = {"departures"} | ({"cc_update", "ring_drain"} if "transport_backend" in overrides
             else {"control"} | ({"rr_pick"} if sim.dims.credit_based else set()))
     want |= {"enqueue_rank"} if "fabric_backend" in overrides else {"arrivals"}
     want |= {"rr_pick"} if "sender_backend" in overrides else {"sends"}
