@@ -81,6 +81,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                reference's; the final state equal to the plain-on-card run
                and to the CPU port's, each over the prefix of ticks
                COMPARISON_RUNS states
+  4d. experiment API — api.run of perm_1024n_3t and perm_512n_3t on the
+               card (rows equal to the JAX reference's pinned rows,
+               launches equal to phase 4's executed ticks, wall_s beside
+               the whole call's wall); RunResult rows from phase 4's and
+               4c's final states (no re-run) equal to their pinned rows
+               (fault rows with ttr_max and dip_*, allreduce with cct; the
+               eqds runs' trim_seen below 2**24, also checked in 4c); the
+               4-lane perm_1024n_3t study (start_cwnd_mult 1.0 and 1.25 x
+               seeds 0, 1): every lane's row and final state equal to the
+               standalone api.run of its point and seed, the base lane's
+               row to its pinned row, lanes a second; Sim.run_trace over
+               perm_1024n_3t's first 300 ticks, the card's outputs and
+               final state equal to the CPU port's bit for bit
   5. serving — qwen3-0.6b (28 layers) and mamba2-780m (48 layers) at full
                width from a seeded init on the card, each serving two
                requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
@@ -172,6 +185,91 @@ REFERENCE = {
     "allreduce_ring_128n_3t": dict(ticks=3877, n_done=32512, fct_max=3893,
                                    fct_mean=1961.375, trims=0, retx=0,
                                    timeouts=0, acks=258888, cct=3893),
+}
+
+# The JAX reference's RunResult.row() (no wall_s) for every run of phases 4,
+# 4c and 4d, pinned by tests/test_torch_pins_*.py and
+# tests/test_torch_run_large.py against the JAX package on the CPU.
+REFERENCE_ROWS = {
+    "perm_1024n_3t": dict(name="perm_1024n_3t/smartt+reps[base]/s0",
+             scenario="perm_1024n_3t", algo="smartt", lb="reps", point={}, seed=0,
+             max_ticks=60000, ticks=1070, n_flows=1024, n_done=1024, all_done=True,
+             completion=1086, fct_mean=265.99, fct_p99=970.93, jain=0.660425,
+             slowdown_mean=2.657969, slowdown_p99=9.426505, trims=16977, drops=0,
+             blackholed=0, timeouts=0, retx=16977, spurious_frac=0.0,
+             delivered_bytes=268435456.0, q_mean=0.880381, q_max=40),
+    "alltoall_3t": dict(name="alltoall_3t/smartt+reps[base]/s0", scenario="alltoall_3t",
+             algo="smartt", lb="reps", point={}, seed=0, max_ticks=200000, ticks=401,
+             n_flows=992, n_done=992, all_done=True, completion=417, fct_mean=221.607,
+             fct_p99=401.72, jain=0.82689, slowdown_mean=4.808364, slowdown_p99=10.102564,
+             trims=0, drops=0, blackholed=0, timeouts=0, retx=0, spurious_frac=0.0,
+             delivered_bytes=32505856.0, q_mean=0.11175, q_max=19),
+    "perm_512n_3t": dict(name="perm_512n_3t/smartt+reps[base]/s0", scenario="perm_512n_3t",
+             algo="smartt", lb="reps", point={}, seed=0, max_ticks=60000, ticks=229,
+             n_flows=512, n_done=512, all_done=True, completion=245, fct_mean=175.459,
+             fct_p99=209.89, jain=0.988135, slowdown_mean=1.770908, slowdown_p99=2.156737,
+             trims=6008, drops=0, blackholed=0, timeouts=0, retx=6008, spurious_frac=0.0,
+             delivered_bytes=134217728.0, q_mean=3.338349, q_max=40),
+    "perm_1024n_3t/swift": dict(name="perm_1024n_3t/swift+reps[base]/s0",
+             scenario="perm_1024n_3t", algo="swift", lb="reps", point={}, seed=0,
+             max_ticks=60000, ticks=567, n_flows=1024, n_done=1024, all_done=True,
+             completion=583, fct_mean=361.172, fct_p99=548.77, jain=0.882657,
+             slowdown_mean=3.630991, slowdown_p99=5.327864, trims=12536, drops=0,
+             blackholed=0, timeouts=0, retx=12536, spurious_frac=0.0,
+             delivered_bytes=268435456.0, q_mean=1.395322, q_max=40),
+    "perm_1024n_3t/mprdma": dict(name="perm_1024n_3t/mprdma+reps[base]/s0",
+             scenario="perm_1024n_3t", algo="mprdma", lb="reps", point={}, seed=0,
+             max_ticks=60000, ticks=507, n_flows=1024, n_done=1024, all_done=True,
+             completion=523, fct_mean=255.712, fct_p99=482.54, jain=0.845326,
+             slowdown_mean=2.560971, slowdown_p99=4.684854, trims=12390, drops=0,
+             blackholed=0, timeouts=0, retx=12390, spurious_frac=0.0,
+             delivered_bytes=268435456.0, q_mean=1.57375, q_max=40),
+    "perm_1024n_3t/eqds": dict(name="perm_1024n_3t/eqds+reps[base]/s0",
+             scenario="perm_1024n_3t", algo="eqds", lb="reps", point={}, seed=0,
+             max_ticks=60000, ticks=279, n_flows=1024, n_done=1024, all_done=True,
+             completion=295, fct_mean=197.875, fct_p99=290.0, jain=0.937152,
+             slowdown_mean=1.992788, slowdown_p99=2.815534, trims=23850, drops=0,
+             blackholed=0, timeouts=0, retx=23850, spurious_frac=0.0,
+             delivered_bytes=268435456.0, q_mean=4.792205, q_max=40),
+    "incast_256x1_3t/eqds": dict(name="incast_256x1_3t/eqds+reps[base]/s0",
+             scenario="incast_256x1_3t", algo="eqds", lb="reps", point={}, seed=0,
+             max_ticks=60000, ticks=2055, n_flows=256, n_done=256, all_done=True,
+             completion=2071, fct_mean=1677.363, fct_p99=2068.45, jain=0.915552,
+             slowdown_mean=35.973094, slowdown_p99=44.009574, trims=9729, drops=0,
+             blackholed=0, timeouts=0, retx=9729, spurious_frac=0.0,
+             delivered_bytes=8388608.0, q_mean=0.143369, q_max=40),
+    "corefail_128n_3t": dict(name="corefail_128n_3t/smartt+reps[base]/s0",
+             scenario="corefail_128n_3t", algo="smartt", lb="reps", point={}, seed=0,
+             max_ticks=6000, ticks=6000, n_flows=128, n_done=127, all_done=False,
+             completion=1863, fct_mean=1009.102, fct_p99=1705.76, jain=0.97134,
+             slowdown_mean=3.490022, slowdown_p99=5.782237, trims=4246, drops=0,
+             blackholed=146, timeouts=145, retx=4386, spurious_frac=0.0,
+             delivered_bytes=133775360.0, q_mean=0.387615, q_max=40, fault_ticks=5490,
+             delivered_fault_frac=0.534078, ttr_max=-1, dip_depth=1.0, dip_ticks=5120),
+    "corefail_128n_3t/recovery": dict(name="corefail_128n_3t/smartt+reps[base]/s0",
+             scenario="corefail_128n_3t", algo="smartt", lb="reps", point={}, seed=0,
+             max_ticks=6000, ticks=3616, n_flows=128, n_done=128, all_done=True,
+             completion=3632, fct_mean=1044.695, fct_p99=2414.07, jain=0.91199,
+             slowdown_mean=3.610135, slowdown_p99=8.183288, trims=4219, drops=0,
+             blackholed=113, timeouts=113, retx=4332, spurious_frac=0.0,
+             delivered_bytes=134217728.0, q_mean=0.636472, q_max=40, fault_ticks=3116,
+             delivered_fault_frac=0.535614, ttr_max=-1, dip_depth=1.0, dip_ticks=2880),
+    "flap_128n_3t": dict(name="flap_128n_3t/smartt+reps[base]/s0", scenario="flap_128n_3t",
+             algo="smartt", lb="reps", point={}, seed=0, max_ticks=8000, ticks=4363,
+             n_flows=128, n_done=128, all_done=True, completion=4379, fct_mean=1071.461,
+             fct_p99=3409.08, jain=0.840136, slowdown_mean=3.700866, slowdown_p99=11.556203,
+             trims=4226, drops=0, blackholed=253, timeouts=253, retx=4479,
+             spurious_frac=0.0, delivered_bytes=134217728.0, q_mean=0.534012, q_max=40,
+             fault_ticks=1500, delivered_fault_frac=0.297668, ttr_max=-1, dip_depth=0.9994,
+             dip_ticks=3520),
+    "allreduce_ring_128n_3t": dict(name="allreduce_ring_128n_3t/smartt+reps[base]/s0",
+             scenario="allreduce_ring_128n_3t", algo="smartt", lb="reps", point={}, seed=0,
+             max_ticks=120000, ticks=3877, n_flows=32512, n_done=32512, all_done=True,
+             completion=3893, fct_mean=1961.375, fct_p99=3857.0, jain=0.754707,
+             slowdown_mean=61.375684, slowdown_p99=124.225806, trims=0, drops=0,
+             blackholed=0, timeouts=0, retx=0, spurious_frac=0.0,
+             delivered_bytes=1065353216.0, q_mean=0.393087, q_max=1, cct=3893,
+             n_collectives=1),
 }
 
 # The comparison runs: (key in REFERENCE, scenario, overrides, kernels on
@@ -294,6 +392,15 @@ DEPARTURES_STATES = (
 DEPARTURES_TIMED = ("perm_1024n_3t", 300)
 DEPARTURES_WORK = ("emits", "marks", "deliveries", "black", "held", "wraps")
 RED_MARK_TICKS = 300      # phase 4b: queues load and trims begin by then
+# phase 4d: the experiment API at full width.  api.run of API_RUNS; a study
+# of STUDY_SCENARIO over STUDY_POINTS x STUDY_SEEDS (its base-config lane is
+# the point start_cwnd_mult=1.25, SimConfig's default); Sim.run_trace over
+# TRACE_TICKS ticks, the card's trace against the CPU port's.
+API_RUNS = ("perm_1024n_3t", "perm_512n_3t")
+STUDY_SCENARIO = "perm_1024n_3t"
+STUDY_POINTS = ({"start_cwnd_mult": 1.0}, {"start_cwnd_mult": 1.25})
+STUDY_SEEDS = (0, 1)
+TRACE_TICKS = 300
 PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
 
 
@@ -1365,12 +1472,13 @@ def quartiles(xs):
     return dict(q1=float(q[0]), median=float(q[1]), q3=float(q[2]), n=len(xs))
 
 
-def phase_main_path():
+def phase_main_path(finals):
     """The main path's runs (MAIN_RUNS) through the fused departures,
     arrivals, control and sends launches: launches, the JAX reference's
     summary, the final state against the runs through each split design,
     the plain departures, the plain versions on the card and the CPU; then
-    ticks/s in turns (TURN_WAYS) on TURN_RUNS."""
+    ticks/s in turns (TURN_WAYS) on TURN_RUNS.  Each run's (sim, final
+    state) goes into ``finals`` for phase 4d."""
     results = {}
     for name, on_path in MAIN_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel")
@@ -1405,6 +1513,7 @@ def phase_main_path():
         results[name] = dict(launches=launches, launches_by_way=by_way, steps=steps,
                              ticks=summ["ticks"], wall=wall, walls=walls,
                              turns={w: [summ["ticks"] / walls[w]] for w in TURN_WAYS})
+        finals[name] = (sim, st_k)
     for name in TURN_RUNS:
         r = results[name]
         for _ in range(TURNS - 1):
@@ -1489,11 +1598,12 @@ def phase_red_mark(dev):
 # ----------------------------------------------------- 4c. comparison runs
 
 
-def phase_comparison(smartt_ticks_per_s):
+def phase_comparison(smartt_ticks_per_s, finals):
     """The paper's comparison paths (COMPARISON_RUNS), each whole through
     the kernels on the card (the control phase through the fused launch),
     held to the JAX reference's summary and, over the stated prefixes, to
-    the plain-on-card run and the CPU port."""
+    the plain-on-card run and the CPU port.  Each run's (sim, final state)
+    goes into ``finals`` for phase 4d."""
     results = {}
     for key, name, ov, on_path, prefix, cpu_prefix in COMPARISON_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel", tag=key, **ov)
@@ -1510,6 +1620,16 @@ def phase_comparison(smartt_ticks_per_s):
         for n, a in leaves(st_k):
             if a.is_floating_point() and not bool(torch.isfinite(a).all()):
                 fail(f"{key}: non-finite values in {n}")
+        if sim.dims.credit_based:
+            # the port stages a flow's rejected bytes in integers before one
+            # f32 add to trim_seen; the reference adds each packet in f32,
+            # and the two agree only below 2**24
+            from repro_torch.netsim.api import TRIM_SEEN_LIMIT
+            worst = float(st_k.trim_seen.max())
+            if worst >= TRIM_SEEN_LIMIT:
+                fail(f"{key}: trim_seen reached {worst:.0f} >= 2**24")
+            log(f"[compare] {key}: the largest trim_seen is {worst:.0f} bytes, "
+                f"below 2**24 = {TRIM_SEEN_LIMIT}")
         # the same run through the plain versions on the card, and the CPU
         # port, each against a kernel run to the same tick
         kern = {None: st_k}
@@ -1537,6 +1657,7 @@ def phase_comparison(smartt_ticks_per_s):
             f"and the CPU port (first {cpu_prefix} ticks); {rate:.1f} ticks/s through "
             f"the kernels (SMaRTT perm_1024n_3t {smartt_ticks_per_s:.1f}), plain "
             f"{plain_ticks / wall_p:.1f}; launches {launches}")
+        finals[key] = (sim, st_k)
         results[key] = dict(launches=launches, steps=steps, ticks=summ["ticks"],
                             wall=wall, ticks_per_s=rate,
                             plain_ticks=plain_ticks, plain_ticks_per_s=plain_ticks / wall_p,
@@ -1544,6 +1665,139 @@ def phase_comparison(smartt_ticks_per_s):
                             blackholed=summ["blackholed"],
                             delivered_bytes_fault=summ["delivered_bytes_fault"])
     return results
+
+
+# ---------------------------------------------------- 4d. experiment API
+
+
+def row_of(res):
+    """A RunResult's row without its wall time (the pinned rows' keys)."""
+    return {k: v for k, v in res.row().items() if k != "wall_s"}
+
+
+def api_launches(what, on_path=SMARTT_TICK):
+    """Launches since the last reset: each kernel of ``on_path`` the same
+    number of times (one an executed tick), every other kernel never."""
+    launches = read_counts()
+    steps = launches[on_path[0]]
+    if not steps:
+        fail(f"{what}: no kernel of the path launched ({launches})")
+    expect_launches(what, launches, on_path, steps)
+    return steps
+
+
+def phase_api(paths, finals):
+    """The experiment API at full width on the card: ``api.run`` of
+    API_RUNS (each row equal to its pinned row, its launches to phase 4's
+    executed ticks, its ``wall_s`` beside the whole call's wall);
+    ``RunResult`` rows from phase 4's and 4c's final states (``finals``,
+    no re-run) equal to their pinned rows; the STUDY_SCENARIO study (every
+    lane's row and final state equal to the standalone ``api.run`` of its
+    point and seed, the base-config seed-0 lane's row to its pinned row,
+    lanes a second); ``Sim.run_trace`` over TRACE_TICKS ticks, the card's
+    outputs and final state equal to the CPU port's bit for bit."""
+    from repro_torch.netsim import api, cache, scenarios
+    rec = {"runs": {}, "from_state": {}}
+    for name in API_RUNS:
+        torch.cuda.synchronize()
+        reset_counts()                                           # just before
+        t0 = time.perf_counter()
+        res = api.run(name)
+        call = time.perf_counter() - t0
+        steps = api_launches(f"api.run {name}")                  # just after
+        if steps != paths[name]["steps"]:
+            fail(f"api.run {name}: {steps} executed ticks, phase 4's run {paths[name]['steps']}")
+        if row_of(res) != REFERENCE_ROWS[name]:
+            fail(f"api.run {name}: row {row_of(res)}, the JAX reference gives "
+                 f"{REFERENCE_ROWS[name]}")
+        rec["runs"][name] = dict(ticks=res.ticks, executed=steps, wall_s=res.wall_s,
+                                 call_s=call, sim_run_wall_phase4=paths[name]["wall"])
+        log(f"[api] api.run({name!r}) on the card: row equals the JAX reference's; "
+            f"{steps} launches of each fused kernel = the executed ticks; wall_s "
+            f"(Sim.run) {res.wall_s:.4f} s, the whole call {call:.4f} s (build, run, "
+            f"RunResult), phase 4's Sim.run {paths[name]['wall']:.4f} s")
+    # RunResult from phases 4's and 4c's final states, no re-run
+    for key, (sim, st) in finals.items():
+        name = key.split("/")[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = api.RunResult.from_state(sim, st, scenario=name,
+                                       max_ticks=scenarios.scenario(name).max_ticks)
+        rec["from_state"][key] = time.perf_counter() - t0
+        if row_of(res) != REFERENCE_ROWS[key]:
+            fail(f"RunResult {key}: row {row_of(res)}, the JAX reference gives "
+                 f"{REFERENCE_ROWS[key]}")
+    log(f"[api] RunResult rows of the {len(finals)} phase 4 and 4c runs equal the JAX "
+        f"reference's (fault rows with ttr_max and dip_*, allreduce with cct); "
+        f"from_state (one host copy of the state + numpy) " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in rec["from_state"].items()))
+    # the study, lane by lane, against standalone api.run of each lane
+    plan = api.study(STUDY_SCENARIO, points=STUDY_POINTS, seeds=STUDY_SEEDS)
+    torch.cuda.synchronize()
+    reset_counts()                                               # just before
+    res = plan.run()
+    study_steps = api_launches(f"study {STUDY_SCENARIO}")        # just after
+    total, walls = 0, []
+    for pi, pt in enumerate(STUDY_POINTS):
+        for si, seed in enumerate(STUDY_SEEDS):
+            reset_counts()
+            one = api.run(STUDY_SCENARIO, seed=seed, **pt)
+            total += api_launches(f"api.run {STUDY_SCENARIO} {pt} s{seed}")
+            walls.append(one.wall_s)
+            lane = res.lane(pi, si)
+            skip = ("name", "point")
+            if {k: v for k, v in row_of(lane).items() if k not in skip} != \
+                    {k: v for k, v in row_of(one).items() if k not in skip}:
+                fail(f"study lane {lane.name}: row differs from the standalone api.run")
+            if cache.state_digest(lane.state) != cache.state_digest(one.state):
+                fail(f"study lane {lane.name}: final state differs from the standalone run")
+            if pt == {"start_cwnd_mult": 1.25} and seed == 0:
+                want = dict(REFERENCE_ROWS[STUDY_SCENARIO],
+                            name=f"{STUDY_SCENARIO}/smartt+reps[start_cwnd_mult=1.25]/s0",
+                            point={"start_cwnd_mult": 1.25})
+                if row_of(lane) != want:
+                    fail(f"study lane {lane.name}: row {row_of(lane)}, pinned {want}")
+    if study_steps != total:
+        fail(f"study: {study_steps} launches of each fused kernel, the standalone runs {total}")
+    rate = plan.n_lanes / res.wall_s
+    rec["study"] = dict(lanes=plan.n_lanes, wall_s=res.wall_s, lanes_per_s=rate,
+                        executed=study_steps, standalone_wall_s=walls)
+    log(f"[api] study {STUDY_SCENARIO} {len(STUDY_POINTS)} points x {len(STUDY_SEEDS)} "
+        f"seeds: every lane's row and final state equal the standalone api.run's, the "
+        f"base lane's row the JAX reference's; {plan.n_lanes} lanes in {res.wall_s:.3f} s "
+        f"= {rate:.3f} lanes/s (standalone Sim.run walls "
+        f"{', '.join(f'{w:.3f}' for w in walls)} s); {study_steps} launches of each fused "
+        f"kernel = the lanes' executed ticks")
+    # Sim.run_trace on the card against the CPU port
+    sc = scenarios.scenario(STUDY_SCENARIO)
+    sim = sc.build(device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()                                               # just before
+    t0 = time.perf_counter()
+    st_g, ys_g = sim.run_trace(TRACE_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = api_launches(f"run_trace {STUDY_SCENARIO}")          # just after
+    if steps != TRACE_TICKS:
+        fail(f"run_trace: {steps} launches of each fused kernel over {TRACE_TICKS} ticks")
+    cpu = sc.build(device="cpu")
+    t0 = time.perf_counter()
+    st_c, ys_c = cpu.run_trace(TRACE_TICKS)
+    wall_c = time.perf_counter() - t0
+    for k, v in ys_g.items():
+        if v.shape[0] != TRACE_TICKS or not bit_equal(v, ys_c[k]):
+            fail(f"run_trace: {k} differs from the CPU port's trace")
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"run_trace: non-finite values in {k}")
+    bad = states_differ(st_g, st_c)
+    if bad:
+        fail(f"run_trace: final state differs from the CPU port's in {bad}")
+    rec["trace"] = dict(ticks=TRACE_TICKS, wall_s=wall, cpu_wall_s=wall_c,
+                        ticks_per_s=TRACE_TICKS / wall)
+    log(f"[api] run_trace({STUDY_SCENARIO}, {TRACE_TICKS}) on the card: outputs "
+        f"{ {k: tuple(v.shape) for k, v in ys_g.items()} } and final state bit-equal to "
+        f"the CPU port's; {TRACE_TICKS / wall:.1f} ticks/s (CPU {TRACE_TICKS / wall_c:.1f})")
+    return rec
 
 
 # ------------------------------------------- 3b. kernels of the serving path
@@ -2254,7 +2508,8 @@ def main():
         spent[name] = time.perf_counter() - t1
         return out
 
-    paths = timed_phase("main", phase_main_path)
+    finals = {}
+    paths = timed_phase("main", phase_main_path, finals)
     ways = ("kernel", "split-arrivals", "split-control", "split-sends", "plain-departures")
     log(f"[kernels] launches ({'; '.join(ways)}): " + ", ".join(
         f"{k}: " + ", ".join(f"{n} " + "; ".join(
@@ -2262,7 +2517,8 @@ def main():
             for n in ("perm_1024n_3t", "alltoall_3t")) for k in counters()))
     red = timed_phase("red_mark", phase_red_mark, dev)
     smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
-    comparison = timed_phase("comparison", phase_comparison, smartt_rate)
+    comparison = timed_phase("comparison", phase_comparison, smartt_rate, finals)
+    experiment_api = timed_phase("api", phase_api, paths, finals)
     serving = timed_phase("serving", phase_serving, dev)
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
@@ -2362,6 +2618,7 @@ def main():
         out.write_text(json.dumps(dict(device=name, nvidia_smi=smi_line,
                                        kernels=kernels, end_to_end=e2e,
                                        red_mark_check=red, comparison=comparison,
+                                       experiment_api=experiment_api,
                                        serving=serving, profile=prof), indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)

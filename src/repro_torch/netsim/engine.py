@@ -41,12 +41,19 @@ each gated on the exit predicate (one host read a tick).  Leap-on equals
 leap-off and every K equals K = 1 over the whole state, as in the
 reference.  The host keeps the tick ``t`` itself (``state.Clock``), so no
 phase waits on the device to address a ring.
+
+``Sim.run_trace`` is the reference's traced scan: every tick from
+``init()``, no exit gate and no leap, each tick's outputs written into
+preallocated tensors on the device.  ``Sim.run_batch`` is the seed-only
+study of the experiment API (``netsim/api.py``): the seeds run one after
+another and their final states come back stacked on the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core import registry
@@ -58,12 +65,14 @@ from repro_torch.kernels.sends import ops as sends_ops
 from repro_torch.netsim import fabric, metrics, sender, transport
 from repro_torch.netsim.metrics import HIST_BINS, jain_fairness, summarize  # noqa: F401
 from repro_torch.netsim.state import (Clock, Consts, Dims, SimConfig,  # noqa: F401
-                                      SimState, clock, derive, init_state)
+                                      SimState, clock, derive, init_state,
+                                      stack_lanes, to_numpy)
 from repro_torch.netsim.topology import Topology
 from repro_torch.netsim.units import Timing
 from repro_torch.netsim.workloads import Workload
 
 I32 = torch.int32
+F32 = torch.float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +119,32 @@ class Sim:
         if seed:
             st = st._replace(salt=torch.tensor(seed, dtype=I32, device=self.device))
         return _run_until_done(self, st, int(max_ticks))
+
+    def run_trace(self, ticks: int, trace_flows: int = 8):
+        """``ticks`` ticks from ``init()`` with per-tick outputs, as the
+        reference's ``lax.scan`` (engine.py:277-294): no exit gate and no
+        leap.  Returns ``(state, ys)``; ``ys`` holds ``cwnd[:tf]``,
+        ``q_mean``, ``q_max``, ``delivered``, ``goodput[:tf]`` and ``done``
+        (the count of finished flows), each stacked ``[ticks, ...]`` on the
+        sim's device."""
+        return _run_trace(self, self.init(), int(ticks), int(trace_flows))
+
+    def run_batch(self, seeds, max_ticks: int, mesh=None):
+        """The seed-only study: one run a seed, each equal to its standalone
+        ``run(seed=s)``, the final states copied to the host and stacked
+        along a leading ``[len(seeds)]`` axis (the reference's batched state
+        after ``jax.device_get``).  The seeds run one after another; a
+        ``mesh`` raises (``MESH_TODO``)."""
+        if mesh is not None:
+            raise NotImplementedError(MESH_TODO)
+        return stack_lanes([to_numpy(self.run(max_ticks, seed=int(s)))
+                            for s in seeds])
+
+
+# Spreading lanes over several cards (the reference's ``shard.py``) is not
+# ported: a ``mesh=`` argument raises rather than running on one card.
+MESH_TODO = ("mesh= (lanes spread over several cards, the reference's "
+             "netsim/shard.py) is not ported yet: ROADMAP.md Queue 1 item 4")
 
 
 def build(cfg: SimConfig, wl: Workload, device="cuda") -> Sim:
@@ -191,3 +226,34 @@ def _run_until_done(sim: Sim, st: SimState, max_ticks: int) -> SimState:
             finished = bool(st.done.all())        # the tick's one host read
     sim.stats.update(steps=steps, leaps=leaps, ticks=now)
     return st
+
+
+def _run_trace(sim: Sim, st: SimState, ticks: int, tf: int):
+    """The reference's traced scan (engine.py:277-294) as a Python loop.
+    Each tick writes its outputs into preallocated tensors on the sim's
+    device, so a traced tick reads nothing back to the host.  ``q_mean`` is
+    the exact integer sum of the queue sizes times the f32 reciprocal of
+    the queue count: XLA compiles the reference's ``jnp.mean`` to that
+    product (a divide by a constant becomes a multiply by its reciprocal),
+    so this is its value bit for bit, where the IEEE quotient differs by
+    an ULP on some ticks."""
+    nq, dev = sim.dims.NQ, sim.device
+    ncw, ngp = st.cc.cwnd[:tf].shape[0], st.goodput[:tf].shape[0]
+    ys = dict(cwnd=torch.empty((ticks, ncw), dtype=F32, device=dev),
+              q_mean=torch.empty((ticks,), dtype=F32, device=dev),
+              q_max=torch.empty((ticks,), dtype=I32, device=dev),
+              delivered=torch.empty((ticks,), dtype=F32, device=dev),
+              goodput=torch.empty((ticks, ngp), dtype=I32, device=dev),
+              done=torch.empty((ticks,), dtype=I32, device=dev))
+    inv_nq = torch.tensor(np.float32(1) / np.float32(nq), dtype=F32, device=dev)
+    for t in range(ticks):
+        st = sim.step(st, t)
+        q = st.q_size[:nq]
+        ys["cwnd"][t] = st.cc.cwnd[:tf]
+        torch.mul(metrics.isum(q).to(F32), inv_nq, out=ys["q_mean"][t])
+        ys["q_max"][t] = torch.max(q)
+        ys["delivered"][t] = st.m.delivered_bytes
+        ys["goodput"][t] = st.goodput[:tf]
+        ys["done"][t] = metrics.isum(st.done)
+    sim.stats.update(steps=ticks, leaps=0, ticks=ticks)
+    return st, ys

@@ -98,10 +98,15 @@ def leap_account(m: Metrics, dt: int, occupancy) -> Metrics:
 # --------------------------------------------------------------------------
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def summarize(sim, st) -> dict:
-    """Pull host-side summary statistics from a finished run."""
-    fct = st.fct.cpu().numpy()
-    done = st.done.cpu().numpy()
+    """Pull host-side summary statistics from a finished run (its state on
+    the device or on the host)."""
+    fct = _host(st.fct)
+    done = _host(st.done)
     mtu = sim.dims.mtu
     m = st.m
     out = dict(
@@ -118,12 +123,12 @@ def summarize(sim, st) -> dict:
         timeouts=int(m.n_to), retx=int(m.n_retx), acks=int(m.n_ack),
         delivered_bytes=float(m.delivered_bytes),
         delivered_bytes_fault=float(m.delivered_bytes_fault),
-        goodput_hist=m.goodput_hist.cpu().numpy(),
+        goodput_hist=_host(m.goodput_hist),
         spurious_retx=int(m.spurious_retx),
-        rtt_hist=m.rtt_hist.cpu().numpy(),
+        rtt_hist=_host(m.rtt_hist),
         q_mean=float(m.q_sum) / max(1, int(st.now)) / sim.dims.NQ,
         q_max=int(m.q_max),
-        goodput_bytes=st.goodput.cpu().numpy(),
+        goodput_bytes=_host(st.goodput),
     )
     total_pkts = max(1, int(m.delivered_pkts))
     out["spurious_frac"] = out["spurious_retx"] / total_pkts

@@ -618,8 +618,38 @@ def from_numpy(tree, device) -> SimState:
 
 def to_numpy(tree):
     """The same NamedTuple structure with every tensor leaf as numpy."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+    return tree_map(lambda x: x.detach().cpu().numpy()
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of one or more NamedTuple trees of the same
+    structure (a ``SimState`` and its nested ``CCState``/``LBState``/
+    ``Metrics``), keeping the structure."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_numpy(x) for x in tree))
-    return tree
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a NamedTuple tree, in field order (the reference's
+    pytree order)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for sub in tree for x in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_unflatten(template, leaves):
+    """A tree of ``template``'s structure holding ``leaves`` in order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def stack_lanes(states):
+    """Host states (numpy leaves) stacked along a new leading lane axis."""
+    return tree_map(lambda *xs: np.stack(xs), *states)
+
+
+def lane(states, i: int):
+    """Lane ``i`` of a lane-stacked state."""
+    return tree_map(lambda x: x[i], states)

@@ -3,7 +3,9 @@ JAX reference's (per-flow FCT, ticks, trims, retransmissions and
 delivered packets equal, and the whole final state: integer and boolean
 leaves exactly, f32 leaves within ``RUN_ULP_BUDGET``), plus the port's own
 contracts over the whole final state: leap-on equals leap-off, and K = 1
-equals the default superstep.
+equals the default superstep.  Every whole run also holds the experiment
+API's ``RunResult`` built from the two final states: ``row()`` and
+``summary()`` equal the reference's.
 
 Over a whole run the f32 CC state may drift further than in one tick:
 XLA:CPU contracts the Wait-to-Decrease EWMA ``alpha*ecn + (1-alpha)*avg``
@@ -20,8 +22,10 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from repro.netsim import api as japi  # noqa: E402
 from repro.netsim import metrics as jmetrics  # noqa: E402
 from repro.netsim import scenarios as jscen  # noqa: E402
+from repro_torch.netsim import api as tapi  # noqa: E402
 from repro_torch.netsim import metrics as tmetrics  # noqa: E402
 from repro_torch.netsim import scenarios as tscen  # noqa: E402
 from repro_torch.netsim import state as tstate  # noqa: E402
@@ -57,24 +61,29 @@ def _ulp(a, b):
     return int(np.abs(key(a) - key(b)).max()) if np.size(a) else 0
 
 
-def run_both(name, **overrides):
-    """Reference and port runs of one scenario (port on the CPU)."""
+def run_both(name, max_ticks=None, **overrides):
+    """Reference and port runs of one scenario (port on the CPU), to
+    completion or ``max_ticks`` (default: the scenario's budget)."""
     js = jscen.scenario(name, **overrides)
+    mt = js.max_ticks if max_ticks is None else int(max_ticks)
     jsim = js.build()
-    jst = jsim.run(js.max_ticks)
-    ts = tscen.scenario(name, **overrides)
-    tsim = ts.build(device="cpu")
-    tst = tsim.run(ts.max_ticks)
+    jst = jsim.run(mt)
+    tsim = tscen.scenario(name, **overrides).build(device="cpu")
+    tst = tsim.run(mt)
     return (jsim, jax.tree.map(np.asarray, jst), jmetrics.summarize(jsim, jst),
             tsim, tst, tmetrics.summarize(tsim, tst))
 
 
-def assert_run_parity(name, require_done=True, **overrides):
-    """Whole-run parity of one scenario (``require_done=False`` for a run
-    that ends at its tick budget with flows unfinished, as a failure
-    without recovery does); the fault metrics (blackholed packets, bytes
-    delivered while faulted, the goodput history) must be exact."""
-    jsim, jst, js, tsim, tst, ts = run_both(name, **overrides)
+def assert_run_parity(name, require_done=True, max_ticks=None, **overrides):
+    """Whole-run parity of one scenario, to completion or ``max_ticks``
+    (``require_done=False`` for a run that ends at its tick budget with
+    flows unfinished, as a failure without recovery does); the fault
+    metrics (blackholed packets, bytes delivered while faulted, the
+    goodput history) must be exact.  The experiment API's results built
+    from the two final states must agree too: ``RunResult.row()`` on every
+    key (no ``wall_s``: neither run is timed) and ``summary()``.  Returns
+    the port's summary, with the port's row under ``"row"``."""
+    jsim, jst, js, tsim, tst, ts = run_both(name, max_ticks, **overrides)
     assert (js["all_done"] and ts["all_done"]) or not require_done, name
     for key in ("ticks", "n_done", "fct_max", "fct_mean", "trims", "retx",
                 "timeouts", "acks", "spurious_retx", "blackholed",
@@ -91,8 +100,15 @@ def assert_run_parity(name, require_done=True, **overrides):
             assert worst[n] <= RUN_ULP_BUDGET, (name, n, worst[n])
         else:
             np.testing.assert_array_equal(a, b, err_msg=f"{name} {n}")
+    mt = jscen.scenario(name, **overrides).max_ticks if max_ticks is None else int(max_ticks)
+    jres = japi.RunResult.from_state(jsim, jst, scenario=name, max_ticks=mt)
+    tres = tapi.RunResult.from_state(tsim, tst, scenario=name, max_ticks=mt)
+    assert "wall_s" not in tres.row()
+    assert tres.row() == jres.row(), (name, tres.row(), jres.row())
+    np.testing.assert_equal(tres.summary(), jres.summary())
     print(f"{name}: {ts['ticks']} ticks, {tsim.stats['steps']} executed; largest "
           f"f32 difference (ULP) {({k: v for k, v in worst.items() if v})}")
+    ts["row"] = tres.row()
     return ts
 
 

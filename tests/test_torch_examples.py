@@ -1,0 +1,38 @@
+"""The port's example twins: ``examples/torch_quickstart.py --quick`` runs
+to its end on the CPU (``--device cpu``) and prints the table of all four
+algorithms; without ``--device`` it asks for the card, so on a machine
+without one it stops with the port's error instead of falling back to
+the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _run(*args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+                           *args], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_torch_quickstart_runs_on_the_cpu():
+    out = _run("--quick", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split()[0] for ln in out.stdout.splitlines()[2:6]]
+    assert rows == ["smartt", "swift", "mprdma", "eqds"]
+    assert "incast8_16n" in out.stdout and "on cpu" in out.stdout
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the card is there")
+def test_torch_quickstart_asks_for_the_card_by_default():
+    out = _run("--quick")
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr

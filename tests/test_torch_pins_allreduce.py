@@ -2,10 +2,11 @@
 128 nodes of the 128-node three-tier tree, 32 512 flows chained by the
 dependency gate (each step waits for the chunk its ring predecessor
 forwards).  The reference's whole run is pinned here for ``chip_smoke.py``
-(its summary and its collective completion time, CCT = 3893 ticks, by the
-reference's own ``RunResult``); the port runs the first ticks on the CPU
-against the reference's state at the same tick (a whole CPU run of the
-port takes minutes; the card runs it whole)."""
+(its summary, its ``RunResult`` row and its collective completion time,
+CCT = 3893 ticks, by the reference's own ``RunResult``); the port runs
+the first ticks on the CPU against the reference's state at the same
+tick (a whole CPU run of the port takes minutes; the card runs it
+whole)."""
 
 import numpy as np
 import pytest
@@ -34,6 +35,7 @@ def test_allreduce_ring_reference_is_pinned():
     summ = jmetrics.summarize(sim, st)
     rr = japi.RunResult.from_state(sim, st, scenario=NAME, max_ticks=sc.max_ticks)
     summ["cct"] = rr.cct
+    summ["row"] = rr.row()
     assert summ["all_done"] and rr.cct == summ["fct_max"]
     assert_pinned(NAME, summ)
 

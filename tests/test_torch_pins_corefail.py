@@ -2,9 +2,9 @@
 reference, without and with the failover bench's recovery knobs
 (``rto_backoff_max=2, evict_on_timeout=True``, benchmarks/failover.py):
 the reference strands one flow without recovery (127 of 128 finish in the
-6000-tick budget) and finishes all 128 with it.  The summaries
-``chip_smoke.py`` holds the card's runs to are the reference's own, pinned
-here (``assert_pinned``)."""
+6000-tick budget) and finishes all 128 with it.  The summaries and
+``RunResult`` rows ``chip_smoke.py`` holds the card's runs to are the
+reference's own, pinned here (``assert_pinned``)."""
 
 import importlib.util
 from pathlib import Path
@@ -28,10 +28,14 @@ def chip_smoke():
 
 
 def assert_pinned(key, summary):
-    """``chip_smoke.REFERENCE[key]`` equals this run's summary (the same
-    summary as the reference's, which the caller has checked)."""
-    want = chip_smoke().REFERENCE[key]
+    """``chip_smoke.REFERENCE[key]`` equals this run's summary, and
+    ``chip_smoke.REFERENCE_ROWS[key]`` its ``RunResult.row()`` under
+    ``summary["row"]`` (the same summary and row as the reference's, which
+    the caller has checked)."""
+    mod = chip_smoke()
+    want = mod.REFERENCE[key]
     assert {k: summary[k] for k in want} == want, key
+    assert summary["row"] == mod.REFERENCE_ROWS[key], key
 
 
 @pytest.mark.parametrize("key,overrides", [("corefail_128n_3t", {}),

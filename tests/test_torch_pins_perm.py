@@ -2,8 +2,8 @@
 (perm_1024n_3t under swift, mprdma and eqds) and the credit pick at its
 widest (incast_256x1_3t under eqds: 256 flows into one receiver, the
 grant pick over [512, 256] every tick), run whole on the CPU against the
-JAX reference.  The summaries ``chip_smoke.py`` holds the card's runs to
-are the reference's own, pinned here."""
+JAX reference.  The summaries and ``RunResult`` rows ``chip_smoke.py``
+holds the card's runs to are the reference's own, pinned here."""
 
 import pytest
 

@@ -1,8 +1,8 @@
 """PyTorch port, perm_512n_3t run whole on the CPU against the JAX
 reference: the North star's own "done" scenario (512 nodes on the
 three-tier fat tree, one 256 KiB flow a node, a cross-rack permutation).
-The summary ``chip_smoke.py`` holds the card's run to is the reference's
-own, pinned here."""
+The summary and ``RunResult`` row ``chip_smoke.py`` holds the card's run
+to are the reference's own, pinned here."""
 
 import pytest
 

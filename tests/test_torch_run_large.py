@@ -2,8 +2,8 @@
 against the JAX reference: perm_1024n_3t (the paper's 1024-node
 three-tier fat tree, one flow per sender) and alltoall_3t (512 nodes,
 992 flows, 31 flows per sender, so the round-robin arbitration runs).
-The summaries ``chip_smoke.py`` holds the card's runs to are the
-reference's own."""
+The summaries and ``RunResult`` rows ``chip_smoke.py`` holds the card's
+runs to are the reference's own."""
 
 import importlib.util
 from pathlib import Path
@@ -28,5 +28,7 @@ def _chip_smoke():
 @pytest.mark.parametrize("name", ["perm_1024n_3t", "alltoall_3t"])
 def test_main_path_run_matches_reference(name):
     summary = assert_run_parity(name)
-    want = _chip_smoke().REFERENCE[name]
+    mod = _chip_smoke()
+    want = mod.REFERENCE[name]
     assert {k: summary[k] for k in want} == want
+    assert summary["row"] == mod.REFERENCE_ROWS[name]
