@@ -89,11 +89,29 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                (fault rows with ttr_max and dip_*, allreduce with cct; the
                eqds runs' trim_seen below 2**24, also checked in 4c); the
                4-lane perm_1024n_3t study (start_cwnd_mult 1.0 and 1.25 x
-               seeds 0, 1): every lane's row and final state equal to the
-               standalone api.run of its point and seed, the base lane's
-               row to its pinned row, lanes a second; Sim.run_trace over
-               perm_1024n_3t's first 300 ticks, the card's outputs and
-               final state equal to the CPU port's bit for bit
+               seeds 0, 1) through the lane loop: every lane's row and
+               final state equal to the standalone api.run of its point
+               and seed, the base lane's row to its pinned row, launches
+               of each fused kernel equal to the loop's batched ticks and
+               each lane's executed ticks to its standalone run's, lanes
+               a second; Sim.run_trace over perm_1024n_3t's first 300
+               ticks, the card's outputs and final state equal to the CPU
+               port's bit for bit
+  4e. lanes — the four fused kernels on a [4, ...] batch of
+               perm_1024n_3t at ticks 40, 120, 200 and 60 under four
+               points' constants, the last lane not live, against their
+               batched plain versions bit for bit, the idle lane untouched
+               (run with the kernel checks, so --kernels-only covers it);
+               a 16-lane perm_1024n_3t study (start_cwnd_mult x kmin_frac
+               x fd x 2 seeds) and a 4-lane eqds study through the lane
+               loop (counts reset just before, read just after: one
+               launch of each kernel a batched tick), every lane's row,
+               final state and executed ticks equal to its standalone
+               api.run's, the base point's seed-0 row to the pinned JAX
+               row; lanes a second of the 4- and 16-lane studies through
+               the lane loop and one after another, in turns (median of
+               5); the device's idle share of a 16-lane batched tick
+               under torch.profiler; the 16-lane study's peak memory
   5. serving — qwen3-0.6b (28 layers) and mamba2-780m (48 layers) at full
                width from a seeded init on the card, each serving two
                requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
@@ -123,6 +141,7 @@ power limit come on a line before them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -402,6 +421,22 @@ STUDY_POINTS = ({"start_cwnd_mult": 1.0}, {"start_cwnd_mult": 1.25})
 STUDY_SEEDS = (0, 1)
 TRACE_TICKS = 300
 PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
+# phase 4e: lanes on the card.  The 16-lane study sweeps an axis that each
+# reaches another place: the initial state, departures.cu's RED
+# thresholds, control.cu's SMaRTT update
+LANES_POINTS = tuple({"start_cwnd_mult": a, "kmin_frac": k, "fd": f}
+                     for a in (1.0, 1.25) for k in (0.2, 0.3) for f in (0.8, 0.6))
+LANES_SEEDS = (0, 1)
+LANES_BASE = {"start_cwnd_mult": 1.25, "kmin_frac": 0.2, "fd": 0.8}
+EQDS_POINTS = ({}, {"credit_window_mult": 1.5})      # the 4-lane eqds study
+LANE_TURNS = 5            # timed turns: batched and one after another
+# the batched kernels' check: four lanes of perm_1024n_3t under their own
+# constants, driven to their own ticks; the last is not live
+CHECK_POINTS = ({"kmin_frac": 0.3, "fd": 0.6}, {"start_cwnd_mult": 1.0},
+                {"kmin_frac": 0.3, "num_entropies": 64, "rto_mult": 4.0}, {})
+CHECK_TICKS = (40, 120, 200, 60)
+CHECK_STEPS = 5
+LANE_PROFILE_TICKS = 100
 
 
 def log(*a):
@@ -683,6 +718,19 @@ def kernel_checks(dev, shapes):
     return records
 
 
+def one_lane(sim, t):
+    """``call(fn, st)``: a phase of a lane batch, ``fn(LaneConsts, SimState,
+    Tick) -> SimState``, on a single-lane state ``st`` at host tick ``t``.
+    The state's one-lane views are made once a leaf (one caller a state),
+    so the kernels' blocks see the same operands each call."""
+    from repro_torch.kernels import lanes
+    views, c1, k = {}, sim.lanes_of(None, 1), lanes.tick_at(t, sim.device)
+
+    def call(fn, st):
+        return fn(c1, lanes.one_lane(views, st), k)
+    return call
+
+
 def clone_tree(tree):
     """A copy of every tensor of a NamedTuple state (the fused control
     phase updates its operands in place)."""
@@ -695,7 +743,7 @@ def control_pair(t, fl, ok, orf, what):
     """The fused kernel on ``ok`` and ``control_ref`` on ``orf`` (two copies
     of the same operands): events and operands bit for bit."""
     from repro_torch.kernels.control import kernel as XK, ref as XR
-    evk = XK.control(t, fl, ok)
+    evk = XK.control_at(t, fl, ok)
     evr = XR.control_ref(t, fl, orf)
     torch.cuda.synchronize()
     bad = [f"event.{n}" for n, a, b in zip(evk._fields, evk, evr) if not bit_equal(a, b)]
@@ -753,7 +801,7 @@ def arrivals_pair(t, s, fl, ok, orf, what):
     """The fused kernel on ``ok`` and ``arrivals_ref`` on ``orf`` (two copies
     of the same operands): every operand bit for bit."""
     from repro_torch.kernels.arrivals import kernel as AK, ref as AR
-    AK.arrivals(t, s, fl, ok)
+    AK.arrivals_at(t, s, fl, ok)
     AR.arrivals_ref(t, s, fl, orf)
     torch.cuda.synchronize()
     bad = [n for (n, a), (_, b) in zip(leaves(ok), leaves(orf)) if not bit_equal(a, b)]
@@ -784,7 +832,7 @@ def sends_pair(t, wire, fl, ok, orf, what):
     """The fused kernel on ``ok`` and ``sends_ref`` on ``orf`` (two copies
     of the same operands): every operand bit for bit."""
     from repro_torch.kernels.sends import kernel as SK, ref as SR
-    SK.sends(t, wire, fl, ok)
+    SK.sends_at(t, wire, fl, ok)
     SR.sends_ref(t, wire, fl, orf)
     torch.cuda.synchronize()
     bad = [n for n, a, b in zip(ok._fields, ok, orf) if not bit_equal(a, b)]
@@ -967,7 +1015,7 @@ def control_timing(timed):
     o_k = transport.operands(c, clone_tree(base))
     o_p = transport.operands(c, clone_tree(base))
     rec = dict(shape=f"[{d.NF}, {d.W}] ({TIMED[0]} t={t})", max_abs_err=0.0,
-               **timings(lambda: XK.control(t, fl, o_k), lambda: XR.control_ref(t, fl, o_p),
+               **timings(lambda: XK.control_at(t, fl, o_k), lambda: XR.control_ref(t, fl, o_p),
                          plain_per_graph=10),
                **bound(nbytes))
     # the split design's two kernels on the same state, as control_split
@@ -992,9 +1040,11 @@ def control_timing(timed):
     run_k, drain_k = XO.get("kernel"), DO.ring_drain
     clk = sim.clock0._replace(t=t)
     st_f, st_s = clone_tree(base), clone_tree(base)
-    fused_phase = lambda: transport.control(d, c, cc_k, st_f, clk, run=run_k, fl=fl)  # noqa: E731
-    split_phase = lambda: transport.control_split(d, c, cc_k, st_s, clk,  # noqa: E731
-                                                  drain=drain_k)
+    on_f, on_s = one_lane(sim, t), one_lane(sim, t)
+    fused_phase = lambda: on_f(lambda cl, s, k: transport.control(  # noqa: E731
+        d, cl, cc_k, s, k, run=run_k, fl=fl), st_f)
+    split_phase = lambda: on_s(lambda cl, s, k: transport.control_split(  # noqa: E731
+        d, cl, cc_k, s, k, drain=drain_k), st_s)
     rec["phase_ms"] = device_ms(fused_phase, per_graph=10)
     rec["split_phase_ms"] = device_ms(split_phase, per_graph=10)
     rec["phase_launches"] = graph_launches(fused_phase)
@@ -1038,7 +1088,7 @@ def arrivals_timing(timed):
 
     st_k, st_p = clone_tree(base), clone_tree(base)
     o_k, o_p = fabric.operands(c, st_k, None), fabric.operands(c, st_p, None)
-    k = timed_pair(lambda: AK.arrivals(t, slots, fl, o_k), st_k)
+    k = timed_pair(lambda: AK.arrivals_at(t, slots, fl, o_k), st_k)
     p = timed_pair(lambda: AR.arrivals_ref(t, slots, fl, o_p), st_p, per_graph=10, iters=50)
     rec = dict(shape=f"[{c.in_tbl.shape[0]}, {c.in_tbl.shape[1]}] rows, {d.N} nodes "
                      f"({TIMED[0]} t={t})",
@@ -1055,8 +1105,11 @@ def arrivals_timing(timed):
     # the whole phase: fused against the split design's glue
     run_k, run_s = AO.get("kernel"), AO.get("split")
     st_f, st_s = clone_tree(base), clone_tree(base)
-    phases = {"fused": lambda: fabric.arrivals(d, c, st_f, clk, run=run_k, fl=fl),
-              "split": lambda: fabric.arrivals(d, c, st_s, clk, run=run_s, fl=fl)}
+    on_f, on_s = one_lane(sim, t), one_lane(sim, t)
+    phases = {"fused": lambda: on_f(lambda cl, s, k: fabric.arrivals(
+                  d, cl, s, k, run=run_k, trim_delay=clk.trim_delay, fl=fl), st_f),
+              "split": lambda: on_s(lambda cl, s, k: fabric.arrivals(
+                  d, cl, s, k, run=run_s, trim_delay=clk.trim_delay, fl=fl), st_s)}
     for way, st in (("fused", st_f), ("split", st_s)):
         both, restore = restoring(base, st, phases[way])
         pre = "" if way == "fused" else "split_"
@@ -1165,7 +1218,7 @@ def sends_timing(timed):
                         restore_ms=device_ms(restore, per_graph))
 
         o_k, o_p = sender.operands(c, clone_tree(base)), sender.operands(c, clone_tree(base))
-        k = timed_pair(lambda: SK.sends(t, wire, fl, o_k), o_k)
+        k = timed_pair(lambda: SK.sends_at(t, wire, fl, o_k), o_k)
         p = timed_pair(lambda: SR.sends_ref(t, wire, fl, o_p), o_p, per_graph=10, iters=50)
         rec = dict(shape=f"[{d.N}, {d.FMAX}] rows, {d.NF} flows, W = {d.W} ({run} t={t})",
                    max_abs_err=0.0, ms=k["ms"], call_ms=k["call_ms"],
@@ -1179,9 +1232,11 @@ def sends_timing(timed):
         run_k, run_s = SO.get("kernel"), SO.get("split")
         st_f, st_s = clone_tree(base), clone_tree(base)
         for way, st, go in (("fused", st_f, run_k), ("split", st_s, run_s)):
+            on = one_lane(sim, t)
             both, restore = sends_restoring(
                 saved, sender.operands(c, st), fl,
-                lambda st=st, go=go: sender.sends(d, c, st, clk, run=go, fl=fl))
+                lambda st=st, go=go, on=on: on(lambda cl, s, k: sender.sends(
+                    d, cl, s, k, run=go, lat_send=clk.lat_send, fl=fl), st))
             pre = "" if way == "fused" else "split_"
             rec[f"{pre}phase_ms"] = (device_ms(both, per_graph=10)
                                      - device_ms(restore, per_graph=10))
@@ -1211,7 +1266,7 @@ def departures_pair(t, lat, fl, ok, orf, what):
     """The fused kernel on ``ok`` and ``departures_ref`` on ``orf`` (two
     copies of the same operands): every operand bit for bit."""
     from repro_torch.kernels.departures import kernel as PK, ref as PR
-    PK.departures(t, lat, fl, ok)
+    PK.departures_at(t, lat, fl, ok)
     PR.departures_ref(t, lat, fl, orf)
     torch.cuda.synchronize()
     bad = [n for n, a, b in zip(ok._fields, ok, orf) if not bit_equal(a, b)]
@@ -1361,7 +1416,7 @@ def departures_timing(timed):
 
     o_k = fabric.departures_operands(c, clone_tree(base))
     o_p = fabric.departures_operands(c, clone_tree(base))
-    k = timed_pair(lambda: PK.departures(t, lat, fl, o_k), o_k)
+    k = timed_pair(lambda: PK.departures_at(t, lat, fl, o_k), o_k)
     p = timed_pair(lambda: PR.departures_ref(t, lat, fl, o_p), o_p, per_graph=10, iters=50)
     rec = dict(shape=f"[{d.NQ}] ports of {d.CAP}, {d.NF} flows ({DEPARTURES_TIMED[0]} t={t})",
                max_abs_err=0.0, ms=k["ms"], call_ms=k["call_ms"], restore_ms=k["restore_ms"],
@@ -1376,9 +1431,11 @@ def departures_timing(timed):
     for way in ("kernel", "plain"):
         st = clone_tree(base)
         run = PO.get(way)
+        on = one_lane(sim, t)
         both, restore = restoring_dep(
             fabric.departures_operands(c, st),
-            lambda st=st, run=run: fabric.departures(d, c, st, clk, run=run, fl=fl))
+            lambda st=st, run=run, on=on: on(lambda cl, s, k: fabric.departures(
+                d, cl, s, k, run=run, lat=lat, fl=fl), st))
         pre = "" if way == "kernel" else "plain_"
         rec[f"{pre}phase_ms"] = (device_ms(both, per_graph=10)
                                  - device_ms(restore, per_graph=10))
@@ -1737,12 +1794,18 @@ def phase_api(paths, finals):
     reset_counts()                                               # just before
     res = plan.run()
     study_steps = api_launches(f"study {STUDY_SCENARIO}")        # just after
-    total, walls = 0, []
+    lane_steps = list(plan.sim.stats["lanes"]["steps"])
+    batch_ticks = plan.sim.stats["lanes"]["batch_ticks"]
+    walls = []
     for pi, pt in enumerate(STUDY_POINTS):
         for si, seed in enumerate(STUDY_SEEDS):
             reset_counts()
             one = api.run(STUDY_SCENARIO, seed=seed, **pt)
-            total += api_launches(f"api.run {STUDY_SCENARIO} {pt} s{seed}")
+            steps = api_launches(f"api.run {STUDY_SCENARIO} {pt} s{seed}")
+            if lane_steps[pi * len(STUDY_SEEDS) + si] != steps:
+                fail(f"study lane {pi * len(STUDY_SEEDS) + si}: "
+                     f"{lane_steps[pi * len(STUDY_SEEDS) + si]} executed ticks, the "
+                     f"standalone run {steps}")
             walls.append(one.wall_s)
             lane = res.lane(pi, si)
             skip = ("name", "point")
@@ -1757,17 +1820,20 @@ def phase_api(paths, finals):
                             point={"start_cwnd_mult": 1.25})
                 if row_of(lane) != want:
                     fail(f"study lane {lane.name}: row {row_of(lane)}, pinned {want}")
-    if study_steps != total:
-        fail(f"study: {study_steps} launches of each fused kernel, the standalone runs {total}")
+    if study_steps != batch_ticks:
+        fail(f"study: {study_steps} launches of each fused kernel, the lane loop's "
+             f"batched ticks {batch_ticks}")
     rate = plan.n_lanes / res.wall_s
     rec["study"] = dict(lanes=plan.n_lanes, wall_s=res.wall_s, lanes_per_s=rate,
-                        executed=study_steps, standalone_wall_s=walls)
+                        executed=study_steps, lane_steps=lane_steps,
+                        standalone_wall_s=walls)
     log(f"[api] study {STUDY_SCENARIO} {len(STUDY_POINTS)} points x {len(STUDY_SEEDS)} "
-        f"seeds: every lane's row and final state equal the standalone api.run's, the "
-        f"base lane's row the JAX reference's; {plan.n_lanes} lanes in {res.wall_s:.3f} s "
-        f"= {rate:.3f} lanes/s (standalone Sim.run walls "
+        f"seeds through the lane loop: every lane's row and final state equal the "
+        f"standalone api.run's, the base lane's row the JAX reference's; {plan.n_lanes} "
+        f"lanes in {res.wall_s:.3f} s = {rate:.3f} lanes/s (standalone Sim.run walls "
         f"{', '.join(f'{w:.3f}' for w in walls)} s); {study_steps} launches of each fused "
-        f"kernel = the lanes' executed ticks")
+        f"kernel = the batched ticks; each lane's executed ticks {lane_steps} = its "
+        f"standalone run's")
     # Sim.run_trace on the card against the CPU port
     sc = scenarios.scenario(STUDY_SCENARIO)
     sim = sc.build(device="cuda")
@@ -1797,6 +1863,244 @@ def phase_api(paths, finals):
     log(f"[api] run_trace({STUDY_SCENARIO}, {TRACE_TICKS}) on the card: outputs "
         f"{ {k: tuple(v.shape) for k, v in ys_g.items()} } and final state bit-equal to "
         f"the CPU port's; {TRACE_TICKS / wall:.1f} ticks/s (CPU {TRACE_TICKS / wall_c:.1f})")
+    return rec
+
+
+# ------------------------------------------------ 4e. lanes on the card
+
+
+def standalone(name, pt, seed, **ov):
+    """``api.run`` of one lane's (point, seed): the scenario under the
+    config the study gives that point."""
+    from repro_torch.netsim import api, scenarios
+    sc = scenarios.scenario(name, **ov)
+    return api.run(dataclasses.replace(sc, cfg=api.apply_point(sc.cfg, pt)), seed=seed)
+
+
+def lane_study(what, name, points, seeds, on_path, pin=None, **ov):
+    """A study through the lane loop (counts set to 0 just before, read just
+    after): launches of each kernel of ``on_path`` = the batched ticks, every
+    lane's row and final state equal to the standalone ``api.run`` of its
+    (point, seed), its executed ticks to that run's; ``pin``: (point, the
+    JAX reference's row of its seed-0 lane).  Returns the plan and a record."""
+    from repro_torch.netsim import api, cache
+    plan = api.study(name, points=points, seeds=seeds, **ov)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                               # just before
+    res = plan.run()
+    launches = read_counts()                                     # just after
+    peak = torch.cuda.max_memory_allocated()
+    lanes = dict(plan.sim.stats["lanes"])
+    expect_launches(what, launches, on_path, lanes["batch_ticks"])
+    for lane in range(plan.n_lanes):
+        pt, seed = plan.lane_point_seed(lane)
+        reset_counts()
+        one = standalone(name, dict(pt), seed, **ov)
+        steps = api_launches(f"{what} lane {lane} standalone", on_path)
+        got = res[lane]
+        if lanes["steps"][lane] != steps:
+            fail(f"{what} lane {got.name}: {lanes['steps'][lane]} executed ticks, the "
+                 f"standalone run {steps}")
+        skip = ("name", "point")
+        if {k: v for k, v in row_of(got).items() if k not in skip} != \
+                {k: v for k, v in row_of(one).items() if k not in skip}:
+            fail(f"{what} lane {got.name}: row differs from the standalone api.run")
+        if cache.state_digest(got.state) != cache.state_digest(one.state):
+            fail(f"{what} lane {got.name}: final state differs from the standalone run")
+    if pin is not None:
+        pt, want = pin
+        got = res.lane(plan.points.index(api._norm_point(pt)), 0)
+        want = dict(want, name=got.name, point=dict(api._norm_point(pt)))
+        if row_of(got) != want:
+            fail(f"{what} lane {got.name}: row {row_of(got)}, the JAX reference's {want}")
+    rec = dict(lanes=plan.n_lanes, wall_s=res.wall_s, batch_ticks=lanes["batch_ticks"],
+               lane_steps=lanes["steps"], lane_ticks=lanes["ticks"],
+               launches_per_batch_tick={k: launches[k] / lanes["batch_ticks"]
+                                        for k in on_path},
+               mem_before_bytes=base_mem, max_memory_allocated_bytes=peak)
+    log(f"[lanes] {what}: {plan.n_lanes} lanes through the lane loop, every lane's row "
+        f"and final state equal to its standalone api.run's" +
+        (", the base point's seed-0 row the JAX reference's" if pin else "") +
+        f"; {lanes['batch_ticks']} batched ticks, launches a batched tick "
+        f"{rec['launches_per_batch_tick']}; each lane's executed ticks {lanes['steps']} = "
+        f"its standalone run's; wall {res.wall_s:.3f} s")
+    return plan, rec
+
+
+def lanes_timing(plans):
+    """Lanes a second, in turns (median of LANE_TURNS): each study through the
+    lane loop (``run_states``) and its lanes one after another on pre-built
+    simulators (``Sim.run`` and the host copy, the earlier executor)."""
+    from repro_torch.netsim import api, engine, state
+    sims = {label: [engine.build(api.apply_point(plan.scenario.cfg, dict(pt)),
+                                 plan.scenario.wl, device="cuda") for pt in plan.points]
+            for label, plan in plans.items()}
+    walls = {label: {"lanes": [], "alone": []} for label in plans}
+    for _ in range(LANE_TURNS):
+        for label, plan in plans.items():
+            mt = plan._max_ticks(None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan.run_states(mt)
+            torch.cuda.synchronize()
+            walls[label]["lanes"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for lane in range(plan.n_lanes):
+                sim = sims[label][lane // plan.n_seeds]
+                state.to_numpy(sim.run(mt, seed=plan.salts[lane]))
+            torch.cuda.synchronize()
+            walls[label]["alone"].append(time.perf_counter() - t0)
+    out = {}
+    for label, plan in plans.items():
+        med = {k: float(np.median(v)) for k, v in walls[label].items()}
+        out[label] = dict(lanes=plan.n_lanes, walls=walls[label], median_s=med,
+                          lanes_per_s=plan.n_lanes / med["lanes"],
+                          alone_lanes_per_s=plan.n_lanes / med["alone"])
+        log(f"[lanes] {label}: {out[label]['lanes_per_s']:.3f} lanes/s through the lane "
+            f"loop, {out[label]['alone_lanes_per_s']:.3f} lanes/s one after another "
+            f"(median of {LANE_TURNS} turns: {med['lanes']:.3f} s against "
+            f"{med['alone']:.3f} s for {plan.n_lanes} lanes)")
+    return out
+
+
+def lanes_profile(plan):
+    """The lane loop of ``plan``'s batch under torch.profiler for
+    LANE_PROFILE_TICKS batched ticks (after 20 warm ones): the device's busy
+    and idle share of a batched tick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.netsim import shard
+    st = plan.init()
+    cb, ax = plan.consts_b, plan.axes
+    st = shard._run_lanes(plan.sim, cb, ax, st, 20)              # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = shard._run_lanes(plan.sim, cb, ax, st, 20 + LANE_PROFILE_TICKS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ticks = plan.sim.stats["lanes"]["batch_ticks"]
+    events = device_events(prof)
+    busy = sum(dev_us(e) for e in events) / 1e6
+    rec = dict(batch_ticks=ticks, lanes=plan.n_lanes, wall_ms_per_tick=wall / ticks * 1e3,
+               device_busy_ms_per_tick=busy / ticks * 1e3,
+               idle_share=1 - busy / wall if busy else None,
+               kernels_per_tick=sum(e.count for e in events) / ticks)
+    if not busy:
+        log("[lanes] torch.profiler recorded no device time: idle share not measured")
+    else:
+        log(f"[lanes] a batched tick of {plan.n_lanes} lanes under torch.profiler "
+            f"({ticks} ticks): wall {rec['wall_ms_per_tick']:.3f} ms, device busy "
+            f"{rec['device_busy_ms_per_tick']:.4f} ms ({100 * busy / wall:.2f}% busy, "
+            f"{100 * rec['idle_share']:.2f}% idle), {rec['kernels_per_tick']:.1f} device "
+            f"kernels a tick")
+    return rec
+
+
+def lanes_kernel_checks():
+    """The four fused kernels against their batched plain versions on the
+    card, on one ``[4, ...]`` tick state of perm_1024n_3t: four lanes under
+    their own constants (CHECK_POINTS), each driven to its own tick
+    (CHECK_TICKS), the last not live; CHECK_STEPS batched ticks, each phase
+    on two clones of the state, bit for bit, the idle lane left as it was."""
+    from repro_torch.kernels.arrivals import kernel as AK, ref as AR
+    from repro_torch.kernels.control import kernel as XK, ref as XR
+    from repro_torch.kernels.departures import kernel as PK, ref as PR
+    from repro_torch.kernels.lanes import Tick
+    from repro_torch.kernels.sends import kernel as SK, ref as SR
+    from repro_torch.netsim import api, fabric, sender, shard, state, transport
+    plan = api.study(STUDY_SCENARIO, points=CHECK_POINTS, seeds=(0,))
+    sim, n = plan.sim, plan.n_lanes
+    d, clk = sim.dims, sim.clock0
+    parts = [shard._run_lanes(sim, plan._consts_subset([i]), plan.axes, plan.init([i]), t)
+             for i, t in enumerate(CHECK_TICKS)]
+    st = state.tree_map(lambda *xs: torch.cat(xs), *parts)
+    c = sim.lanes_of(plan.consts_b, n, plan.axes)
+    lat = PR.Lat(core=clk.lat_core, edge=clk.lat_edge)
+    dfl, afl = fabric.departures_flags(d), fabric.flags(d, sim.consts, clk)
+    cfl, sfl = transport.flags(sim.cfg, d), sender.flags(d)
+    live_h = tuple(i < n - 1 for i in range(n))
+    live = torch.tensor(live_h, device="cuda")
+    now_h = tuple(CHECK_TICKS)
+    if st.now.tolist() != list(now_h):
+        fail(f"lanes check: ticks {st.now.tolist()}, expected {now_h}")
+    phases = dict(sim.lane_phases)
+    seen = dict(emits=0, deliveries=0, acks=0)
+
+    def pair(what, kernel, plain, make, k):
+        a, b = clone_tree(st), clone_tree(st)
+        out_k = kernel(k, make(a))
+        out_p = plain(k, make(b))
+        bad = states_differ(a, b)
+        if bad:
+            fail(f"lanes check {what} (ticks {k.now_h}): the kernel differs from its "
+                 f"batched plain version in {bad}")
+        idle = states_differ(state.lane(a, n - 1), state.lane(st, n - 1))
+        if idle:
+            fail(f"lanes check {what}: the kernel wrote the lane that is not live ({idle})")
+        return a, out_k, out_p
+
+    for step in range(CHECK_STEPS):
+        k = Tick(st.now, live, now_h, live_h)
+        a, _, _ = pair("departures", lambda k, o: PK.departures(k, lat, dfl, o),
+                       lambda k, o: PR.departures_lanes_ref(k, lat, dfl, o),
+                       lambda s: fabric.departures_operands(c.l, s), k)
+        seen["emits"] += int((a.q_size != st.q_size).sum())
+        st = phases["departures"](c, st, k)
+        a, _, _ = pair("arrivals",
+                       lambda k, o: AK.arrivals(k, clk.trim_delay, afl, o, c.l.goodput_bin),
+                       lambda k, o: AR.arrivals_lanes_ref(k, clk.trim_delay, afl, o,
+                                                          c.l.goodput_bin),
+                       lambda s: fabric.operands(c.l, s, None), k)
+        seen["deliveries"] += int((a.m.delivered_pkts - st.m.delivered_pkts).sum())
+        st = phases["arrivals"](c, st, k)
+        _, ev_k, ev_p = pair("control", lambda k, o: XK.control(k, cfl, o),
+                             lambda k, o: XR.control_lanes_ref(k, cfl, o),
+                             lambda s: transport.operands(c.l, s), k)
+        for f in ev_k._fields:
+            if not bit_equal(getattr(ev_k, f)[:n - 1], getattr(ev_p, f)[:n - 1]):
+                fail(f"lanes check control: event field {f} differs")
+        seen["acks"] += int(ev_k.has_ack[:n - 1].sum())
+        for p in ("control", "grants"):
+            st = phases[p](c, st, k)
+        pair("sends", lambda k, o: SK.sends(k, clk.lat_send, sfl, o),
+             lambda k, o: SR.sends_lanes_ref(k, clk.lat_send, sfl, o),
+             lambda s: sender.operands(c.l, s), k)
+        for p in ("sends", "metrics"):
+            st = phases[p](c, st, k)
+        st = st._replace(now=st.now + live)
+        now_h = tuple(t + g for t, g in zip(now_h, live_h))
+    if not all(seen.values()):
+        fail(f"lanes check: the checked ticks miss a kind of work {seen}")
+    log(f"[lanes] departures, arrivals, control and sends kernels on a [{n}, ...] batch of "
+        f"perm_1024n_3t (lanes at ticks {CHECK_TICKS}, the last not live, swept "
+        f"{[dict(p) for p in plan.points]}), {CHECK_STEPS} batched ticks: bit-equal to "
+        f"their batched plain versions, the idle lane untouched {seen}")
+    return dict(lanes=n, ticks=CHECK_TICKS, steps=CHECK_STEPS, max_abs_err=0.0, work=seen)
+
+
+def phase_lanes(checked):
+    """Lanes on the card at the paper's scale (the batched kernels against
+    their batched plain versions, ``checked``, ran with the kernels'
+    checks): the 16-lane perm_1024n_3t study and the
+    4-lane eqds study against their standalone runs; lanes a second through
+    the lane loop and one after another, in turns; the idle share of a
+    batched tick; the 16-lane study's peak device memory."""
+    rec = {"kernels": checked}
+    plan16, rec["study16"] = lane_study(
+        f"study {STUDY_SCENARIO} x16", STUDY_SCENARIO, LANES_POINTS, LANES_SEEDS,
+        SMARTT_TICK, pin=(LANES_BASE, REFERENCE_ROWS[STUDY_SCENARIO]))
+    log(f"[lanes] torch.cuda.max_memory_allocated() of the 16-lane study: "
+        f"{rec['study16']['max_memory_allocated_bytes']} bytes "
+        f"({rec['study16']['mem_before_bytes']} allocated before it)")
+    _, rec["eqds4"] = lane_study(f"study {STUDY_SCENARIO} eqds x4", STUDY_SCENARIO,
+                                 EQDS_POINTS, STUDY_SEEDS, TICK + ("rr_pick",), algo="eqds")
+    from repro_torch.netsim import api
+    plan4 = api.study(STUDY_SCENARIO, points=STUDY_POINTS, seeds=STUDY_SEEDS)
+    rec["timing"] = lanes_timing({"study4": plan4, "study16": plan16})
+    rec["profile"] = lanes_profile(plan16)
     return rec
 
 
@@ -2398,22 +2702,25 @@ def profile_way(backend):
     and its kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.netsim import scenarios
+    from repro_torch.kernels.lanes import Tick
+    from repro_torch.netsim import scenarios, state
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     sc = scenarios.scenario("perm_1024n_3t", **WAYS[backend])
     sim = sc.build(device="cuda")
-    st = sim.init()
-    per = {name: 0.0 for name, _ in sim.phases}
+    c1 = sim.lanes_of(None, 1)                  # the run as a batch of one lane
+    live = torch.ones((1,), dtype=torch.bool, device="cuda")
+    st = state.init_lanes(sim.dims, sim.consts, None, [0])
+    per = {name: 0.0 for name, _ in sim.lane_phases}
     t = 0
     torch.cuda.synchronize()
     while t < PROFILE_TICKS and not bool(st.done.all()):
-        clk = sim.clock0._replace(t=t)
-        for name, phase in sim.phases:
+        k = Tick(st.now, live, (t,), (True,))
+        for name, phase in sim.lane_phases:
             t0 = time.perf_counter()
-            st = phase(sim.consts, st, clk)
+            st = phase(c1, st, k)
             torch.cuda.synchronize()
             per[name] += time.perf_counter() - t0
-        st = st._replace(now=st.now + 1)
+        st = st._replace(now=st.now + live)
         t += 1
     per_tick = {k: v / t * 1e3 for k, v in per.items()}
     total = sum(per_tick.values())
@@ -2421,15 +2728,15 @@ def profile_way(backend):
         f"each phase): " + ", ".join(
             f"{k} {v:.3f} ms/tick ({100 * v / total:.1f}%)" for k, v in per_tick.items()))
 
-    st = sim.init()
+    st = state.init_lanes(sim.dims, sim.consts, None, [0])
     for t in range(20):                                  # warm
-        st = sim.step(st, t)
+        st = sim.tick(c1, st, Tick(st.now, live, (t,), (True,)))
     torch.cuda.synchronize()
     ticks = 100
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for t in range(20, 20 + ticks):
-            st = sim.step(st, t)
+            st = sim.tick(c1, st, Tick(st.now, live, (t,), (True,)))
             bool(st.done.all())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2496,6 +2803,7 @@ def main():
     records["arrivals"] = arrivals_timing(timed_states)
     records["sends"] = sends_timing(timed_states)
     records["departures"] = departures_timing(timed_departures)
+    lanes_checked = lanes_kernel_checks()
     records.update(serve_kernel_checks(dev))
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
@@ -2519,6 +2827,7 @@ def main():
     smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
     comparison = timed_phase("comparison", phase_comparison, smartt_rate, finals)
     experiment_api = timed_phase("api", phase_api, paths, finals)
+    lanes_rec = timed_phase("lanes", phase_lanes, lanes_checked)
     serving = timed_phase("serving", phase_serving, dev)
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
@@ -2619,6 +2928,7 @@ def main():
                                        kernels=kernels, end_to_end=e2e,
                                        red_mark_check=red, comparison=comparison,
                                        experiment_api=experiment_api,
+                                       lanes=lanes_rec,
                                        serving=serving, profile=prof), indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,8 +7,9 @@ transports and load balancers under core oversubscription (paper Fig.
 
 The same program as ``examples/permutation_study.py`` on
 ``repro_torch.netsim.api``.  It runs on the card unless ``--device cpu``
-asks for the CPU.  The port's study runs its lanes one after another,
-each equal to the standalone run of its (point, seed).
+asks for the CPU.  The port's study runs its lanes as one batch (one
+launch of each fused tick kernel a batched tick), each lane equal to the
+standalone run of its (point, seed).
 """
 
 import argparse

@@ -29,8 +29,9 @@ F32 = torch.float32
 
 
 def _now_plane(now, like: torch.Tensor) -> torch.Tensor:
-    """The tick as an f32 [F] plane (exact below 2**24, which every tick
-    budget is); a fill, not a host-to-device copy."""
+    """The tick as an f32 [F] plane, or [L, F] for a lane batch's ticks
+    (an i32 ``[L, 1]`` column); exact below 2**24, which every tick budget
+    is; a fill or a broadcast, not a host-to-device copy."""
     if isinstance(now, torch.Tensor):
         return now.to(F32).expand(like.shape)
     return torch.full_like(like, float(now), dtype=F32)

@@ -134,7 +134,8 @@ def on_timeout(lb_mode: int, p: LBParams, s: LBState, timed_out):
 
 def on_ack(lb_mode: int, p: LBParams, s: LBState, has_ack, ecn, ack_entropy,
            flow_ids, now):
-    """ACK-side load-balancer update (``now`` is the integer tick)."""
+    """ACK-side load-balancer update (``now`` is the integer tick, or a
+    lane batch's ticks as an i32 ``[L, 1]`` column)."""
     n = p.num_entropies
     if lb_mode == LB_REPS:
         # Alg. 4 l. 12-17: marked ACK -> fresh entropy; clean ACK -> recycle.
@@ -149,7 +150,8 @@ def on_ack(lb_mode: int, p: LBParams, s: LBState, has_ack, ecn, ack_entropy,
     if lb_mode == LB_PLB:
         # PLB [48]: after plb_k consecutive congested rounds (>= plb_frac of
         # ACKs marked within a round), pick a new random path.
-        now_f = float(now)              # exact: ticks stay below 2**24
+        # exact: ticks stay below 2**24
+        now_f = now.to(F32) if isinstance(now, torch.Tensor) else float(now)
         marked = s.plb_marked + (has_ack & ecn).to(F32)
         total = s.plb_total + has_ack.to(F32)
         boundary = now_f >= s.plb_round_end
@@ -159,7 +161,7 @@ def on_ack(lb_mode: int, p: LBParams, s: LBState, has_ack, ecn, ack_entropy,
         congested = torch.where(congested_round, s.plb_congested + 1,
                                 torch.where(clean_round, 0, s.plb_congested))
         repath = congested >= p.plb_k
-        new_entropy = _hash_mod(hashing.hash3(flow_ids, int(now_f), 0x9187),
+        new_entropy = _hash_mod(hashing.hash3(flow_ids, now, 0x9187),
                                 p.num_entropies)
         return s._replace(
             plb_marked=torch.where(boundary, 0.0, marked),

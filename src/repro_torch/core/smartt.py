@@ -31,7 +31,8 @@ F32 = torch.float32
 
 def _f32_now(now):
     """The tick as an f32 operand: a Python int/float (exact below 2**24,
-    which every tick budget is) or a 0-d tensor."""
+    which every tick budget is), a 0-d tensor, or a lane batch's ticks as
+    an i32 ``[L, 1]`` column."""
     if isinstance(now, torch.Tensor):
         return now.to(F32)
     return float(now)

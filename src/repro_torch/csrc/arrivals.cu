@@ -43,7 +43,15 @@
 //    last block to finish (a count of finished blocks, threadfence
 //    reduction), which also resets the scratch row.  Built with
 //    --fmad=false; every result is bit-equal to the plain version.
-#include "common.cuh"
+//  * Lanes (lanes.cuh): one grid row a lane of the batch.  The block reads
+//    its lane's gate and tick, derives the wire, ACK and trim slots, the
+//    goodput bin and the fct base from the tick, and moves every pointer
+//    by its lane stride (the goodput bin width per lane where a study
+//    sweeps it).  The scratch row and so the count of finished blocks are
+//    per lane: the last block of its own lane adds that lane's totals.
+#include <cstddef>
+
+#include "lanes.cuh"
 
 constexpr int kMaxRow = 1024;       // fan-in slots a row (threads a block)
 
@@ -69,7 +77,10 @@ struct ArrivalsArgs {
     int *scratch;               // [2 + nf + 1]: finished blocks, the tick's
                                 // delivered bytes, trim_seen staging; zero
                                 // between launches
+    const int *goodput_bin;     // ticks a goodput_hist bin
+    long long ls[23];           // each pointer's lane stride, bytes
     int nsw, d, eq, ne, nq, qe, n, nf, cap, ww, maxw, mtu, trimming, credit, faulty;
+    int l, r, ret, trim_delay;
 };
 
 // The wire size of packet `seq` of a flow of `size` bytes (i32 wrap as in
@@ -191,8 +202,16 @@ __device__ __forceinline__ void deliver_nodes(const ArrivalsArgs& a, int wire, i
 }
 
 __global__ void __launch_bounds__(kMaxRow)
-arrivals_kernel(ArrivalsArgs a, int wire, int aslot, int tslot, int gbin, int fct_base,
+arrivals_kernel(ArrivalsArgs a0, const int* now, const bool* live,
                 const bool* fault_active) {
+    const int lane = blockIdx.y;
+    const bool go = live[lane];
+    const int t = now[lane];  // both loads issued at once
+    if (!go) return;  // the whole block: its lane is idle
+    const ArrivalsArgs a = at_lane<23>(a0, lane);
+    const int wire = floor_mod(t, a.l);
+    const int aslot = floor_mod(t + a.ret, a.r), tslot = floor_mod(t + a.trim_delay, a.r);
+    const int fct_base = t + a.ret;
     if (blockIdx.x < a.nsw)
         enqueue_row(a, wire, tslot);
     else
@@ -212,8 +231,10 @@ arrivals_kernel(ArrivalsArgs a, int wire, int aslot, int tslot, int gbin, int fc
         const float db = (float)atomicExch(a.scratch + 1, 0);
         *a.delivered_bytes = *a.delivered_bytes + db;
         if (a.faulty) {
+            const int gb = t / *a.goodput_bin;
+            const int gbin = gb < 63 ? gb : 63;     // GOODPUT_BINS - 1
             a.goodput_hist[gbin] = a.goodput_hist[gbin] + db;
-            if (*fault_active) *a.delivered_bytes_fault = *a.delivered_bytes_fault + db;
+            if (fault_active[lane]) *a.delivered_bytes_fault = *a.delivered_bytes_fault + db;
         }
         a.scratch[0] = 0;
     }
@@ -224,14 +245,14 @@ arrivals_kernel(ArrivalsArgs a, int wire, int aslot, int tslot, int gbin, int fc
         }
 }
 
-REPRO_EXPORT int repro_arrivals(const ArrivalsArgs* a, int wire, int aslot, int tslot,
-                                int gbin, int fct_base, const bool* fault_active,
-                                void* stream) {
-    if (a->d < 1 || a->d > kMaxRow || (a->faulty && !fault_active))
+REPRO_EXPORT int repro_arrivals(const ArrivalsArgs* a, const int* now, const bool* live,
+                                const bool* fault_active, int lanes, void* stream) {
+    static_assert(offsetof(ArrivalsArgs, ls) == 23 * sizeof(void*), "23 pointers");
+    if (a->d < 1 || a->d > kMaxRow || (a->faulty && !fault_active) || a->l < 1 || a->r < 1
+        || lanes < 1 || lanes > 65535)
         return (int)cudaErrorInvalidValue;
     const int threads = ((a->d + 31) / 32) * 32;
-    const int blocks = a->nsw + (a->n + threads - 1) / threads;
-    arrivals_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        *a, wire, aslot, tslot, gbin, fct_base, fault_active);
+    const dim3 grid(a->nsw + (a->n + threads - 1) / threads, lanes);
+    arrivals_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(*a, now, live, fault_active);
     return (int)cudaGetLastError();
 }

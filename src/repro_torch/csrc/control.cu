@@ -37,6 +37,17 @@
 // loads its flow's SMaRTT state before the drain, so those loads overlap
 // the ACK and ring loads.  Built with --fmad=false, every f32 result is
 // bit-equal to the plain version.
+//
+// Lanes (lanes.cuh): one grid row a lane of the batch.  The block reads its
+// lane's gate and tick and moves every pointer by its lane stride: the
+// rings, the state, the counters, the event rows and the finished-block
+// count one row a lane (so the last block *of the lane* zeroes its ACK
+// slot), rto, the SMaRTT parameter row (the 13 scalars, read from the
+// device) and the [3, nf] per-flow parameter plane per lane where a study
+// sweeps them, the workload's constants shared.
+#include <cstddef>
+
+#include "lanes.cuh"
 #include "smartt.cuh"
 
 constexpr int kFlows = 8;           // flows (warps) a block
@@ -52,6 +63,7 @@ struct ControlArgs {
     const int *dst, *size, *t_start;
     const float *rto;
     const float *pf;            // [3, nf]: brtt, trtt, mi (SMaRTT only)
+    const float *params;        // [13]: CCParamsC's scalars (SMaRTT only)
     // the control rings; slot t % r is read and then zeroed
     int *ack_ring;              // [r, n, 6]
     int *trim_ring;             // [r, nf + 1, 2 + ww]
@@ -70,14 +82,23 @@ struct ControlArgs {
     int *n_to, *spur, *n_ack, *rtt_hist;   // metric counters, added to
     int *ev;                    // [11, nf] event buffer
     unsigned int *blocks_done;  // finished blocks of this launch (0 between launches)
+    const bool *done;           // [nf] (read)
+    const int *bitmap;          // [nf + 1, maxw] receiver dedupe (read)
+    long long ls[30];           // each pointer's lane stride, bytes
     int nf, n, r, w, ww, maxw, mtu, backoff_max, bins, trimming, credit;
     float mtu_f, hist_scale;
 };
 
 template <bool kSmartt>
 __global__ void __launch_bounds__(kFlows * 32)
-control_kernel(ControlArgs a, CCParamsC p, int t,
-               const bool* __restrict__ done, const int* __restrict__ bitmap) {
+control_kernel(ControlArgs a0, const int* now, const bool* live) {
+    const int ln = blockIdx.y;
+    const bool go = live[ln];
+    const int t = now[ln];  // both loads issued at once
+    if (!go) return;  // the whole block: its lane is idle
+    const ControlArgs a = at_lane<30>(a0, ln);
+    const bool* __restrict__ done = a.done;
+    const int* __restrict__ bitmap = a.bitmap;
     __shared__ int s_hist[kMaxBins];
     __shared__ int s_cnt[3][kFlows];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -94,8 +115,10 @@ control_kernel(ControlArgs a, CCParamsC p, int t,
     if (f < a.nf) {
         const int nf = a.nf;
         Flow s{};
+        CCParamsC p{};
         float brtt = 0.0f, trtt = 0.0f, mi = 0.0f;
         if (kSmartt && lane == 0) {
+            p = *reinterpret_cast<const CCParamsC*>(a.params);
             s = Flow{a.cwnd[f], a.acked[f], a.qa_end[f], a.bytes_to_ignore[f],
                      a.bytes_ignored[f], a.fi_count[f], a.avg_wtd[f],
                      a.trigger_qa[f], a.fi_active[f], a.ack_count[f]};
@@ -275,15 +298,18 @@ control_kernel(ControlArgs a, CCParamsC p, int t,
     }
 }
 
-REPRO_EXPORT int repro_control(const ControlArgs* a, const CCParamsC* p, int t,
-                               const bool* done, const int* bitmap, int smartt,
-                               void* stream) {
-    const int blocks = (a->nf + 1 + kFlows - 1) / kFlows;   // + the sentinel rows
+REPRO_EXPORT int repro_control(const ControlArgs* a, const int* now, const bool* live,
+                               int smartt, int lanes, void* stream) {
+    static_assert(offsetof(ControlArgs, ls) == 30 * sizeof(void*), "30 pointers");
+    static_assert(sizeof(CCParamsC) == 13 * sizeof(float), "13 scalars");
+    const dim3 grid((a->nf + 1 + kFlows - 1) / kFlows, lanes);   // + the sentinel rows
     cudaStream_t s = (cudaStream_t)stream;
-    if (a->bins < 1 || a->bins > kMaxBins) return (int)cudaErrorInvalidValue;
+    if (a->bins < 1 || a->bins > kMaxBins || lanes < 1 || lanes > 65535)
+        return (int)cudaErrorInvalidValue;
+    if (smartt && !a->params) return (int)cudaErrorInvalidValue;
     if (smartt)
-        control_kernel<true><<<blocks, kFlows * 32, 0, s>>>(*a, *p, t, done, bitmap);
+        control_kernel<true><<<grid, kFlows * 32, 0, s>>>(*a, now, live);
     else
-        control_kernel<false><<<blocks, kFlows * 32, 0, s>>>(*a, *p, t, done, bitmap);
+        control_kernel<false><<<grid, kFlows * 32, 0, s>>>(*a, now, live);
     return (int)cudaGetLastError();
 }

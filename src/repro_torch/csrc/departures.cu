@@ -38,12 +38,19 @@
 //    phase and fabric.horizon rely on valid = 0).
 //  * The blackholed count is summed a block (__syncthreads_count) and
 //    added once with an integer atomic (order-free).
+//  * Lanes (lanes.cuh): one grid row a lane of the batch.  The block reads
+//    its lane's gate and tick, derives the two wire slots from the tick,
+//    and moves every pointer by its lane stride: the state and the counter
+//    one row a lane, kmin, kspan and fault_start per lane where a study
+//    sweeps them, the tables shared.
 // Built with --fmad=false and without --use_fast_math: the one f32
 // operation, the mark's quotient, is the IEEE divide of the plain version.
+#include <cstddef>
 #include <cstdint>
 
 #include "common.cuh"
 #include "hash.cuh"
+#include "lanes.cuh"
 #include "red.cuh"
 
 constexpr int kThreads = 256;
@@ -65,11 +72,19 @@ struct DeparturesArgs {
     // fault tables
     const int *ft_time, *ft_period;         // [nq, fkc]
     const int *fl_start, *fl_end, *fl_cycle, *fl_up, *fl_period;  // [nq]
-    int nq, cap, ne, nf, qe, fkc, fk, flapped;
+    long long ls[25];                       // each pointer's lane stride, bytes
+    int nq, cap, ne, nf, qe, fkc, fk, flapped, l, lat_core, lat_edge;
 };
 
 __global__ void __launch_bounds__(kThreads)
-departures_kernel(DeparturesArgs a, int t, int core_slot, int edge_slot) {
+departures_kernel(DeparturesArgs a0, const int* now, const bool* live) {
+    const int lane = blockIdx.y;
+    const bool go = live[lane];
+    const int t = now[lane];  // both loads issued at once
+    if (!go) return;  // the whole block: its lane is idle
+    const DeparturesArgs a = at_lane<25>(a0, lane);
+    const int core_slot = floor_mod(t + a.lat_core, a.l);
+    const int edge_slot = floor_mod(t + a.lat_edge, a.l);
     const int q = blockIdx.x * kThreads + threadIdx.x;
     bool dead = false;
     if (q < a.nq) {
@@ -135,11 +150,13 @@ departures_kernel(DeparturesArgs a, int t, int core_slot, int edge_slot) {
     if (threadIdx.x == 0 && n) atomicAdd(a.n_black, n);
 }
 
-REPRO_EXPORT int repro_departures(const DeparturesArgs* a, int t, int core_slot,
-                                  int edge_slot, void* stream) {
+REPRO_EXPORT int repro_departures(const DeparturesArgs* a, const int* now, const bool* live,
+                                  int lanes, void* stream) {
+    static_assert(offsetof(DeparturesArgs, ls) == 25 * sizeof(void*), "25 pointers");
+    if (a->l < 1 || lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
     if (a->nq > 0) {
-        departures_kernel<<<(a->nq + kThreads - 1) / kThreads, kThreads, 0,
-                            (cudaStream_t)stream>>>(*a, t, core_slot, edge_slot);
+        const dim3 grid((a->nq + kThreads - 1) / kThreads, lanes);
+        departures_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(*a, now, live);
     }
     return (int)cudaGetLastError();
 }

@@ -48,12 +48,18 @@
 //    emitting or not; the winner then pays its packet.
 //  * The retransmission count is summed a block (__syncthreads_count) and
 //    added once with an integer atomic (order-free).
+//  * Lanes (lanes.cuh): one grid row a lane of the batch.  The block reads
+//    its lane's gate and tick, derives the wire slot from the tick, and
+//    moves every pointer of both argument structs by its lane stride (the
+//    state one row a lane, num_entropies per lane where a study sweeps it,
+//    the workload's tables shared).
 // Built with --fmad=false: the f32 work is single adds, subtracts and
 // compares, as in the plain version, so every result is bit-equal.
+#include <cstddef>
 #include <cstdint>
 
-#include "common.cuh"
 #include "hash.cuh"
+#include "lanes.cuh"
 
 constexpr int kWarps = 8;                  // sender rows a block
 constexpr unsigned kFull = 0xffffffffu;
@@ -79,7 +85,8 @@ struct SendsArgs {
     float *pace_accum;                      // [nf]
     int *explore_sent, *spray_ctr;          // [nf]
     int *n_retx;                            // counter
-    int nf, n, fmax, d, w, ne, nq, window, credit, paced, lb_mode, mtu;
+    long long ls[23];                       // each pointer's lane stride, bytes
+    int nf, n, fmax, d, w, ne, nq, window, credit, paced, lb_mode, mtu, l, lat_send;
 };
 
 // The operands earlier phases replace each tick (passed every launch).
@@ -88,6 +95,7 @@ struct SendsTick {
     float *credits, *spec_budget;               // [nf]
     int *next_entropy;                          // [nf]
     const int *cached_entropy, *plb_entropy;    // [nf]
+    long long ls[8];                            // each pointer's lane stride, bytes
 };
 
 // i32 product with the reference's wrap.
@@ -96,7 +104,14 @@ __device__ __forceinline__ int mul_wrap(int a, int b) {
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
-sends_kernel(SendsArgs a, SendsTick k, int t, int wire) {
+sends_kernel(SendsArgs a0, SendsTick k0, const int* now, const bool* live) {
+    const int ln = blockIdx.y;
+    const bool go = live[ln];
+    const int t = now[ln];  // both loads issued at once
+    if (!go) return;  // the whole block: its lane is idle
+    const SendsArgs a = at_lane<23>(a0, ln);
+    const SendsTick k = at_lane<8>(k0, ln);
+    const int wire = floor_mod(t + a.lat_send, a.l);
     const int lane = threadIdx.x & 31;
     const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
     const bool live_row = row < a.n;         // warp-uniform
@@ -247,11 +262,14 @@ sends_kernel(SendsArgs a, SendsTick k, int t, int wire) {
     if (threadIdx.x == 0 && n_retx) atomicAdd(a.n_retx, n_retx);
 }
 
-REPRO_EXPORT int repro_sends(const SendsArgs* a, const SendsTick* k, int t, int wire,
-                             void* stream) {
-    if (a->n < 1 || a->fmax < 1 || a->w < 1 || a->lb_mode < kReps || a->lb_mode > kPlb)
+REPRO_EXPORT int repro_sends(const SendsArgs* a, const SendsTick* k, const int* now,
+                             const bool* live, int lanes, void* stream) {
+    static_assert(offsetof(SendsArgs, ls) == 23 * sizeof(void*), "23 pointers");
+    static_assert(offsetof(SendsTick, ls) == 8 * sizeof(void*), "8 pointers");
+    if (a->n < 1 || a->fmax < 1 || a->w < 1 || a->lb_mode < kReps || a->lb_mode > kPlb
+        || a->l < 1 || lanes < 1 || lanes > 65535)
         return (int)cudaErrorInvalidValue;
-    const int blocks = (a->n + kWarps - 1) / kWarps;
-    sends_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(*a, *k, t, wire);
+    const dim3 grid((a->n + kWarps - 1) / kWarps, lanes);
+    sends_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(*a, *k, now, live);
     return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@
 // repro_torch/core/smartt.py (and so of the reference) operation by
 // operation.  Built with --fmad=false, no multiply-add is contracted, so
 // every f32 result is bit-equal to the plain PyTorch version, where each
-// operation is its own kernel.  The 13 scalar parameters arrive by value
-// in a struct, as the reference's packed parameter vector does; like the
+// operation is its own kernel.  The 13 scalar parameters arrive in a
+// struct, as the reference's packed parameter vector does (by value to
+// cc_update.cu; control.cu reads it from the device, one a lane); like the
 // reference (cc_update/ref.py:30) `react_every` arrives as f32 and is cast
 // to int.
 #pragma once

@@ -3,9 +3,11 @@
 ``get(backend)`` resolves ``SimConfig.fabric_backend`` to the callable
 ``fabric.arrivals`` runs the phase through:
 
-  ``run(t, slots, flags, operands) -> None`` (operands updated in place)
+  ``run(tick, trim_delay, flags, operands, gbin) -> None`` (operands
+  updated in place)
 
-with the contract of ``ref.arrivals_ref``.  ``"kernel"`` launches the CUDA
+on a lane batch (``kernels/lanes``), with the contract of
+``ref.arrivals_lanes_ref``.  ``"kernel"`` launches the CUDA
 kernel for CUDA tensors and takes the plain version for CPU tensors;
 ``"plain"`` always takes the plain version; ``"split"`` is the earlier
 design, ``arrivals_ref``'s PyTorch with the ``enqueue_rank`` kernel in
@@ -24,10 +26,11 @@ from repro_torch.kernels.enqueue_arb import ops as enqueue_arb_ops
 BACKENDS = ("kernel", "plain", "split")
 
 
-def arrivals(t: int, s: R.Slots, fl: R.Flags, o: R.Operands, *, backend: str = "kernel"):
+def arrivals(k, trim_delay: int, fl: R.Flags, o: R.Operands, gbin, *,
+             backend: str = "kernel"):
     if build.use_kernel(backend, o.infl):
-        return K.arrivals(t, s, fl, o)
-    return R.arrivals_ref(t, s, fl, o)
+        return K.arrivals(k, trim_delay, fl, o, gbin)
+    return R.arrivals_lanes_ref(k, trim_delay, fl, o, gbin)
 
 
 def get(backend: str):
@@ -35,6 +38,6 @@ def get(backend: str):
     if backend not in BACKENDS:
         raise KeyError(f"unknown fabric backend {backend!r}; have {BACKENDS}")
     if backend == "split":
-        return functools.partial(R.arrivals_ref, enqueue=functools.partial(
+        return functools.partial(R.arrivals_lanes_ref, enqueue=functools.partial(
             enqueue_arb_ops.enqueue_rank, backend="kernel"))
     return functools.partial(arrivals, backend=backend)

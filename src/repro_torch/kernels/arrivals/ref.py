@@ -18,7 +18,10 @@ the fused kernel's exact contract:
   4. the f32 metrics: one add of the tick's integer total each.
 
 It updates its operands in place (a state passed to a phase is consumed)
-and returns nothing.  Operation for operation the reference's
+and returns nothing.  ``arrivals_lanes_ref`` is the same phase on a lane
+batch (``kernels/lanes``: every operand ``[L, ...]``), the kernel's
+contract: ``arrivals_ref`` on each live lane at its own tick, with the
+slots and goodput bin of that tick, the other lanes left as they were.  Operation for operation the reference's
 ``fabric.arrivals`` (``repro/netsim/fabric.py:159``) but one: on the credit
 path each flow's rejected bytes are staged in integers and added to
 ``trim_seen`` once (the reference adds each packet in f32).  Whole packet
@@ -48,6 +51,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import lanes
 from repro_torch.kernels.enqueue_arb import ops as enqueue_arb_ops
 
 I32 = torch.int32
@@ -225,6 +229,31 @@ def arrivals_ref(t: int, s: Slots, fl: Flags, o: Operands, *, enqueue=None) -> N
         o.n_trim.add_(_isum(rej))
     else:
         o.n_drop.add_(_isum(rej))
+
+
+_VIEWS: dict = {}
+_HOST: list = [None, None]
+
+
+def slots(t: int, l: int, r: int, ret: int, trim_delay: int) -> Slots:
+    """The ring slots of tick ``t``."""
+    return Slots(wire=t % l, ack=(t + ret) % r, trim=(t + trim_delay) % r)
+
+
+def arrivals_lanes_ref(k: lanes.Tick, trim_delay: int, fl: Flags, o: Operands, gbin,
+                       *, enqueue=None) -> None:
+    """The phase on a lane batch, in place: :func:`arrivals_ref` on each
+    live lane at its own tick (``k.now_h``), with that tick's slots and
+    the lane's goodput bin width ``gbin`` (i32 ``[L]``, read on the host
+    once per tensor)."""
+    if _HOST[0] is not gbin:
+        _HOST[:] = [gbin, gbin.tolist()]
+    l, r = o.infl.shape[-3], o.ack_ring.shape[-3]
+    views = lanes.lane_views(_VIEWS, o, k.n)
+    for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):
+        if go:
+            arrivals_ref(t, slots(t, l, r, fl.ret, trim_delay),
+                         fl._replace(goodput_bin=_HOST[1][i]), views[i], enqueue=enqueue)
 
 
 def arrivals_by_owner(t: int, s: Slots, fl: Flags, o: Operands) -> None:

@@ -648,3 +648,79 @@ def departures_operands(case: dict, device):
     t = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
     o = R.Operands(**{k: t(case[k]) for k in R.Operands._fields})
     return case["t"], R.Lat(**case["lat"]), R.Flags(**case["flags"]), o
+
+
+# lane batches of the fused phases: (kind, shape, seed, flags); each stacks
+# three cases of one shape (seeds seed, seed + 1, seed + 2) at their own
+# ticks, the middle lane not live
+LANES_CASES = (
+    ("departures", DEPARTURES_CASES[1][0], 21, DEPARTURES_CASES[1][2]),
+    ("departures", DEPARTURES_CASES[4][0], 22, DEPARTURES_CASES[4][2]),
+    ("arrivals", ARRIVALS_CASES[2][0], 23, ARRIVALS_CASES[2][2]),
+    ("arrivals", ARRIVALS_CASES[3][0], 24, ARRIVALS_CASES[3][2]),
+    ("control", (16, 4, 64, 2, 8), 25, {}),
+    ("control", (40, 8, 96, 3, 12), 26, dict(credit_based=True, rto_backoff_max=3)),
+    ("sends", SENDS_CASES[2][0], 27, SENDS_CASES[2][2]),
+    ("sends", SENDS_CASES[3][0], 28, SENDS_CASES[3][2]),
+)
+
+
+def lanes_case(kind: str, shape: tuple, seed: int, *, n: int = 3, idle: int = 1,
+               **flags) -> dict:
+    """``n`` cases of one fused phase (``kind``: ``"departures"``,
+    ``"arrivals"``, ``"control"`` or ``"sends"``; ``shape`` its generator's
+    shape arguments) with the seeds ``seed, seed + 1, ...``, as one lane
+    batch: each lane at its own tick, lane ``idle`` not live.  The batch's
+    delays (the departures' wire latencies, the arrivals' ACK and trim
+    delays) are lane 0's."""
+    gen = dict(departures=departures_case, arrivals=arrivals_case,
+               control=control_case, sends=sends_case)[kind]
+    return dict(kind=kind, cases=[gen(*shape, seed + i, **flags) for i in range(n)],
+                live=[i != idle for i in range(n)])
+
+
+def lanes_operands(case: dict, device) -> dict:
+    """A :func:`lanes_case` on ``device`` (fresh tensors): ``tick`` (the
+    batch's ``kernels.lanes.Tick``), ``flags``, ``o`` (the phase's
+    Operands, every tensor ``[n, ...]``), the phase's delay argument
+    (``lat``, ``trim_delay`` with ``gbin``, or ``lat_send``), and per lane
+    the single-lane arguments of its plain version (``one``: ``(t, ...,
+    Flags)`` at the batch's delays)."""
+    import torch
+
+    from repro_torch.kernels import lanes
+    from repro_torch.netsim.state import tree_map
+
+    kind, cases = case["kind"], case["cases"]
+    make = dict(departures=departures_operands, arrivals=arrivals_operands,
+                control=control_operands, sends=sends_operands)[kind]
+    per = [make(c, device) for c in cases]
+    o = tree_map(lambda *xs: None if xs[0] is None else torch.stack(xs),
+                 *[p[-1] for p in per])
+    ts = [p[0] for p in per]
+    live = case["live"]
+    out = dict(tick=lanes.Tick(torch.tensor(ts, dtype=torch.int32, device=device),
+                               torch.tensor(live, device=device), tuple(ts), tuple(live)),
+               o=o)
+    if kind == "departures":
+        lat, fl = per[0][1], per[0][2]
+        out.update(lat=lat, flags=fl, one=[(t, lat, fl) for t in ts])
+    elif kind == "arrivals":
+        from repro_torch.kernels.arrivals import ref as AR
+        fl = per[0][2]
+        l, r = cases[0]["infl"].shape[0], cases[0]["ack_ring"].shape[0]
+        trim_delay = (per[0][1].trim - ts[0]) % r
+        gb = [p[2].goodput_bin for p in per]
+        out.update(flags=fl, trim_delay=trim_delay,
+                   gbin=torch.tensor(gb, dtype=torch.int32, device=device),
+                   one=[(t, AR.slots(t, l, r, fl.ret, trim_delay),
+                         fl._replace(goodput_bin=g)) for t, g in zip(ts, gb)])
+    elif kind == "control":
+        fl = per[0][1]
+        out.update(flags=fl, one=[(t, fl) for t in ts])
+    else:
+        fl, l = per[0][2], cases[0]["infl"].shape[0]
+        lat_send = (per[0][1] - ts[0]) % l
+        out.update(flags=fl, lat_send=lat_send,
+                   one=[(t, (t + lat_send) % l, fl) for t in ts])
+    return out

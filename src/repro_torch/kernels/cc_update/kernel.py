@@ -37,8 +37,9 @@ class Params(ctypes.Structure):
 
 
 # The scalar parameters are constant for a run, so their host copy is
-# made once per set of parameter tensors (one device read), not every tick
-# (the fused control kernel takes the same struct).
+# made once per set of parameter tensors (one device read), not every tick.
+# (The fused control kernel reads the same struct from the device, one row
+# a lane where a study sweeps it.)
 _host_params: list = [(), None]
 
 

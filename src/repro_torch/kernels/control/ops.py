@@ -3,9 +3,11 @@
 ``get(backend)`` resolves ``SimConfig.transport_backend`` to the callable
 ``transport.control`` runs the phase's per-flow work through:
 
-  ``run(t, flags, operands) -> CCEvent`` (views of one event buffer)
+  ``run(tick, flags, operands) -> CCEvent`` (``[L, NF]`` views of one
+  event buffer)
 
-with the contract of ``ref.control_ref``.  ``"kernel"`` launches the CUDA
+on a lane batch (``kernels/lanes``), with the contract of
+``ref.control_lanes_ref``.  ``"kernel"`` launches the CUDA
 kernel for CUDA tensors and takes the plain version for CPU tensors;
 ``"plain"`` always takes the plain version.  (``"split"``, the
 ``ring_drain`` and ``cc_update`` kernels with the PyTorch glue around
@@ -23,10 +25,10 @@ from repro_torch.kernels.control import ref as R
 BACKENDS = ("kernel", "plain")
 
 
-def control(t: int, fl: R.Flags, o: R.Operands, *, backend: str = "kernel"):
+def control(k, fl: R.Flags, o: R.Operands, *, backend: str = "kernel"):
     if build.use_kernel(backend, o.sent):
-        return K.control(t, fl, o)
-    return R.control_ref(t, fl, o)
+        return K.control(k, fl, o)
+    return R.control_lanes_ref(k, fl, o)
 
 
 def get(backend: str):

@@ -22,7 +22,11 @@ It updates in place: the sent ring's state plane, ``rto_backoff``,
 state passed to a phase is consumed, as the rings already are).  It
 returns the event as views of one buffer (:func:`new_events`,
 :func:`events`), which the load balancer and, with ``Flags.smartt`` off,
-the baselines' CC update take in PyTorch.
+the baselines' CC update take in PyTorch.  ``control_lanes_ref`` is the
+same phase on a lane batch (``kernels/lanes``: every operand ``[L, ...]``),
+the kernel's contract: ``control_ref`` on each live lane at its own tick,
+the other lanes left as they were, the event ``[L, NF]`` views (a lane
+that is not live reads zeros).
 
 Operation for operation the code of ``transport.control_split`` (the
 glue around the ring_drain and cc_update kernels), with
@@ -39,6 +43,7 @@ import torch
 
 from repro_torch.core.smartt import smartt_update
 from repro_torch.core.types import SMARTT_FIELDS, CCEvent, CCParams, CCState
+from repro_torch.kernels import lanes
 from repro_torch.kernels.ring_drain.ref import ring_drain_ref
 
 I32 = torch.int32
@@ -94,18 +99,21 @@ class Operands(NamedTuple):
     rtt_hist: torch.Tensor     # i32 [HIST_BINS], added to
 
 
-def new_events(nf: int, device) -> torch.Tensor:
-    """An event buffer for ``nf`` flows: i32 ``[K, nf]``."""
-    return torch.empty((K, nf), dtype=I32, device=device)
+def new_events(nf: int, device, n: int | None = None) -> torch.Tensor:
+    """An event buffer for ``nf`` flows: i32 ``[K, nf]``, or ``[n, K, nf]``
+    for ``n`` lanes."""
+    return torch.empty((K, nf) if n is None else (n, K, nf), dtype=I32, device=device)
 
 
 def events(buf: torch.Tensor) -> CCEvent:
-    """The event buffer's rows as a ``CCEvent`` of views (no copies)."""
-    nf = buf.shape[1]
+    """The event buffer's rows as a ``CCEvent`` of views (no copies):
+    ``[NF]`` each, or ``[L, NF]`` for a lane batch's buffer."""
+    nf = buf.shape[-1]
     out = {}
     for k, (name, dt) in enumerate(EVENT_FIELDS):
-        out[name] = buf[k].view(torch.uint8)[:nf].view(torch.bool) \
-            if dt == torch.bool else buf[k].view(dt)
+        row = buf[..., k, :]
+        out[name] = row.view(torch.uint8)[..., :nf].view(torch.bool) \
+            if dt == torch.bool else row.view(dt)
     return CCEvent(**out)
 
 
@@ -192,3 +200,21 @@ def control_ref(t: int, fl: Flags, o: Operands) -> CCEvent:
     for name, _ in EVENT_FIELDS:
         getattr(view, name).copy_(getattr(ev, name))
     return view
+
+
+_VIEWS: dict = {}
+
+
+def control_lanes_ref(k: lanes.Tick, fl: Flags, o: Operands) -> CCEvent:
+    """The phase on a lane batch: :func:`control_ref` on each live lane at
+    its own tick (``k.now_h``), in place; returns the event, ``[L, NF]``
+    views of one buffer (zeros for a lane that is not live)."""
+    views = lanes.lane_views(_VIEWS, o, k.n)
+    buf = torch.zeros((k.n, K, o.done.shape[-1]), dtype=I32, device=o.done.device)
+    out = events(buf)
+    for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):
+        if go:
+            ev = control_ref(t, fl, views[i])
+            for name, _ in EVENT_FIELDS:
+                getattr(out, name)[i].copy_(getattr(ev, name))
+    return out

@@ -3,9 +3,10 @@
 ``get(backend)`` resolves ``SimConfig.departures_backend`` to the callable
 ``fabric.departures`` runs the phase through:
 
-  ``run(t, lat, flags, operands) -> None`` (operands updated in place)
+  ``run(tick, lat, flags, operands) -> None`` (operands updated in place)
 
-with the contract of ``ref.departures_ref``.  ``"kernel"`` launches the
+on a lane batch (``kernels/lanes``), with the contract of
+``ref.departures_lanes_ref``.  ``"kernel"`` launches the
 CUDA kernel for CUDA tensors and takes the plain version for CPU tensors;
 ``"plain"`` always takes the plain version, which is also the earlier
 design (the phase in PyTorch, the RED flip inline).
@@ -22,11 +23,11 @@ from repro_torch.kernels.departures import ref as R
 BACKENDS = ("kernel", "plain")
 
 
-def departures(t: int, lat: R.Lat, fl: R.Flags, o: R.Operands, *,
+def departures(k, lat: R.Lat, fl: R.Flags, o: R.Operands, *,
                backend: str = "kernel") -> None:
     if build.use_kernel(backend, o.infl):
-        return K.departures(t, lat, fl, o)
-    return R.departures_ref(t, lat, fl, o)
+        return K.departures(k, lat, fl, o)
+    return R.departures_lanes_ref(k, lat, fl, o)
 
 
 def get(backend: str):

@@ -19,7 +19,10 @@ with the fused kernel's exact contract.  For every fabric port:
 
 It updates ``q_head``, ``q_size``, the ports' rows of the two wire slots
 and ``n_black`` in place (a state passed to a phase is consumed) and
-returns nothing.  Operation for operation the reference's
+returns nothing.  ``departures_lanes_ref`` is the same phase on a lane
+batch (``kernels/lanes``: every operand ``[L, ...]``), the kernel's
+contract: ``departures_ref`` on each live lane at its own tick, the
+other lanes left as they were.  Operation for operation the reference's
 ``fabric.departures`` (``repro/netsim/fabric.py:106``).
 
 ``departures_by_port`` computes the same function in the kernel's own
@@ -36,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import lanes
 from repro_torch.netsim import faults, hashing
 
 I32 = torch.int32
@@ -159,6 +163,18 @@ def departures_ref(t: int, lat: Lat, fl: Flags, o: Operands) -> None:
     o.infl[(t + lat.edge) % L, B:NQ] = payload[B:]
     o.q_head[:NQ] = torch.where(active, torch.remainder(head + 1, CAP), head)
     o.q_size[:NQ] -= active.to(I32)
+
+
+_VIEWS: dict = {}
+
+
+def departures_lanes_ref(k: lanes.Tick, lat: Lat, fl: Flags, o: Operands) -> None:
+    """The phase on a lane batch, in place: :func:`departures_ref` on each
+    live lane at its own tick (``k.now_h``)."""
+    views = lanes.lane_views(_VIEWS, o, k.n)
+    for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):
+        if go:
+            departures_ref(t, lat, fl, views[i])
 
 
 # ------------------------------------------ the kernel's own formulation

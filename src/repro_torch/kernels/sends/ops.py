@@ -3,9 +3,11 @@
 ``get(backend)`` resolves ``SimConfig.sender_backend`` to the callable
 ``sender.sends`` runs the phase through:
 
-  ``run(t, wire, flags, operands) -> None`` (operands updated in place)
+  ``run(tick, lat_send, flags, operands) -> None`` (operands updated in
+  place)
 
-with the contract of ``ref.sends_ref``.  ``"kernel"`` launches the CUDA
+on a lane batch (``kernels/lanes``), with the contract of
+``ref.sends_lanes_ref``.  ``"kernel"`` launches the CUDA
 kernel for CUDA tensors and takes the plain version for CPU tensors;
 ``"plain"`` always takes the plain version; ``"split"`` is the earlier
 design, ``sends_ref``'s PyTorch with the ``rr_pick`` kernel in it (its
@@ -26,10 +28,10 @@ from repro_torch.kernels.sends import ref as R
 BACKENDS = ("kernel", "plain", "split")
 
 
-def sends(t: int, wire: int, fl: R.Flags, o: R.Operands, *, backend: str = "kernel"):
+def sends(k, lat_send: int, fl: R.Flags, o: R.Operands, *, backend: str = "kernel"):
     if build.use_kernel(backend, o.infl):
-        return K.sends(t, wire, fl, o)
-    return R.sends_ref(t, wire, fl, o)
+        return K.sends(k, lat_send, fl, o)
+    return R.sends_lanes_ref(k, lat_send, fl, o)
 
 
 def _check(backend: str) -> None:
@@ -41,7 +43,7 @@ def get(backend: str):
     """Resolve a sender backend name to the sends phase's callable."""
     _check(backend)
     if backend == "split":
-        return functools.partial(R.sends_ref, arb=grant_pick("kernel"))
+        return functools.partial(R.sends_lanes_ref, arb=grant_pick("kernel"))
     return functools.partial(sends, backend=backend)
 
 

@@ -23,6 +23,13 @@ It updates in place: the NIC rows of the wire slot, the sent ring,
 the LB counters (``next_entropy``, ``explore_sent``, ``spray_ctr``) and
 ``n_retx`` (a state passed to a phase is consumed).  Operation for
 operation the reference's ``sender.sends`` (``repro/netsim/sender.py:132``).
+``sends_lanes_ref`` is the same phase on a lane batch (``kernels/lanes``:
+every operand ``[L, ...]``), the kernel's contract: ``sends_ref`` on each
+live lane at its own tick and wire slot, the other lanes left as they
+were.  ``activated`` and ``admission`` take a lane batch too (the run
+loop's leap horizon and the EQDS grants read them for every lane at
+once): a state ``[L, ...]`` with the run's constants as they are (shared)
+or ``[L, 1]``-shaped (swept), and the tick as an i32 ``[L, 1]`` column.
 
 ``sends_by_sender`` computes the same function in the kernel's own
 formulation: each sender's row of ``flows_of`` taken 32 slots at a time
@@ -43,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import reps
+from repro_torch.kernels import lanes
 from repro_torch.kernels.enqueue_arb import ops as enqueue_arb_ops
 from repro_torch.netsim import fabric, hashing
 
@@ -109,41 +117,44 @@ def _isum(x):
     return torch.sum(x, dtype=I32)
 
 
-def activated(t: int, t_start, done, goodput, dep_par, dep_thr):
+def activated(t, t_start, done, goodput, dep_par, dep_thr):
     """The activation predicate (DESIGN.md Sec. 11): a flow is live once
     ``t >= t_start``, it is unfinished, and — when the workload carries a
     dependency table — every parent has delivered its threshold bytes."""
     act = (t >= t_start) & ~done
-    if dep_par.shape[1]:
+    if dep_par.shape[-1]:
         # goodput of each parent (pad row NF covers the free-slot sentinel)
-        gp = torch.cat([goodput, goodput.new_zeros(1)])[dep_par]
-        ok = (dep_par == done.shape[0]) | (gp >= dep_thr)
-        act = act & torch.all(ok, dim=1)
+        gp = torch.cat([goodput, goodput.new_zeros(goodput.shape[:-1] + (1,))],
+                       dim=-1)[..., dep_par]
+        ok = (dep_par == done.shape[-1]) | (gp >= dep_thr)
+        act = act & torch.all(ok, dim=-1)
     return act
 
 
-def admission(t: int, fl: Flags, o: Operands):
+def admission(t, fl: Flags, o: Operands):
     """Send admission of every flow at tick ``t``, *excluding* rate pacing
     (``sends_ref`` folds in the freshly accrued pacing budget).  Returns
     ``(elig, has_retx, seq_emit, nsize)``."""
-    NF, FMAX, W = o.src.shape[0], o.flows_of.shape[1], o.sent.shape[2]
+    NF, FMAX, W = o.src.shape[-1], o.flows_of.shape[-1], o.sent.shape[-1]
     mtu = fl.mtu
     started = activated(t, o.t_start, o.done, o.goodput, o.dep_par, o.dep_thr)
     if fl.window < FMAX:
         # windowed-alltoall eligibility: < window unfinished predecessors,
         # gathered from the per-sender prefix count
-        done_p = torch.cat([o.done, o.done.new_ones(1)])
-        unfin = ~done_p[o.flows_of] & (o.flows_of < NF)       # [N, FMAX]
-        prior_unfin = torch.cumsum(unfin, dim=1, dtype=I32) - unfin.to(I32)
-        started = started & (prior_unfin[o.src, o.slot_of] < fl.window)
+        done_p = torch.cat([o.done, o.done.new_ones(o.done.shape[:-1] + (1,))], dim=-1)
+        unfin = ~done_p[..., o.flows_of] & (o.flows_of < NF)  # [.., N, FMAX]
+        prior_unfin = torch.cumsum(unfin, dim=-1, dtype=I32) - unfin.to(I32)
+        started = started & (prior_unfin[..., o.src, o.slot_of] < fl.window)
 
-    is_retx = o.sent[0, :NF] == 3
-    has_retx = torch.any(is_retx, dim=1)
-    retx_slot = torch.argmax(is_retx.to(I32), dim=1)     # first index on ties
-    retx_seq = o.sent[1, o.flow_ids, retx_slot]
+    ring = o.sent[..., 0, :NF, :]
+    is_retx = ring == 3
+    has_retx = torch.any(is_retx, dim=-1)
+    retx_slot = torch.argmax(is_retx.to(I32), dim=-1)    # first index on ties
+    retx_seq = torch.gather(o.sent[..., 1, :NF, :], -1, retx_slot[..., None])[..., 0]
     new_seq = o.next_seq
     new_slot = torch.remainder(new_seq, W)
-    new_ok = (new_seq * mtu < o.size) & (o.sent[0, o.flow_ids, new_slot] == 0)
+    new_ok = (new_seq * mtu < o.size) & \
+        (torch.gather(ring, -1, new_slot.long()[..., None])[..., 0] == 0)
     seq_emit = torch.where(has_retx, retx_seq, new_seq)
     nsize = (o.size - seq_emit * mtu).clamp(0, mtu).to(F32)
     win_ok = o.unacked + nsize <= o.cwnd
@@ -248,6 +259,20 @@ def sends_ref(t: int, wire: int, fl: Flags, o: Operands, *, arb=None) -> None:
         o.spec_budget.copy_(spec_budget)
     if fl.paced:
         o.pace_accum.copy_(pace - spend)
+
+
+_VIEWS: dict = {}
+
+
+def sends_lanes_ref(k: lanes.Tick, lat_send: int, fl: Flags, o: Operands, *,
+                    arb=None) -> None:
+    """The phase on a lane batch, in place: :func:`sends_ref` on each live
+    lane at its own tick (``k.now_h``) and wire slot ``(t + lat_send) % L``."""
+    l = o.infl.shape[-3]
+    views = lanes.lane_views(_VIEWS, o, k.n)
+    for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):
+        if go:
+            sends_ref(t, (t + lat_send) % l, fl, views[i], arb=arb)
 
 
 def sends_by_sender(t: int, wire: int, fl: Flags, o: Operands) -> None:

@@ -10,19 +10,21 @@ The names, the sweep-point vocabulary, the result types and their
 metrics are the reference's (``repro/netsim/api.py``).  Runs go on the
 card unless the caller asks for the CPU (``device="cpu"``).
 
-A :class:`Study` runs its ``[P*S]`` lanes one after another, each through
-``engine.build(apply_point(cfg, point), wl, device).run(max_ticks,
-seed=seed)``; points whose configs are equal share one build.  The
-reference guarantees that every lane of its vmapped study equals the
-standalone ``Sim.run`` of its (point, seed) bit for bit, so running the
-lanes one by one computes exactly its results.  A batched executor (lanes
-as a leading axis of the fused kernels, ROADMAP.md Queue 1 item 3) will
-replace only how the lanes run, and is held to this one.
+A :class:`Study` holds the reference's lane-batched constants: every
+``Consts`` leaf that differs across points gets a leading ``[P*S]`` axis
+in point-major order (axis 0), every leaf equal across points stays
+shared (axis ``None``) — ``_stack_consts``.  Its lanes run as one batch on
+the card (``netsim/shard.py``: one launch of each fused tick kernel a
+batched tick, for all live lanes, each lane gated and leaping on its
+own), and every lane equals the standalone ``Sim.run`` of its (point,
+seed) bit for bit, as in the reference.  A config that names an earlier
+design's backend (``departures_backend="plain"``, a ``"split"`` one) runs
+one lane only and raises at plan time.
 
 ``Study.run`` keeps the reference's ``cache=`` (``netsim/cache.py``, the
 lanes content-addressed) and ``chunk_lanes=`` (flush each finished chunk
-to the cache, so a killed grid resumes).  ``mesh=`` (lanes over several
-cards) is not ported and raises.
+to the cache, so a killed grid resumes).  ``mesh=`` over more than one
+card is not ported and raises.
 
 Every metric is numpy arithmetic on host copies of the final state, as
 in the reference: no divide of a tensor appears in a result.
@@ -38,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.netsim import cache as cache_mod
-from repro_torch.netsim import engine, faults as faults_mod, scenarios, state
+from repro_torch.netsim import engine, faults as faults_mod, scenarios, shard, state
 from repro_torch.netsim.metrics import jain_fairness
 from repro_torch.netsim.scenarios import Scenario
 
@@ -107,6 +109,37 @@ def point_tag(point) -> str:
     """Human/ledger tag for a sweep point (``"base"`` for the empty one)."""
     kv = _norm_point(point)
     return "+".join(f"{k}={v:g}" for k, v in kv) if kv else "base"
+
+
+# --------------------------------------------------------------------------
+# Consts lane batching
+# --------------------------------------------------------------------------
+
+
+no_axes = state.no_axes
+
+
+def _stack_consts(consts_list, repeats: int):
+    """Stack per-point Consts into a lane batch.
+
+    Leaves equal across points stay unbatched (axis ``None``); varying
+    leaves are stacked to ``[P]`` and repeated ``repeats`` times along axis
+    0 to ``[P*repeats]`` (point-major lane order).  Returns ``(consts_b,
+    axes)``, ``axes`` the matching tree of 0 / None."""
+    flats = [state.tree_leaves(c) for c in consts_list]
+    leaves, axes = [], []
+    for slot in zip(*flats):
+        x0 = slot[0]
+        if all(x.shape == x0.shape and torch.equal(x, x0) for x in slot[1:]):
+            leaves.append(x0)
+            axes.append(None)
+        else:
+            stacked = torch.stack(slot)
+            leaves.append(stacked.repeat_interleave(repeats, dim=0)
+                          if repeats > 1 else stacked)
+            axes.append(0)
+    template = consts_list[0]
+    return state.tree_unflatten(template, leaves), state.tree_unflatten(template, axes)
 
 
 # --------------------------------------------------------------------------
@@ -562,17 +595,16 @@ class Study:
     :func:`study`; execute via :meth:`run` (typed results) or
     :meth:`run_states` (the ``[P*S]`` final states).
 
-    The reference's study holds a lane-batched ``Consts`` and its vmap
-    axes; the port holds the per-point simulators instead and runs the
-    lanes one after another.  Lanes equal standalone runs bit for bit in
-    both, so the batched executor of ROADMAP.md Queue 1 item 3 replaces
-    only how the lanes run."""
+    As the reference's, it holds the lane-batched constants ``consts_b``
+    and their axes (0: swept, one row a lane; ``None``: shared), and runs
+    its lanes as one batch (``shard.run_lanes``)."""
 
     scenario: Scenario
     points: tuple             # P normalized ((k, v), ...) points
     seeds: tuple              # S ints
-    sim: engine.Sim           # built for the base config
-    sims: tuple               # P sims, one per point (equal configs share one)
+    sim: engine.Sim           # built for the base config (the tick, Dims)
+    consts_b: state.Consts    # [P*S]-batched where swept, shared otherwise
+    axes: state.Consts        # matching tree: 0 (swept) / None (shared)
     salts: tuple              # P*S ints, lane = p*S + s -> seeds[s]
 
     @property
@@ -599,23 +631,39 @@ class Study:
         """``(point, seed)`` of one point-major lane index."""
         return self.points[lane // self.n_seeds], self.salts[lane]
 
-    def lane_sim(self, lane: int) -> engine.Sim:
-        return self.sims[lane // self.n_seeds]
+    def _consts_subset(self, lanes):
+        """Batched Consts restricted to ``lanes`` (swept leaves row-gathered,
+        shared leaves untouched)."""
+        if len(lanes) == self.n_lanes and list(lanes) == list(range(self.n_lanes)):
+            return self.consts_b
+        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=self.device)
+        return state.tree_map(lambda x, a: x.index_select(0, idx) if a == 0 else x,
+                              self.consts_b, self.axes)
 
-    def _run_lane(self, lane: int, max_ticks: int) -> state.SimState:
-        """One lane's final state, copied to the host."""
-        st = self.lane_sim(lane).run(max_ticks, seed=self.salts[lane])
+    def init(self, lanes=None) -> state.SimState:
+        """The tick-0 lane batch (all ``[P*S]`` lanes, or ``lanes``) on the
+        device, each lane under its own constants and seed salt."""
+        lanes = range(self.n_lanes) if lanes is None else lanes
+        return state.init_lanes(self.sim.dims, self._consts_subset(lanes), self.axes,
+                                [self.salts[i] for i in lanes])
+
+    def _run_lane_subset(self, lanes, max_ticks: int, mesh=None) -> state.SimState:
+        """Run only ``lanes`` (absolute point-major indices) as one batch and
+        return their ``[len(lanes)]`` final states, copied to the host.
+        Each lane's trajectory does not depend on the batch it runs in
+        (per-lane gating and leaping), so the result is bit-equal to the
+        same lanes of a full-grid run."""
+        lanes = list(lanes)
+        st = shard.run_lanes(self.sim, self._consts_subset(lanes), self.axes,
+                             self.init(lanes), max_ticks, mesh=mesh)
         return state.to_numpy(st)
 
     def run_states(self, max_ticks: int | None = None, *,
                    mesh=None) -> state.SimState:
-        """Run every lane to completion; their final states stacked on the
-        host along a leading ``[P*S]`` axis."""
-        if mesh is not None:
-            raise NotImplementedError(engine.MESH_TODO)
-        mt = self._max_ticks(max_ticks)
-        return state.stack_lanes([self._run_lane(i, mt)
-                                  for i in range(self.n_lanes)])
+        """Run every lane to completion as one batch; their final states
+        stacked on the host along a leading ``[P*S]`` axis."""
+        return self._run_lane_subset(range(self.n_lanes), self._max_ticks(max_ticks),
+                                     mesh=mesh)
 
     def lane_keys(self, max_ticks: int | None = None) -> list:
         """Content address of every lane (``cache.lane_key``) — the
@@ -628,20 +676,18 @@ class Study:
                 for lane in range(self.n_lanes)]
 
     def _lane_result(self, lane_st, lane: int, max_ticks: int,
-                     metas: dict) -> RunResult:
+                     meta: dict) -> RunResult:
         pt, seed = self.lane_point_seed(lane)
-        sim = self.lane_sim(lane)
-        if id(sim) not in metas:
-            metas[id(sim)] = _flow_meta(sim)
         return RunResult.from_state(
-            sim, lane_st, scenario=self.scenario.name,
-            point=pt, seed=seed, max_ticks=max_ticks, flow_meta=metas[id(sim)])
+            self.sim, lane_st, scenario=self.scenario.name,
+            point=pt, seed=seed, max_ticks=max_ticks, flow_meta=meta)
 
     def run(self, max_ticks: int | None = None, *, mesh=None,
             cache=None, chunk_lanes: int | None = None) -> StudyResult:
         """Execute the grid and pull typed per-lane results.
 
-        ``mesh``         lanes over several cards: not ported, raises.
+        ``mesh``         the devices of ``shard.lane_mesh()``: one device
+                         runs the batch there; more raise (not ported).
         ``cache``        reuse finished lanes by content address —
                          ``True`` (default dir), a path, or a
                          :class:`cache.ResultCache`; only missing lanes
@@ -652,32 +698,30 @@ class Study:
                          checkpoint granularity for resumable grids.
 
         Every combination is bit-equal to the plain uncached run."""
-        if mesh is not None:
-            raise NotImplementedError(engine.MESH_TODO)
         mt = self._max_ticks(max_ticks)
         rc = cache_mod.resolve(cache)
         _sync(self.device)
         t0 = time.perf_counter()
         if rc is None and chunk_lanes is None:
-            states_h = self.run_states(mt)
+            states_h = self.run_states(mt, mesh=mesh)
             hits, misses = 0, self.n_lanes
         else:
             states_h, hits, misses = self._run_stitched(
-                mt, rc=rc, chunk_lanes=chunk_lanes)
+                mt, rc=rc, chunk_lanes=chunk_lanes, mesh=mesh)
         wall = time.perf_counter() - t0
-        metas = {}
-        results = [self._lane_result(state.lane(states_h, lane), lane, mt, metas)
+        meta = _flow_meta(self.sim)
+        results = [self._lane_result(state.lane(states_h, lane), lane, mt, meta)
                    for lane in range(self.n_lanes)]
         return StudyResult(scenario=self.scenario.name, points=self.points,
                            seeds=self.seeds, results=tuple(results),
                            states=states_h, wall_s=wall,
                            cache_hits=hits, cache_misses=misses)
 
-    def _run_stitched(self, mt: int, *, rc, chunk_lanes):
+    def _run_stitched(self, mt: int, *, rc, chunk_lanes, mesh=None):
         """Cached/chunked execution: look every lane up in the cache, run
-        the misses in chunks (flushing each finished chunk back), and
-        stitch hits and fresh lanes into one host-side ``[P*S]`` stack.
-        Returns ``(states_h, hits, misses)``."""
+        the misses in chunks, each chunk one batch (flushing each finished
+        chunk back), and stitch hits and fresh lanes into one host-side
+        ``[P*S]`` stack.  Returns ``(states_h, hits, misses)``."""
         lane_states = [None] * self.n_lanes
         keys = self.lane_keys(mt) if rc is not None else None
         if rc is not None:
@@ -688,16 +732,17 @@ class Study:
                     lane_states[lane] = hit[0]
         missing = [i for i in range(self.n_lanes) if lane_states[i] is None]
         hits = self.n_lanes - len(missing)
-        metas = {}
+        meta = _flow_meta(self.sim)
         step = int(chunk_lanes) if chunk_lanes else max(len(missing), 1)
         cd = cache_mod.code_digest() if rc is not None else None
         for lo in range(0, len(missing), step):
             chunk = missing[lo:lo + step]
-            out = [self._run_lane(lane, mt) for lane in chunk]
-            for lane, lane_st in zip(chunk, out):
+            out = self._run_lane_subset(chunk, mt, mesh=mesh)
+            for j, lane in enumerate(chunk):
+                lane_st = state.lane(out, j)
                 lane_states[lane] = lane_st
                 if rc is not None:
-                    res = self._lane_result(lane_st, lane, mt, metas)
+                    res = self._lane_result(lane_st, lane, mt, meta)
                     rc.put(keys[lane], lane_st, res.row(),
                            extra=dict(code_digest=cd, name=res.name))
         return state.stack_lanes(lane_states), hits, len(missing)
@@ -733,21 +778,25 @@ def study(sc, points=None, seeds=(0,), device="cuda",
     if not seeds:
         raise ValueError("empty seeds")
     cfgs = [apply_point(sc.cfg, dict(pt)) for pt in pts]   # keys checked first
+    engine.check_lane_backends(sc.cfg)
     # engine.build -> state.derive validates the workload up front
     sim = engine.build(sc.cfg, sc.wl, device=device)
-    built = [(sc.cfg, sim)]
-    sims = []
+    derived = [(sc.cfg, sim.consts)]
+    per_point = []
     for cfg in cfgs:
-        for c, s in built:
+        for c, consts in derived:
             if c == cfg:
                 break
         else:
-            s = engine.build(cfg, sc.wl, device=device)
-            built.append((cfg, s))
-        sims.append(s)
+            _, _, dims, consts = state.derive(cfg, sc.wl, device)
+            if dims != sim.dims:
+                raise ValueError(f"point {cfg} changes Dims: {dims} != {sim.dims}")
+            derived.append((cfg, consts))
+        per_point.append(consts)
+    consts_b, axes = _stack_consts(per_point, len(seeds))
     salts = tuple(np.tile(np.asarray(seeds, np.int64), len(pts)).tolist())
     return Study(scenario=sc, points=pts, seeds=seeds, sim=sim,
-                 sims=tuple(sims), salts=salts)
+                 consts_b=consts_b, axes=axes, salts=salts)
 
 
 def run(sc, *, seed: int = 0, max_ticks: int | None = None, device="cuda",

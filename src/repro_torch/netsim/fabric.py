@@ -5,9 +5,11 @@
   2. ``arrivals``:  packets landing now -> enqueue (trim/drop on overflow)
      or deliver (receiver dedupe, ACK generation)
 
-Both are ``(Dims, Consts, SimState, Clock) -> SimState``; they communicate
-with the rest of the pipeline only through ``SimState`` fields (the wire
-ring ``infl``, the delayed control rings, and the receiver ledgers).
+Both are ``(Dims, LaneConsts, SimState, Tick) -> SimState`` on a lane
+batch (``state.LaneConsts``, ``kernels.lanes.Tick``: every state leaf
+``[L, ...]``, each lane at its own tick); they communicate with the rest
+of the pipeline only through ``SimState`` fields (the wire ring ``infl``,
+the delayed control rings, and the receiver ledgers).
 
 Each runs the whole phase in one call of a backend-resolved callable.
 ``departures`` calls ``kernels/departures``: the fused CUDA kernel on the
@@ -26,8 +28,9 @@ updated in place, which saves copying megabytes a tick: a state passed to
 a phase is consumed, as the reference's run loops consume (donate) theirs.
 
 ``horizon`` is the phases' next-event reduction for event-horizon time
-leaping (DESIGN.md Sec. 6.3): every delay ring keeps the invariant that a
-*valid* entry is a genuinely in-flight event (slots are zeroed when read).
+leaping (DESIGN.md Sec. 6.3), one per lane: every delay ring keeps the
+invariant that a *valid* entry is a genuinely in-flight event (slots are
+zeroed when read).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 from repro_torch.kernels.arrivals import ref as arrivals_ref
 from repro_torch.kernels.departures import ref as departures_ref
 from repro_torch.netsim import faults
-from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState
+from repro_torch.kernels.lanes import Tick
+from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, LaneConsts, SimState
 
 _ecmp = departures_ref.ecmp
 
@@ -123,14 +127,13 @@ def departures_operands(consts: Consts, st: SimState) -> departures_ref.Operands
         **{n: getattr(consts, n) for n in _DEPARTURES_CONSTS})
 
 
-def departures(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
-               run, fl: departures_ref.Flags) -> SimState:
+def departures(dims: Dims, c: LaneConsts, st: SimState, k: Tick, *,
+               run, lat: departures_ref.Lat, fl: departures_ref.Flags) -> SimState:
     """Phase 1: one head-of-line packet per active port onto the wire, in
     one call of ``run`` (the backend resolved by ``kernels/departures/
-    ops.get``), which updates the state's buffers in place."""
+    ops.get``) for every lane, which updates the state's buffers in place."""
     del dims
-    run(clk.t, departures_ref.Lat(core=clk.lat_core, edge=clk.lat_edge), fl,
-        departures_operands(consts, st))
+    run(k, lat, fl, departures_operands(c.l, st))
     return st
 
 
@@ -158,31 +161,29 @@ def operands(consts: Consts, st: SimState, fault_active) -> arrivals_ref.Operand
         delivered_bytes_fault=m.delivered_bytes_fault, fault_active=fault_active)
 
 
-def arrivals(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
-             run, fl: arrivals_ref.Flags) -> SimState:
-    """Phase 2: land this tick's wire slot — deliver at the edge (dedupe,
-    ACK generation) or enqueue mid-fabric (trim/drop on overflow) — in one
-    call of ``run`` (the backend resolved by ``kernels/arrivals/ops.get``),
-    which updates the state's buffers in place."""
-    t = clk.t
-    slots = arrivals_ref.Slots(wire=t % dims.L, ack=(t + clk.ret) % dims.R,
-                               trim=(t + clk.trim_delay) % dims.R)
-    active = faults.fault_active(dims, consts, t) if fl.faulty else None
-    run(t, slots, fl, operands(consts, st, active))
+def arrivals(dims: Dims, c: LaneConsts, st: SimState, k: Tick, *,
+             run, trim_delay: int, fl: arrivals_ref.Flags) -> SimState:
+    """Phase 2: land each lane's wire slot of its tick — deliver at the edge
+    (dedupe, ACK generation) or enqueue mid-fabric (trim/drop on overflow)
+    — in one call of ``run`` (the backend resolved by ``kernels/arrivals/
+    ops.get``) for every lane, which updates the state's buffers in place."""
+    active = faults.fault_active(dims, c.b, k.now[:, None]) if fl.faulty else None
+    run(k, trim_delay, fl, operands(c.l, st, active), c.l.goodput_bin)
     return st
 
 
-def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):
-    """Ticks until phases 1-2 next do work (DESIGN.md Sec. 6.3): 0 while
-    any port holds a packet, else the earliest occupied wire slot's
-    landing distance ``(s - t) mod L``; with a fault schedule, never past
-    its next transition (no leap crosses a fail/degrade/repair/flap
-    edge)."""
-    busy = torch.any(st.q_size[:dims.NQ] > 0)
-    live = torch.any(st.infl[:, :, 0] == 1, dim=1)                 # [L]
-    dist = torch.remainder(consts.iota_l - clk.t, dims.L)
-    h_wire = torch.min(torch.where(live, dist, HORIZON_INF))
+def horizon(dims: Dims, consts: Consts, st: SimState, t):
+    """Ticks until phases 1-2 next do work (DESIGN.md Sec. 6.3), one per
+    lane (``t`` the lanes' ticks as an i32 ``[L, 1]`` column, ``consts``
+    in ``LaneConsts.b`` form): 0 while any port holds a packet, else the
+    earliest occupied wire slot's landing distance ``(s - t) mod L``; with
+    a fault schedule, never past its next transition (no leap crosses a
+    fail/degrade/repair/flap edge)."""
+    busy = torch.any(st.q_size[..., :dims.NQ] > 0, dim=-1)
+    live = torch.any(st.infl[..., 0] == 1, dim=-1)                  # [.., L]
+    dist = torch.remainder(consts.iota_l - t, dims.L)
+    h_wire = torch.amin(torch.where(live, dist, HORIZON_INF), dim=-1)
     h = torch.where(busy, 0, h_wire)
     if dims.FK or dims.flapped:
-        h = torch.minimum(h, faults.transition_horizon(dims, consts, clk.t))
+        h = torch.minimum(h, faults.transition_horizon(dims, consts, t))
     return h

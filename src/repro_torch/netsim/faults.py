@@ -36,8 +36,9 @@ The module is the reference's ``netsim/faults.py``: the host half
 (schedule types, lowering, validation, table compilation, and the numpy
 mirrors the recovery metrics use) and the per-tick evaluation
 (``port_period``, ``fault_active``, ``transition_horizon``), which runs on
-the tables' device from the host's tick ``t`` (a Python int) and gives
-the reference's periods bit for bit.
+the tables' device from the host's tick ``t`` (a Python int), or a lane
+batch's ticks on the device, and gives the reference's periods bit for
+bit.
 """
 
 from __future__ import annotations
@@ -234,18 +235,24 @@ def compile_tables(sched: FaultSchedule, topo,
 
 
 # ---- per-tick evaluation (consts carries the tables; dims the shape) ----
+#
+# ``t`` is the host's tick (a Python int), or a lane batch's ticks as an
+# i32 ``[L, 1]`` column (``fault_start`` then shared, or ``[L, 1]`` where a
+# study sweeps it): the results gain a leading lane axis.
 
-def port_period(dims, consts, t: int):
-    """[NQ] service period of every port at absolute tick ``t`` (1 =
-    healthy, 0 = dead, k > 1 = degraded).  Table times are relative to
-    ``consts.fault_start``."""
+def port_period(dims, consts, t):
+    """[NQ] (or [L, NQ]) service period of every port at absolute tick
+    ``t`` (1 = healthy, 0 = dead, k > 1 = degraded).  Table times are
+    relative to ``consts.fault_start``."""
     tr = t - consts.fault_start
     if dims.FK:
-        cnt = torch.sum(tr >= consts.ft_time, dim=1, dtype=torch.int32)
+        cnt = torch.sum(tr[..., None] >= consts.ft_time, dim=-1, dtype=torch.int32)
         idx = (cnt - 1).clamp_min(0)       # tr < 0 -> healthy column 0
-        per = torch.gather(consts.ft_period, 1, idx[:, None].long())[:, 0]
+        per = torch.gather(consts.ft_period.expand(idx.shape + consts.ft_period.shape[-1:]),
+                           -1, idx[..., None].long())[..., 0]
     else:
-        per = torch.ones((dims.NQ,), dtype=torch.int32, device=consts.fl_up.device)
+        per = torch.ones(tr.shape[:-1] + (dims.NQ,), dtype=torch.int32,
+                         device=consts.fl_up.device)
     if dims.flapped:
         has = consts.fl_cycle > 0
         cyc = consts.fl_cycle.clamp_min(1)
@@ -256,21 +263,22 @@ def port_period(dims, consts, t: int):
     return per
 
 
-def fault_active(dims, consts, t: int):
-    """0-d bool tensor: any port not healthy at tick ``t``."""
-    return torch.any(port_period(dims, consts, t) != 1)
+def fault_active(dims, consts, t):
+    """Bool, 0-d (or [L]): any port not healthy at tick ``t``."""
+    return torch.any(port_period(dims, consts, t) != 1, dim=-1)
 
 
-def transition_horizon(dims, consts, t: int):
+def transition_horizon(dims, consts, t):
     """Ticks until the next schedule transition strictly after ``t`` (at
-    least 1) — the leap clamp.  Over ``[t, t + horizon)`` every port's
-    period is constant, so no leap crosses a fail/degrade/repair/flap
-    edge."""
+    least 1), 0-d (or [L]) — the leap clamp.  Over ``[t, t + horizon)``
+    every port's period is constant, so no leap crosses a fail/degrade/
+    repair/flap edge."""
     tr = t - consts.fault_start
-    h = torch.full((), HORIZON_INF, dtype=torch.int32, device=tr.device)
+    h = torch.full(tr.shape[:-1], HORIZON_INF, dtype=torch.int32, device=tr.device)
     if dims.FK:
-        dt = torch.where(consts.ft_time > tr, consts.ft_time - tr, HORIZON_INF)
-        h = torch.minimum(h, torch.min(dt))
+        trc = tr[..., None]
+        dt = torch.where(consts.ft_time > trc, consts.ft_time - trc, HORIZON_INF)
+        h = torch.minimum(h, torch.amin(dt, dim=(-2, -1)))
     if dims.flapped:
         has = consts.fl_cycle > 0
         cyc = consts.fl_cycle.clamp_min(1)
@@ -282,7 +290,7 @@ def transition_horizon(dims, consts, t: int):
             before, consts.fl_start - tr,
             torch.where(inside, torch.minimum(to_bound, consts.fl_end - tr),
                         HORIZON_INF))
-        h = torch.minimum(h, torch.min(d))
+        h = torch.minimum(h, torch.amin(d, dim=-1))
     return h.clamp_min(1)
 
 

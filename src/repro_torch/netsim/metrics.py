@@ -67,30 +67,35 @@ def isum(x, dim=None):
     return torch.sum(x, dim=dim, dtype=I32)
 
 
-def account(dims, consts, st, t):
-    """Phase 6: per-tick occupancy accounting over the fabric queues."""
-    del consts, t
+def account(dims, consts, st, k):
+    """Phase 6: per-tick occupancy accounting over the fabric queues, one
+    row a lane (``k`` is the batch's ``kernels.lanes.Tick``); a lane that
+    is not live is left as it was."""
+    del consts
     m = st.m
-    q = st.q_size[:dims.NQ]
-    m = m._replace(
-        q_sum=m.q_sum + isum(q).to(F32),
-        q_max=torch.maximum(m.q_max, torch.max(q)),
-    )
-    return st._replace(m=m)
+    q = st.q_size[..., :dims.NQ]
+    q_sum = m.q_sum + isum(q, -1).to(F32)
+    q_max = torch.maximum(m.q_max, torch.amax(q, dim=-1))
+    if not k.all_live:
+        q_sum = torch.where(k.live, q_sum, m.q_sum)
+        q_max = torch.where(k.live, q_max, m.q_max)
+    return st._replace(m=m._replace(q_sum=q_sum, q_max=q_max))
 
 
-def leap_account(m: Metrics, dt: int, occupancy) -> Metrics:
+def leap_account(m: Metrics, dt, occupancy) -> Metrics:
     """Closed-form ``dt``-tick occupancy integral for a time leap
     (DESIGN.md Sec. 6.3): the linear form ``dt * occupancy`` replaces
-    ``dt`` sequential executions of ``account``.
+    ``dt`` sequential executions of ``account``.  ``dt`` and ``occupancy``
+    are one per lane (i32 ``[L]``); a lane with ``dt == 0`` is left as it
+    was.
 
     Bitwise exact, not approximate: the leap predicate only yields
     ``dt > 0`` with every port empty (an occupied port departs every
     tick), so the integral contributes exactly 0.0 and ``q_max`` — the
     running max of an unchanged occupancy — needs no update.
     """
-    return m._replace(
-        q_sum=m.q_sum + float(dt) * occupancy.to(F32))
+    return m._replace(q_sum=torch.where(
+        dt > 0, m.q_sum + dt.to(F32) * occupancy.to(F32), m.q_sum))
 
 
 # --------------------------------------------------------------------------

@@ -16,60 +16,76 @@ cursors and sequences, the LB counters, credits and pacing budgets and
 the retransmission count in place: a state passed to a phase is consumed,
 as the reference's run loops consume (donate) theirs.
 
+Both run on a lane batch (``state.LaneConsts``, ``kernels.lanes.Tick``:
+every state leaf ``[L, ...]``, each lane at its own tick); the grants
+show no demand for a lane that is not live, so they leave it as it was.
 Static branch selectors (credit_based / paced / lb_mode / window) come
 from ``Dims``.  ``horizon`` reduces the same admission/demand predicates
-to "ticks until a NIC or a receiver next acts" (DESIGN.md Sec. 6.3).
+to "ticks until a NIC or a receiver next acts" (DESIGN.md Sec. 6.3), one
+per lane.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.lanes import Tick
 from repro_torch.kernels.sends import ref as sends_ref
-from repro_torch.netsim.state import HORIZON_INF, Clock, Consts, Dims, SimState
+from repro_torch.netsim.state import HORIZON_INF, Consts, Dims, LaneConsts, SimState
 
 I32 = torch.int32
 F32 = torch.float32
 
 
-def activated(dims: Dims, consts: Consts, st: SimState, clk: Clock):
-    """The activation predicate (``kernels/sends/ref.activated``)."""
-    return sends_ref.activated(clk.t, consts.t_start, st.done, st.goodput,
+def activated(dims: Dims, consts: Consts, st: SimState, t):
+    """The activation predicate (``kernels/sends/ref.activated``), per lane
+    (``t`` an i32 ``[L, 1]`` column, ``consts`` in ``LaneConsts.b`` form)."""
+    return sends_ref.activated(t, consts.t_start, st.done, st.goodput,
                                consts.dep_par, consts.dep_thr)
 
 
-def _grant_demand(dims: Dims, consts: Consts, st: SimState, clk: Clock):
+def _grant_demand(dims: Dims, consts: Consts, st: SimState, t):
     """Flows whose receiver owes pull credit (EQDS): outstanding credit
     window above received + known-lost bytes — self-clocks, and re-grants
     for trimmed packets (the receiver sees trimmed headers) so
     retransmissions never starve."""
-    return activated(dims, consts, st, clk) & (
-        st.granted - st.goodput.to(F32) - st.trim_seen[:dims.NF]
+    return activated(dims, consts, st, t) & (
+        st.granted - st.goodput.to(F32) - st.trim_seen[..., :dims.NF]
         < consts.credit_window)
 
 
-def grants(dims: Dims, consts: Consts, st: SimState, clk: Clock, *, arb) -> SimState:
+def grants(dims: Dims, c: LaneConsts, st: SimState, k: Tick, *, arb, ret: int) -> SimState:
     """Phase 4: EQDS receiver credit grants (paper Sec. 2.2): each receiver
-    grants one MTU of credit to one demanding flow, picked round-robin by
-    ``arb`` (the backend-resolved ``rr_pick``) over its ``[N, FRMAX]``
-    flow table.  The credit ring slot is updated in place."""
+    of each live lane grants one MTU of credit to one demanding flow,
+    picked round-robin by ``arb`` (the backend-resolved ``rr_pick``) over
+    its ``[N, FRMAX]`` flow table, all lanes' rows in one ``[L * N, FRMAX]``
+    pick.  The credit ring slot ``(t + ret) % R`` of each lane is updated
+    in place."""
     if not dims.credit_based:
         return st
-    NF, FRMAX = dims.NF, dims.FRMAX
-    demand = _grant_demand(dims, consts, st, clk)
-    dm = torch.cat([demand, demand.new_zeros(1)])[consts.flows_by_recv]   # [N, FR]
-    has_g, sel = arb(dm, st.rr_recv, FRMAX)
-    gflow = torch.where(has_g, consts.flows_by_recv[consts.node_ids, sel], NF)
+    NF, N, FRMAX, R = dims.NF, dims.N, dims.FRMAX, dims.R
+    n, cb = c.n, c.b
+    demand = _grant_demand(dims, cb, st, k.now[:, None])
+    if not k.all_live:
+        demand = demand & k.live[:, None]
+    dm = torch.cat([demand, demand.new_zeros((n, 1))], dim=-1)[:, cb.flows_by_recv]
+    has_g, sel = arb(dm.reshape(n * N, FRMAX), st.rr_recv.reshape(n * N), FRMAX)
+    has_g, sel = has_g.reshape(n, N), sel.reshape(n, N)
+    gflow = torch.where(has_g, cb.flows_by_recv[cb.node_ids, sel], NF)       # [L, N]
     credit = torch.where(has_g, float(dims.mtu), 0.0)
-    # the grant return delay is the constant `ret`, so all grants of this
-    # tick land in one ring slot; a flow has one receiver, so every real
-    # grant lands on its own column (the idle ones add 0.0 to column NF)
-    credit_ring = st.credit_ring
-    credit_ring[(clk.t + clk.ret) % dims.R].index_add_(0, gflow, credit)
-    granted = torch.cat([st.granted, st.granted.new_zeros(1)]).index_add_(
-        0, gflow, credit)[:NF]
+    # the grant return delay is the constant `ret`, so all of a lane's
+    # grants of this tick land in one ring slot; a flow has one receiver,
+    # so every real grant lands on its own column (the idle ones add 0.0
+    # to column NF)
+    lanes_i = torch.arange(n, dtype=I32, device=gflow.device)[:, None]
+    slot = torch.remainder(k.now + ret, R)[:, None]
+    st.credit_ring.view(-1).index_add_(
+        0, ((lanes_i * R + slot) * (NF + 1) + gflow).reshape(-1), credit.reshape(-1))
+    granted = torch.cat([st.granted, st.granted.new_zeros((n, 1))], dim=-1)
+    granted.view(-1).index_add_(0, (lanes_i * (NF + 1) + gflow).reshape(-1),
+                                credit.reshape(-1))
     rr_recv = torch.where(has_g, torch.remainder(sel + 1, FRMAX), st.rr_recv)
-    return st._replace(credit_ring=credit_ring, granted=granted, rr_recv=rr_recv)
+    return st._replace(granted=granted[:, :NF].contiguous(), rr_recv=rr_recv)
 
 
 def flags(dims: Dims) -> sends_ref.Flags:
@@ -97,36 +113,37 @@ def operands(consts: Consts, st: SimState) -> sends_ref.Operands:
         n_retx=st.m.n_retx)
 
 
-def admission(dims: Dims, consts: Consts, st: SimState, clk: Clock):
-    """Send admission for every flow at the current tick, *excluding* rate
-    pacing (``sends`` folds in the freshly accrued pacing budget; the leap
-    ``horizon`` runs only for unpaced configurations, where this is the
-    full admission).  Returns ``(elig, has_retx, seq_emit, nsize)``."""
-    return sends_ref.admission(clk.t, flags(dims), operands(consts, st))
+def admission(dims: Dims, consts: Consts, st: SimState, t):
+    """Send admission for every flow of every lane at its tick ``t`` (an
+    i32 ``[L, 1]`` column, ``consts`` in ``LaneConsts.b`` form),
+    *excluding* rate pacing (``sends`` folds in the freshly accrued pacing
+    budget; the leap ``horizon`` runs only for unpaced configurations,
+    where this is the full admission).  Returns ``(elig, has_retx,
+    seq_emit, nsize)``."""
+    return sends_ref.admission(t, flags(dims), operands(consts, st))
 
 
-def sends(dims: Dims, consts: Consts, st: SimState, clk: Clock, *,
-          run, fl: sends_ref.Flags) -> SimState:
+def sends(dims: Dims, c: LaneConsts, st: SimState, k: Tick, *,
+          run, lat_send: int, fl: sends_ref.Flags) -> SimState:
     """Phase 5: one packet per NIC per tick, arbitration + admission, in
-    one call of ``run`` (the backend resolved by ``kernels/sends/ops.get``),
-    which updates the state's buffers in place."""
-    run(clk.t, (clk.t + clk.lat_send) % dims.L, fl, operands(consts, st))
+    one call of ``run`` (the backend resolved by ``kernels/sends/ops.get``)
+    for every lane, which updates the state's buffers in place."""
+    run(k, lat_send, fl, operands(c.l, st))
     return st
 
 
-def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):
-    """Ticks until phases 4-5 next do work (DESIGN.md Sec. 6.3): 0 while
-    any flow passes send admission or — for credit-based algorithms — any
-    receiver owes a grant, else the nearest flow-start deadline (between
-    events nothing else can flip either predicate).  Never called for
-    paced configurations (``Dims.leap`` is off there: the pacing budget
-    accrues every tick)."""
-    t = clk.t
-    elig, _, _, _ = admission(dims, consts, st, clk)
-    h = torch.where(torch.any(elig), 0, HORIZON_INF)
+def horizon(dims: Dims, consts: Consts, st: SimState, t):
+    """Ticks until phases 4-5 next do work (DESIGN.md Sec. 6.3), one per
+    lane: 0 while any flow passes send admission or — for credit-based
+    algorithms — any receiver owes a grant, else the nearest flow-start
+    deadline (between events nothing else can flip either predicate).
+    Never called for paced configurations (``Dims.leap`` is off there: the
+    pacing budget accrues every tick)."""
+    elig, _, _, _ = admission(dims, consts, st, t)
+    h = torch.where(torch.any(elig, dim=-1), 0, HORIZON_INF)
     if dims.credit_based:
         h = torch.minimum(h, torch.where(
-            torch.any(_grant_demand(dims, consts, st, clk)), 0, HORIZON_INF))
+            torch.any(_grant_demand(dims, consts, st, t), dim=-1), 0, HORIZON_INF))
     unstarted = t < consts.t_start
-    h_start = torch.min(torch.where(unstarted, consts.t_start - t, HORIZON_INF))
+    h_start = torch.amin(torch.where(unstarted, consts.t_start - t, HORIZON_INF), dim=-1)
     return torch.minimum(h, h_start)

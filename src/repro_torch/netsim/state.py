@@ -15,10 +15,15 @@ the same values, because PyTorch cannot shift uint32 on the CPU
 (``hashing.py``).
 
 ``derive(cfg, wl, device)`` maps a config+workload onto (topology, timing,
-Dims, Consts); ``init_state(dims, consts)`` produces the tick-0 world.  The
-six tick phases in ``fabric``/``transport``/``sender``/``metrics`` are
-functions ``(Dims, Consts, SimState, Clock) -> SimState`` composed by
-``engine.build``.
+Dims, Consts); ``init_state(dims, consts)`` produces the tick-0 world, and
+``init_lanes`` the tick-0 world of a lane batch (a study's lanes, or one
+run as one lane): every state leaf with a leading ``[L]`` axis.  A lane
+batch's constants are the reference's ``consts_b`` and ``axes`` (a leaf
+swept by a study carries a leading ``[L]`` axis, axis 0; a shared one
+none), read by the tick in the two forms of :class:`LaneConsts`.  The six
+tick phases in ``fabric``/``transport``/``sender``/``metrics`` are
+functions ``(Dims, LaneConsts, SimState, Tick) -> SimState`` on a lane
+batch, composed by ``engine.build``.
 """
 
 from __future__ import annotations
@@ -531,14 +536,14 @@ HORIZON_INF = 1 << 30
 
 
 class Clock(NamedTuple):
-    """The host's view of the current tick: the tick ``t`` (always equal
-    to ``SimState.now``) and the constant delays that address the rings.
+    """The constant delays that address the rings, and a host tick ``t``.
 
-    The reference traces ``now`` and indexes its rings on the device.
-    Here the run loop keeps ``t`` on the host, so a phase addresses a ring
-    slot with plain slicing and never waits for the device to learn where
-    to read or write.  The delays are read from ``Consts`` once per build
-    (:func:`clock`)."""
+    A lane batch's ticks live on the device (``kernels.lanes.Tick``: each
+    lane leaps by its own horizon, so their ticks differ); the kernels
+    derive their ring slots from them.  The delays are read from
+    ``Consts`` once per build (:func:`clock`); ``t`` is the host's tick of
+    a single-lane state, for the single-lane entry points
+    (``Sim.step``, ``Sim.phases``)."""
 
     t: int
     ret: int
@@ -590,6 +595,66 @@ def init_state(dims: Dims, consts: Consts) -> SimState:
         rto_backoff=zeros((NF,)),
         cc=cc, lb=lb, m=init_metrics(dev),
     )
+
+
+# --------------------------------------------------------------------------
+# lane batches
+# --------------------------------------------------------------------------
+
+
+class LaneConsts(NamedTuple):
+    """A lane batch's constants in the two forms its tick reads, made once
+    a run from ``consts_b`` and ``axes`` (:func:`lane_consts`).
+
+    ``b`` broadcasts against a ``[L, ...]`` state in PyTorch: a shared leaf
+    as the run's, a swept one ``[L, *shape]`` with a scalar as ``[L, 1]``.
+    ``l`` is every leaf ``[L, *shape]`` (a shared one an ``expand``-ed
+    view, lane stride 0): the fused phases' operands."""
+
+    b: Consts
+    l: Consts
+    n: int
+
+
+def no_axes(tree):
+    """An all-``None`` axes tree matching ``tree`` (nothing swept)."""
+    return tree_map(lambda _: None, tree)
+
+
+def lane_consts(consts_b: Consts, axes, n: int) -> LaneConsts:
+    """The two forms of a batch's constants (``axes=None``: nothing swept)."""
+    if axes is None:
+        axes = no_axes(consts_b)
+
+    def bcast(x, a):
+        return x.reshape(n, 1) if a == 0 and x.dim() == 1 else x
+
+    def lane(x, a):
+        return x if a == 0 else x.expand((n,) + tuple(x.shape))
+    return LaneConsts(b=tree_map(bcast, consts_b, axes),
+                      l=tree_map(lane, consts_b, axes), n=n)
+
+
+def lane_slice(consts_b: Consts, axes, i: int) -> Consts:
+    """Lane ``i``'s constants (a swept leaf's row ``i``)."""
+    if axes is None:
+        return consts_b
+    return tree_map(lambda x, a: x[i] if a == 0 else x, consts_b, axes)
+
+
+def init_lanes(dims: Dims, consts_b: Consts, axes, salts) -> SimState:
+    """The tick-0 world of a lane batch on the constants' device: lane ``i``
+    is :func:`init_state` under its own constants with the hash salt
+    ``salts[i]``, every leaf stacked along a leading ``[L]`` axis."""
+    states = [init_state(dims, lane_slice(consts_b, axes, i)) for i in range(len(salts))]
+    st = tree_map(lambda *xs: torch.stack(xs), *states)
+    return st._replace(salt=torch.as_tensor(np.asarray(salts, np.int64)).to(
+        dtype=I32, device=st.salt.device))
+
+
+def unsqueeze(tree):
+    """A single-lane state as a one-lane batch (views)."""
+    return tree_map(lambda x: x.unsqueeze(0), tree)
 
 
 # --------------------------------------------------------------------------
@@ -651,5 +716,5 @@ def stack_lanes(states):
 
 
 def lane(states, i: int):
-    """Lane ``i`` of a lane-stacked state."""
+    """Lane ``i`` of a lane-stacked state (views of a batch on the device)."""
     return tree_map(lambda x: x[i], states)

@@ -15,8 +15,14 @@ them (``SimConfig.transport_backend="split"``).  Both update the control
 rings, the sent ring and the counters in place (a state passed to a phase
 is consumed).
 
+Both run on a lane batch (``state.LaneConsts``, ``kernels.lanes.Tick``:
+every state leaf ``[L, ...]``, each lane at its own tick); the PyTorch
+after the fused launch writes a lane only where it is live.  The split
+design runs one lane (``Sim.run``, ``Sim.step``) and refuses more.
+
 ``horizon`` reduces the same rings — plus the armed retransmission
-timers — to "ticks until this phase next does work" (DESIGN.md Sec. 6.3).
+timers — to "ticks until this phase next does work" (DESIGN.md Sec. 6.3),
+one per lane.
 """
 
 from __future__ import annotations
@@ -26,9 +32,10 @@ import torch
 from repro_torch.core import registry, reps
 from repro_torch.core.types import CCEvent
 from repro_torch.kernels.control import ref as control_ref
+from repro_torch.kernels.lanes import Tick
 from repro_torch.netsim.metrics import HIST_BINS, isum
-from repro_torch.netsim.state import (HORIZON_INF, Clock, Consts, Dims, SimConfig,
-                                      SimState)
+from repro_torch.netsim.state import (HORIZON_INF, Clock, Consts, Dims, LaneConsts,
+                                      SimConfig, SimState, lane, tree_map)
 
 I32 = torch.int32
 F32 = torch.float32
@@ -40,8 +47,8 @@ def effective_rto(dims: Dims, consts: Consts, st: SimState):
     plain ``consts.rto`` when backoff is off."""
     if not dims.rto_backoff_max:
         return consts.rto
-    return torch.ldexp(consts.rto,
-                       torch.clamp_max(st.rto_backoff, dims.rto_backoff_max))
+    e = torch.clamp_max(st.rto_backoff, dims.rto_backoff_max)
+    return torch.ldexp(torch.broadcast_to(consts.rto, e.shape), e)
 
 
 def flags(cfg: SimConfig, dims: Dims) -> control_ref.Flags:
@@ -66,24 +73,57 @@ def operands(consts: Consts, st: SimState) -> control_ref.Operands:
         spurious_retx=m.spurious_retx, n_ack=m.n_ack, rtt_hist=m.rtt_hist)
 
 
-def control(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
+def masked(k: Tick, new, old):
+    """``new`` where a lane of ``k`` is live, ``old`` elsewhere, leaf by
+    leaf over two trees of ``[L, ...]`` tensors (a leaf ``new`` left as it
+    was is kept; with every lane live, ``new`` itself)."""
+    if k.all_live:
+        return new
+
+    def pick(x, y):
+        if x is y:
+            return y
+        return torch.where(k.live.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+    return tree_map(pick, new, old)
+
+
+def control(dims: Dims, c: LaneConsts, cc_update, st: SimState, k: Tick, *,
             run, fl: control_ref.Flags) -> SimState:
     """Phase 3: the per-flow work in one call of ``run`` (the backend
-    resolved by ``kernels/control/ops.get``), then the LB update and, unless
-    ``fl.smartt`` ran SMaRTT inside it, the CC update (``cc_update``
-    resolved by the registry) on its event buffer."""
-    t = clk.t
-    ev = run(t, fl, operands(consts, st))
-    cc = st.cc if fl.smartt else cc_update(consts.cc, st.cc, ev, t)
-    lb = reps.on_ack(dims.lb_mode, consts.lb, st.lb, ev.has_ack, ev.ecn,
-                     ev.ack_entropy, consts.flow_ids, t)
+    resolved by ``kernels/control/ops.get``) for every lane, then the LB
+    update and, unless ``fl.smartt`` ran SMaRTT inside it, the CC update
+    (``cc_update`` resolved by the registry) on its event buffer, each
+    written only where a lane is live."""
+    ev = run(k, fl, operands(c.l, st))
+    t = k.now[:, None]
+    cc = st.cc if fl.smartt else masked(k, cc_update(c.b.cc, st.cc, ev, t), st.cc)
+    lb = reps.on_ack(dims.lb_mode, c.b.lb, st.lb, ev.has_ack, ev.ecn,
+                     ev.ack_entropy, c.b.flow_ids, t)
     if dims.evict:
-        lb = reps.on_timeout(dims.lb_mode, consts.lb, lb, ev.n_timeouts > 0)
-    return st._replace(cc=cc, lb=lb)
+        lb = reps.on_timeout(dims.lb_mode, c.b.lb, lb, ev.n_timeouts > 0)
+    return st._replace(cc=cc, lb=masked(k, lb, st.lb))
 
 
-def control_split(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
+def control_split(dims: Dims, c: LaneConsts, cc_update, st: SimState, k: Tick, *,
                   drain) -> SimState:
+    """Phase 3 as the earlier design runs it (:func:`control_split_one`),
+    on a batch of one lane."""
+    if c.n != 1:
+        raise NotImplementedError(
+            "the split control phase runs one lane; a lane batch runs the fused "
+            "phase (ROADMAP.md Queue 1)")
+    if not k.live_h[0]:
+        return st
+    one = lane(st, 0)
+    out = control_split_one(dims, c.b, cc_update, one, Clock(k.now_h[0], 0, 0, 0, 0, 0),
+                            drain=drain)
+    # the leaves it updated in place stay the batch's own tensors
+    return tree_map(lambda new, was, old: old if new is was else new.unsqueeze(0),
+                    out, one, st)
+
+
+def control_split_one(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Clock, *,
+                      drain) -> SimState:
     """Phase 3 as the earlier design runs it: ACK / trim / timeout / credit events ->
     transport state, CC update (``cc_update`` resolved by the registry), LB
     update, around the sent-ring drain callable ``drain``
@@ -182,26 +222,27 @@ def control_split(dims: Dims, consts: Consts, cc_update, st: SimState, clk: Cloc
     )
 
 
-def horizon(dims: Dims, consts: Consts, st: SimState, clk: Clock):
-    """Ticks until phase 3 next does work (DESIGN.md Sec. 6.3): the nearest
-    live control-ring slot (ACK, trim, and for credit-based algorithms the
-    credit ring), or the first armed timeout's fire tick
-    (``floor(rto) + 1`` ticks after the send), whichever comes first."""
-    t = clk.t
+def horizon(dims: Dims, consts: Consts, st: SimState, t):
+    """Ticks until phase 3 next does work (DESIGN.md Sec. 6.3), one per
+    lane (``t`` the lanes' ticks as an i32 ``[L, 1]`` column, ``consts``
+    in ``LaneConsts.b`` form): the nearest live control-ring slot (ACK,
+    trim, and for credit-based algorithms the credit ring), or the first
+    armed timeout's fire tick (``floor(rto) + 1`` ticks after the send),
+    whichever comes first."""
     NF, R = dims.NF, dims.R
     dist = torch.remainder(consts.iota_r - t, R)
-    live_ack = torch.any(st.ack_ring[:, :, 0] == 1, dim=1)         # [R]
-    h = torch.min(torch.where(live_ack, dist, HORIZON_INF))
+    live_ack = torch.any(st.ack_ring[..., 0] == 1, dim=-1)        # [.., R]
+    h = torch.amin(torch.where(live_ack, dist, HORIZON_INF), dim=-1)
     if dims.trimming:
-        live_trim = torch.any(st.trim_ring[:, :NF, 0] > 0, dim=1)
-        h = torch.minimum(h, torch.min(torch.where(live_trim, dist, HORIZON_INF)))
+        live_trim = torch.any(st.trim_ring[..., :NF, 0] > 0, dim=-1)
+        h = torch.minimum(h, torch.amin(torch.where(live_trim, dist, HORIZON_INF), dim=-1))
     if dims.credit_based:
-        live_cred = torch.any(st.credit_ring[:, :NF] != 0.0, dim=1)
-        h = torch.minimum(h, torch.min(torch.where(live_cred, dist, HORIZON_INF)))
+        live_cred = torch.any(st.credit_ring[..., :NF] != 0.0, dim=-1)
+        h = torch.minimum(h, torch.amin(torch.where(live_cred, dist, HORIZON_INF), dim=-1))
     started = (t >= consts.t_start) & ~st.done
-    armed = (st.sent[0, :NF] == 1) & started[:, None]              # [NF, W]
-    fire = (st.sent[2, :NF]
-            + torch.floor(effective_rto(dims, consts, st)).to(I32)[:, None]
-            + 1 - t)
-    h_to = torch.min(torch.where(armed, fire.clamp_min(0), HORIZON_INF))
+    armed = (st.sent[..., 0, :NF, :] == 1) & started[..., None]   # [.., NF, W]
+    fire = (st.sent[..., 2, :NF, :]
+            + torch.floor(effective_rto(dims, consts, st)).to(I32)[..., None]
+            + 1 - t[..., None])
+    h_to = torch.amin(torch.where(armed, fire.clamp_min(0), HORIZON_INF), dim=(-2, -1))
     return torch.minimum(h, h_to)

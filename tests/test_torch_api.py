@@ -107,13 +107,23 @@ def test_study_lanes_match_standalone_three_tier():
                                 state.lane(res.states, pi * len(seeds) + si))
 
 
-def test_points_with_equal_configs_share_one_build():
+def test_points_with_equal_configs_share_one_build(monkeypatch):
     """A point that leaves the config as it is (the default start window)
-    runs on the base build; distinct configs get a build each."""
+    takes the base build's constants; distinct configs derive theirs once
+    each.  The batched constants keep a leaf that no point changes shared
+    (axis None) and give a swept one a row a lane, point-major."""
+    derived = []
+    real = api.state.derive
+    monkeypatch.setattr(api.state, "derive",
+                        lambda cfg, *a, **kw: derived.append(cfg) or real(cfg, *a, **kw))
     plan = api.study(_scenario(), points=[{"start_cwnd_mult": 1.25}, {},
-                                          {"start_cwnd_mult": 0.5}], device=CPU)
-    assert plan.sims[0] is plan.sim and plan.sims[1] is plan.sim
-    assert plan.sims[2] is not plan.sim
+                                          {"start_cwnd_mult": 0.5}], seeds=(0, 1),
+                     device=CPU)
+    assert [c.start_cwnd_mult for c in derived] == [0.5]    # beside the base build
+    assert plan.axes.start_cwnd == 0 and plan.axes.kmin is None
+    assert plan.consts_b.kmin is plan.sim.consts.kmin
+    want = [plan.sim.consts.start_cwnd] * 4 + [0.5 / 1.25 * plan.sim.consts.start_cwnd] * 2
+    assert plan.consts_b.start_cwnd.tolist() == [float(x) for x in want]
 
 
 def test_build_sweep_lanes_match_study(incast_study):

@@ -3,7 +3,7 @@ JAX package's: ``api.study(...).run().rows()`` equal on every key but
 ``wall_s``, on tiny_incast3 (2 points x 2 seeds) and on incast8_16n
 (three points of ``benchmarks/sweep.py``'s ``GRID`` x 2 seeds) under
 SMaRTT and under EQDS's credits.  The JAX study runs its lanes as one
-vmapped batch; the port runs them one after another."""
+vmapped batch; the port as one lane batch (``netsim/shard.py``)."""
 
 import pytest
 

@@ -197,10 +197,10 @@ def test_eqds_operands_pass_every_wrapper_check(monkeypatch):
     rehearse(EK, "rr_pick", ER.rr_pick_ref)
     rehearse(DK, "ring_drain", lambda t, *a: DR.ring_drain_ref(
         t, *a, w=a[-1].shape[1], ww=a[4].shape[1], maxw=a[5].shape[1]))
-    rehearse(XK, "control", XR.control_ref)
-    rehearse(AK, "arrivals", AR.arrivals_ref)
-    rehearse(SK, "sends", SR.sends_ref)
-    rehearse(PK, "departures", PR.departures_ref)
+    rehearse(XK, "control", XR.control_lanes_ref)
+    rehearse(AK, "arrivals", AR.arrivals_lanes_ref)
+    rehearse(SK, "sends", SR.sends_lanes_ref)
+    rehearse(PK, "departures", PR.departures_lanes_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario("incast8_16n", algo="eqds").build(device="cpu")
     assert sim.dims.FMAX == 1 and sim.dims.FRMAX == 8    # rr_pick: grants only

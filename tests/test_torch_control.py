@@ -120,11 +120,15 @@ def test_event_buffer_holds_what_its_readers_take(monkeypatch, algo):
         seen[backend] = {"cc": [], "lb": []}
 
         def cc_update(p, s, ev, now):
-            seen[backend]["cc"].append({k: v.clone() for k, v in ev._asdict().items()})
+            # the fused phase runs on a lane batch ([1, NF] fields), the
+            # split design on one lane ([NF])
+            seen[backend]["cc"].append({k: v.clone().reshape(v.shape[-1:])
+                                        for k, v in ev._asdict().items()})
             return orig_cc(p, s, ev, now)
 
         def on_ack(mode, p, s, has_ack, ecn, ent, flow_ids, now):
-            seen[backend]["lb"].append((has_ack.clone(), ecn.clone(), ent.clone()))
+            seen[backend]["lb"].append(tuple(x.clone().reshape(x.shape[-1:])
+                                             for x in (has_ack, ecn, ent)))
             return orig_on_ack(mode, p, s, has_ack, ecn, ent, flow_ids, now)
         monkeypatch.setitem(registry.ALGORITHMS, algo, cc_update)
         monkeypatch.setattr(reps, "on_ack", on_ack)

@@ -243,7 +243,7 @@ def _control_both(t, fl, ok, orf):
     copies of the same operands); both events and both operand sets must
     be equal bit for bit.  Returns the kernel's event."""
     n0 = XK.control.launches
-    evk = XK.control(t, fl, ok)
+    evk = XK.control_at(t, fl, ok)
     evr = XR.control_ref(t, fl, orf)
     torch.cuda.synchronize()
     assert XK.control.launches == n0 + 1
@@ -315,17 +315,17 @@ def test_control_kernel_refuses_bad_operands(cuda):
     t, fl, o = cases.control_operands(c, cuda)
     n0 = XK.control.launches
     with pytest.raises(TypeError, match="dtype"):
-        XK.control(t, fl, o._replace(sent=o.sent.to(torch.int64)))
+        XK.control_at(t, fl, o._replace(sent=o.sent.to(torch.int64)))
     with pytest.raises(ValueError, match="shape"):
-        XK.control(t, fl, o._replace(trim_ring=o.trim_ring[:, :, :3].contiguous()))
+        XK.control_at(t, fl, o._replace(trim_ring=o.trim_ring[:, :, :3].contiguous()))
     with pytest.raises(ValueError, match="contiguous"):
-        XK.control(t, fl, o._replace(bitmap=o.bitmap.t().contiguous().t()))
+        XK.control_at(t, fl, o._replace(bitmap=o.bitmap.t().contiguous().t()))
     with pytest.raises(ValueError, match="on cpu"):
-        XK.control(t, fl, o._replace(done=o.done.cpu()))
+        XK.control_at(t, fl, o._replace(done=o.done.cpu()))
     with pytest.raises(ValueError, match="multiple of 32"):
-        XK.control(t, fl, o._replace(sent=o.sent[:, :, :48].contiguous()))
+        XK.control_at(t, fl, o._replace(sent=o.sent[:, :, :48].contiguous()))
     assert XK.control.launches == n0
-    XK.control(t, fl, o)
+    XK.control_at(t, fl, o)
     assert XK.control.launches == n0 + 1
 
 
@@ -335,7 +335,7 @@ def _arrivals_both(t, s, fl, ok, orf):
     """The fused kernel on ``ok`` and ``arrivals_ref`` on ``orf`` (two copies
     of the same operands): every operand bit for bit."""
     n0 = AK.arrivals.launches
-    AK.arrivals(t, s, fl, ok)
+    AK.arrivals_at(t, s, fl, ok)
     AR.arrivals_ref(t, s, fl, orf)
     torch.cuda.synchronize()
     assert AK.arrivals.launches == n0 + 1
@@ -392,19 +392,19 @@ def test_arrivals_kernel_refuses_bad_operands(cuda):
     t, s, fl, o = cases.arrivals_operands(c, cuda)
     n0 = AK.arrivals.launches
     with pytest.raises(TypeError, match="dtype"):
-        AK.arrivals(t, s, fl, o._replace(infl=o.infl.to(torch.int64)))
+        AK.arrivals_at(t, s, fl, o._replace(infl=o.infl.to(torch.int64)))
     with pytest.raises(ValueError, match="shape"):
-        AK.arrivals(t, s, fl, o._replace(ack_ring=o.ack_ring[:, :, :5].contiguous()))
+        AK.arrivals_at(t, s, fl, o._replace(ack_ring=o.ack_ring[:, :, :5].contiguous()))
     with pytest.raises(ValueError, match="contiguous"):
-        AK.arrivals(t, s, fl, o._replace(bitmap=o.bitmap.t().contiguous().t()))
+        AK.arrivals_at(t, s, fl, o._replace(bitmap=o.bitmap.t().contiguous().t()))
     with pytest.raises(ValueError, match="on cpu"):
-        AK.arrivals(t, s, fl, o._replace(q_size=o.q_size.cpu()))
+        AK.arrivals_at(t, s, fl, o._replace(q_size=o.q_size.cpu()))
     with pytest.raises(TypeError, match="expected a tensor"):
-        AK.arrivals(t, s, fl, o._replace(fault_active=None))
+        AK.arrivals_at(t, s, fl, o._replace(fault_active=None))
     with pytest.raises(ValueError, match="outside the rings"):
-        AK.arrivals(t, s._replace(wire=o.infl.shape[0]), fl, o)
+        AK.arrivals_at(t, s._replace(wire=o.infl.shape[0]), fl, o)
     assert AK.arrivals.launches == n0
-    AK.arrivals(t, s, fl, o)
+    AK.arrivals_at(t, s, fl, o)
     assert AK.arrivals.launches == n0 + 1
 
 
@@ -414,7 +414,7 @@ def _sends_both(t, wire, fl, ok, orf):
     """The fused kernel on ``ok`` and ``sends_ref`` on ``orf`` (two copies
     of the same operands): every operand bit for bit."""
     n0 = SK.sends.launches
-    SK.sends(t, wire, fl, ok)
+    SK.sends_at(t, wire, fl, ok)
     SR.sends_ref(t, wire, fl, orf)
     torch.cuda.synchronize()
     assert SK.sends.launches == n0 + 1
@@ -471,29 +471,29 @@ def test_sends_kernel_refuses_bad_operands(cuda):
     t, wire, fl, o = cases.sends_operands(c, cuda)
     n0 = SK.sends.launches
     with pytest.raises(TypeError, match="dtype"):
-        SK.sends(t, wire, fl, o._replace(sent=o.sent.to(torch.int64)))
+        SK.sends_at(t, wire, fl, o._replace(sent=o.sent.to(torch.int64)))
     with pytest.raises(TypeError, match="dtype"):
-        SK.sends(t, wire, fl, o._replace(f_salt=o.f_salt.to(torch.int32)))
+        SK.sends_at(t, wire, fl, o._replace(f_salt=o.f_salt.to(torch.int32)))
     with pytest.raises(ValueError, match="shape"):
-        SK.sends(t, wire, fl, o._replace(infl=o.infl[:, :, :6].contiguous()))
+        SK.sends_at(t, wire, fl, o._replace(infl=o.infl[:, :, :6].contiguous()))
     with pytest.raises(ValueError, match="contiguous"):
-        SK.sends(t, wire, fl, o._replace(flows_of=o.flows_of.t().contiguous().t()))
+        SK.sends_at(t, wire, fl, o._replace(flows_of=o.flows_of.t().contiguous().t()))
     with pytest.raises(ValueError, match="on cpu"):
-        SK.sends(t, wire, fl, o._replace(next_seq=o.next_seq.cpu()))
+        SK.sends_at(t, wire, fl, o._replace(next_seq=o.next_seq.cpu()))
     with pytest.raises(ValueError, match="unknown lb mode"):
-        SK.sends(t, wire, fl._replace(lb_mode=7), o)
+        SK.sends_at(t, wire, fl._replace(lb_mode=7), o)
     with pytest.raises(ValueError, match="outside the wire ring"):
-        SK.sends(t, o.infl.shape[0], fl, o)
+        SK.sends_at(t, o.infl.shape[0], fl, o)
     # the tick's operands are checked on every launch, the block's reused
-    SK.sends(t, wire, fl, o)
+    SK.sends_at(t, wire, fl, o)
     with pytest.raises(TypeError, match="dtype"):
-        SK.sends(t, wire, fl, o._replace(cwnd=o.cwnd.to(torch.float64)))
+        SK.sends_at(t, wire, fl, o._replace(cwnd=o.cwnd.to(torch.float64)))
     with pytest.raises(ValueError, match="contiguous"):
-        SK.sends(t, wire, fl, o._replace(credits=torch.stack([o.credits, o.credits], 1)[:, 0]))
+        SK.sends_at(t, wire, fl, o._replace(credits=torch.stack([o.credits, o.credits], 1)[:, 0]))
     with pytest.raises(ValueError, match="on cpu"):
-        SK.sends(t, wire, fl, o._replace(next_entropy=o.next_entropy.cpu()))
+        SK.sends_at(t, wire, fl, o._replace(next_entropy=o.next_entropy.cpu()))
     assert SK.sends.launches == n0 + 1
-    SK.sends(t, wire, fl, o)
+    SK.sends_at(t, wire, fl, o)
     assert SK.sends.launches == n0 + 2
 
 
@@ -503,7 +503,7 @@ def _departures_both(t, lat, fl, ok, orf):
     """The fused kernel on ``ok`` and ``departures_ref`` on ``orf`` (two
     copies of the same operands): every operand bit for bit."""
     n0 = PK.departures.launches
-    PK.departures(t, lat, fl, ok)
+    PK.departures_at(t, lat, fl, ok)
     PR.departures_ref(t, lat, fl, orf)
     torch.cuda.synchronize()
     assert PK.departures.launches == n0 + 1
@@ -555,19 +555,94 @@ def test_departures_kernel_refuses_bad_operands(cuda):
     t, lat, fl, o = cases.departures_operands(c, cuda)
     n0 = PK.departures.launches
     with pytest.raises(TypeError, match="dtype"):
-        PK.departures(t, lat, fl, o._replace(q_fields=o.q_fields.to(torch.int64)))
+        PK.departures_at(t, lat, fl, o._replace(q_fields=o.q_fields.to(torch.int64)))
     with pytest.raises(TypeError, match="dtype"):
-        PK.departures(t, lat, fl, o._replace(q_salt=o.q_salt.to(torch.int32)))
+        PK.departures_at(t, lat, fl, o._replace(q_salt=o.q_salt.to(torch.int32)))
     with pytest.raises(ValueError, match="shape"):
-        PK.departures(t, lat, fl, o._replace(infl=o.infl[:, :, :6].contiguous()))
+        PK.departures_at(t, lat, fl, o._replace(infl=o.infl[:, :, :6].contiguous()))
     with pytest.raises(ValueError, match="contiguous"):
-        PK.departures(t, lat, fl, o._replace(ft_time=o.ft_time.t().contiguous().t()))
+        PK.departures_at(t, lat, fl, o._replace(ft_time=o.ft_time.t().contiguous().t()))
     with pytest.raises(ValueError, match="on cpu"):
-        PK.departures(t, lat, fl, o._replace(q_size=o.q_size.cpu()))
+        PK.departures_at(t, lat, fl, o._replace(q_size=o.q_size.cpu()))
     with pytest.raises(ValueError, match="on cpu"):
-        PK.departures(t, lat, fl, o._replace(kspan=o.kspan.cpu()))
+        PK.departures_at(t, lat, fl, o._replace(kspan=o.kspan.cpu()))
     with pytest.raises(ValueError, match="fault columns"):
-        PK.departures(t, lat, fl._replace(fk=4), o)
+        PK.departures_at(t, lat, fl._replace(fk=4), o)
     assert PK.departures.launches == n0
-    PK.departures(t, lat, fl, o)
+    PK.departures_at(t, lat, fl, o)
     assert PK.departures.launches == n0 + 1
+
+
+# ------------------------------------------------- the lane axis (a batch)
+
+
+def _lanes_pair(kind, lc_k, lc_p):
+    """The batched kernel of ``kind`` on ``lc_k``, its batched plain version
+    on ``lc_p``; returns their events (control) or None."""
+    if kind == "departures":
+        PK.departures(lc_k["tick"], lc_k["lat"], lc_k["flags"], lc_k["o"])
+        PR.departures_lanes_ref(lc_p["tick"], lc_p["lat"], lc_p["flags"], lc_p["o"])
+    elif kind == "arrivals":
+        AK.arrivals(lc_k["tick"], lc_k["trim_delay"], lc_k["flags"], lc_k["o"], lc_k["gbin"])
+        AR.arrivals_lanes_ref(lc_p["tick"], lc_p["trim_delay"], lc_p["flags"], lc_p["o"],
+                              lc_p["gbin"])
+    elif kind == "control":
+        return (XK.control(lc_k["tick"], lc_k["flags"], lc_k["o"]),
+                XR.control_lanes_ref(lc_p["tick"], lc_p["flags"], lc_p["o"]))
+    else:
+        SK.sends(lc_k["tick"], lc_k["lat_send"], lc_k["flags"], lc_k["o"])
+        SR.sends_lanes_ref(lc_p["tick"], lc_p["lat_send"], lc_p["flags"], lc_p["o"])
+    return None
+
+
+@pytest.mark.parametrize("kind,shape,seed,flags", cases.LANES_CASES,
+                         ids=[f"{c[0]}-{c[2]}" for c in cases.LANES_CASES])
+def test_lane_batch_kernels_bit_equal(cuda, kind, shape, seed, flags):
+    """Each fused kernel on a lane batch (lanes at their own ticks, one not
+    live) against its batched plain version, bit for bit; one launch for
+    the batch; the lane that is not live left as it was."""
+    case = cases.lanes_case(kind, shape, seed, **flags)
+    k, p = cases.lanes_operands(case, cuda), cases.lanes_operands(case, cuda)
+    before = tstate.tree_map(lambda x: None if x is None else x.clone(), k["o"])
+    fn = dict(departures=PK.departures, arrivals=AK.arrivals, control=XK.control,
+              sends=SK.sends)[kind]
+    n0 = fn.launches
+    ev = _lanes_pair(kind, k, p)
+    assert fn.launches == n0 + 1
+    idle = k["tick"].live_h.index(False)
+    for x, y, z in zip(tstate.tree_leaves(k["o"]), tstate.tree_leaves(p["o"]),
+                       tstate.tree_leaves(before)):
+        if x is not None:
+            assert _bit_equal(x, y) and _bit_equal(x[idle], z[idle])
+    if ev is not None:
+        live = [i for i, go in enumerate(k["tick"].live_h) if go]
+        for a, b in zip(*ev):
+            assert _bit_equal(a[live], b[live])
+
+
+@pytest.mark.parametrize("name,points,algo", [
+    ("perm_128n_3t", ({}, {"start_cwnd_mult": 1.0, "kmin_frac": 0.3, "fd": 0.6},
+                      {"num_entropies": 64, "rto_mult": 4.0}), "smartt"),
+    ("incast8_16n", ({}, {"credit_window_mult": 1.5}), "eqds"),
+], ids=["perm_128n_3t", "incast8_16n-eqds"])
+def test_study_lanes_on_the_card_equal_their_runs(cuda, name, points, algo):
+    """A study as one lane batch on the card: every lane's final state equal
+    to its standalone run on the card and to the CPU's batch, bit for bit;
+    each fused kernel launched once a batched tick."""
+    from repro_torch.netsim import api
+    plan = api.study(name, points=points, seeds=(0, 1), algo=algo, device=cuda)
+    fns = (PK.departures, XK.control, AK.arrivals, SK.sends)
+    n0 = [f.launches for f in fns]
+    got = plan.run_states()
+    batch = plan.sim.stats["lanes"]["batch_ticks"]
+    assert [f.launches - n for f, n in zip(fns, n0)] == [batch] * 4
+    cpu = api.study(name, points=points, seeds=(0, 1), algo=algo, device="cpu").run_states()
+    for a, b in zip(tstate.tree_leaves(got), tstate.tree_leaves(cpu)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    sc = plan.scenario
+    for lane in range(plan.n_lanes):
+        pt, seed = plan.lane_point_seed(lane)
+        sim = api.engine.build(api.apply_point(sc.cfg, dict(pt)), sc.wl, device=cuda)
+        alone = tstate.to_numpy(sim.run(sc.max_ticks, seed=seed))
+        for a, b in zip(tstate.tree_leaves(alone), tstate.tree_leaves(tstate.lane(got, lane))):
+            assert a.tobytes() == b.tobytes()

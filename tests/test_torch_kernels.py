@@ -237,10 +237,10 @@ def _rehearse_wrappers(monkeypatch, name, ticks, **overrides):
     rehearse(EK, "enqueue_rank", tarb.enqueue_rank_ref)
     rehearse(EK, "rr_pick", tarb.rr_pick_ref)
     rehearse(DK, "ring_drain", drain_plain)
-    rehearse(XK, "control", XR.control_ref)
-    rehearse(AK, "arrivals", AR.arrivals_ref)
-    rehearse(SK, "sends", SR.sends_ref)
-    rehearse(PK, "departures", PR.departures_ref)
+    rehearse(XK, "control", XR.control_lanes_ref)
+    rehearse(AK, "arrivals", AR.arrivals_lanes_ref)
+    rehearse(SK, "sends", SR.sends_lanes_ref)
+    rehearse(PK, "departures", PR.departures_lanes_ref)
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
     sim = scenarios.scenario(name, **overrides).build(device="cpu")
     sim.run(ticks)
