@@ -30,7 +30,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                2e-5 (f32, the SIMT kernel) / 2e-2 (bf16, the tensor-core
                kernel; every masking and ragged case in both dtypes, the
                launch counted on the dtype's kernel, a misaligned bf16
-               view refused) and ssd_chunk_scan within 2e-4 (B/C in
+               view refused; a value head dim of its own, MLA's, and
+               cross-attention's non-causal Sk > Sq on both kernels, a
+               bf16 value head dim off 8 refused; MLA at minicpm3-4b's
+               full width and cross-attention at llama-3.2-vision-90b's
+               timed beside their bounds and SDPA) and ssd_chunk_scan
+               within 2e-4 (B/C in
                group form; bf16 on the tensor-core kernel, f32 on the
                SIMT kernel, the launch counted on the dtype's kernel, a
                misaligned bf16 view refused).
@@ -112,6 +117,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                the lane loop and one after another, in turns (median of
                5); the device's idle share of a 16-lane batched tick
                under torch.profiler; the 16-lane study's peak memory
+  4f. bridge — collectives/bridge.py's estimate of a 4 MiB all-to-all and
+               an 8 MiB all-reduce on 32 nodes at 4:1 oversubscription
+               under smartt, swift and eqds on the card: every field equal
+               to the CPU port's (run in a process of its own from the
+               start) and to the JAX package's pinned values
   5. serving — qwen3-0.6b (28 layers) and mamba2-780m (48 layers) at full
                width from a seeded init on the card, each serving two
                requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
@@ -126,6 +136,22 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                plain versions on the card; time to first token, decode
                tokens/s, peak memory and the device's idle share while
                decoding
+  5b. zoo — the other eight architectures at full width from a seeded
+               init, one at a time (qwen2-0.5b, phi3-mini-3.8b, minicpm3-4b
+               and musicgen-large whole; llama-3.2-vision-90b 5 layers,
+               dbrx-132b and mixtral-8x22b 2, jamba-1.5-large-398b pattern
+               positions 0-4: what one card holds), each serving B=4 x 512
+               prompt tokens (musicgen: frame embeddings; llama-vision: a
+               [4, 4096, 8192] cross feed) and 16 new tokens, through
+               serve.generate or prefill + decode_step; launch counts
+               reset just before and read just after (flash_attention once
+               an attention, cross or MLA layer and ssd_chunk_scan once a
+               Mamba-2 layer of the prefill, on the tensor cores; none in
+               decode); each layer from the same input, the prefill and
+               the teacher-forced logits against the plain versions on
+               the card (phase 5's gates; a MoE token the two paths route
+               differently, where the router did not decide, is left out);
+               TTFT in turns, decode tokens/s, peak memory
   6. profile — where perm_1024n_3t's tick time goes, through the fused
                launches and through each earlier design (plain departures,
                split arrivals, control, sends): each phase's ms a tick, the
@@ -2127,6 +2153,22 @@ FLASH_CASES = (
     (1, 2, 2, 90, 200, 48, False, 40, torch.float32),
 )
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# flash_attention with a value head dim of its own, and cross-attention's
+# non-causal Sk != Sq: (b, hq, hkv, sq, sk, d, dv, causal, dtype).  The
+# first two are timed: MLA at minicpm3-4b's full width (q/k 96 = 64 nope +
+# 32 rope, v 64, v read as the model reads it, a slice of the expanded
+# [B, S, H, 128] latents) and cross-attention at llama-3.2-vision-90b's
+# (64 query heads onto 8 kv heads of the 4096-row patch feed).
+DV_CASES = (
+    (4, 40, 40, 512, 512, 96, 64, True, torch.bfloat16),
+    (4, 64, 8, 512, 4096, 128, 128, False, torch.bfloat16),
+    (2, 5, 5, 37, 37, 24, 16, True, torch.bfloat16),        # reduced minicpm3-4b
+    (1, 4, 2, 70, 130, 64, 32, False, torch.bfloat16),
+    (1, 2, 1, 100, 300, 48, 24, True, torch.float32),       # ragged, the SIMT kernel
+    (2, 5, 5, 37, 37, 24, 16, True, torch.float32),
+    (2, 4, 2, 90, 333, 32, 8, False, torch.float32),
+)
+DV_TIMED = {"mla": DV_CASES[0], "cross": DV_CASES[1]}
 # (BH, BG, L, P, N, chunk, B/C dtype): B/C [BG, L, N] in group form (head
 # row bh reads group row bh // (BH // BG)).  bf16 goes to the tensor-core
 # kernel (ssd_scan_tc.cu), f32 to the SIMT kernel (ssd_scan.cu).  The first
@@ -2239,6 +2281,7 @@ def serve_kernel_checks(dev):
                **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                        bf16_flops=4 * d * attn_pairs(s, s, True, 0) * b * hq))
     records["flash_attention"] = rec
+    rec.update(flash_dv_checks(dev, g))
 
     errs = {}
     for case in SSD_CASES:
@@ -2328,6 +2371,80 @@ def serve_kernel_checks(dev):
     return records
 
 
+def flash_dv_checks(dev, g):
+    """flash_attention with v's own head dim (MLA) and non-causal Sk > Sq
+    (cross-attention) against the plain version on both kernels; a bf16
+    Dv that is not a multiple of 8 refused with no launch; the MLA and
+    cross shapes timed beside their bounds and SDPA.  Returns the timed
+    cases' numbers as ``mla_*`` and ``cross_*`` keys."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel as FK, ref as FR
+
+    def inputs(b, hq, hkv, sq, sk, d, dv, dt):
+        q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dt).transpose(1, 2)
+        k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dt).transpose(1, 2)
+        if dv == d:
+            v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dt)
+            return q, k, v.transpose(1, 2)
+        # v as MLA's prefill hands it over: the last dv columns of a wider row
+        kv = torch.randn((b, sk, hkv, 64 + dv), generator=g, device=dev).to(dt)
+        return q, k, kv[..., 64:].transpose(1, 2)
+
+    out_rec, errs = {}, {}
+    for case in DV_CASES:
+        b, hq, hkv, sq, sk, d, dv, causal, dt = case
+        q, k, v = inputs(b, hq, hkv, sq, sk, d, dv, dt)
+        kind = "tc" if dt == torch.bfloat16 else "simt"
+        n0 = getattr(FK.flash_attention, f"launches_{kind}")
+        out = FK.flash_attention(q, k, v, causal=causal)
+        if getattr(FK.flash_attention, f"launches_{kind}") != n0 + 1:
+            fail(f"flash_attention {case}: no {kind} launch counted")
+        ref = FR.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if out.shape != (b, hq, sq, dv) or out.shape != ref.shape:
+            fail(f"flash_attention {case}: output {tuple(out.shape)}, plain {tuple(ref.shape)}")
+        err = max_abs_err(out, ref)
+        if not err <= FLASH_TOL[dt]:
+            fail(f"flash_attention {case[:8]} {dt}: max abs error {err} against its plain "
+                 f"version (tolerance {FLASH_TOL[dt]}, {kind} kernel)")
+        errs[dt] = max(errs.get(dt, 0.0), err)
+    log(f"[kernels] flash_attention  Dv < D and non-causal Sk > Sq, {len(DV_CASES)} cases: "
+        f"max abs err bf16 {errs[torch.bfloat16]}, f32 {errs[torch.float32]}")
+    q, k, v = inputs(1, 2, 2, 64, 64, 96, 60, torch.bfloat16)
+    n0 = FK.flash_attention.launches
+    try:
+        FK.flash_attention(q, k, v[..., :60])
+    except ValueError as e:
+        log(f"[kernels] flash_attention refuses a bf16 value head dim of 60: {e}")
+    else:
+        fail("flash_attention took a bf16 value head dim that is not a multiple of 8")
+    if FK.flash_attention.launches != n0:
+        fail("flash_attention launched on a bf16 value head dim of 60")
+    for what, (b, hq, hkv, sq, sk, d, dv, causal, dt) in DV_TIMED.items():
+        q, k, v = inputs(b, hq, hkv, sq, sk, d, dv, dt)
+        pairs = attn_pairs(sq, sk, causal, 0) * b * hq
+        t = timings(lambda: FK.flash_attention(q, k, v, causal=causal),
+                    lambda: FR.flash_attention_ref(q, k, v, causal=causal),
+                    iters=20, plain_per_graph=2)
+        sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv))
+        bnd = bound(2 * (q.numel() + k.numel() + v.numel() + b * hq * sq * dv),
+                    bf16_flops=2 * (d + dv) * pairs)
+        shape = (f"q [{b}, {hq}, {sq}, {d}], k [{b}, {hkv}, {sk}, {d}], v [{b}, {hkv}, "
+                 f"{sk}, {dv}] bf16, {'causal' if causal else 'non-causal'}")
+        out_rec.update({f"{what}_shape": shape, f"{what}_ms": t["ms"],
+                        f"{what}_plain_ms": t["plain_ms"], f"{what}_call_ms": t["call_ms"],
+                        f"{what}_library_ms": sdpa, f"{what}_bound_ms": bnd["bound_ms"],
+                        f"{what}_bound_by": bnd["bound_by"], f"{what}_bytes": bnd["bytes"],
+                        f"{what}_bf16_flops": bnd["bf16_flops"]})
+        log(f"[kernels] flash_attention  {what} {shape}: device time kernel "
+            f"{t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us, library (SDPA) "
+            f"{sdpa * 1e3:.1f} us, bound {bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']} "
+            f"({bnd['bytes']} B, {bnd['bf16_flops']:.4g} bf16 FLOP)")
+    return out_rec
+
+
 def ssd_inputs(g, dev, bh, bg, L, P, N, dt):
     """x, loga (f32) and group-form B/C in ``dt``, from the generator."""
     x = torch.randn((bh, L, P), generator=g, device=dev) * 0.5
@@ -2375,23 +2492,113 @@ def rel_l2(want, got) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def per_layer_errors(model, prompt, max_len):
+@contextlib.contextmanager
+def recording_routes(calls):
+    """Append every MoE routing decision, ``moe.route``'s (probs, gate
+    values, expert ids), to ``calls`` while the block runs."""
+    from repro_torch.models import moe
+    fn = moe.route
+
+    def rec(p, cfg, x2):
+        out = fn(p, cfg, x2)
+        calls.append(out)
+        return out
+    moe.route = rec
+    try:
+        yield calls
+    finally:
+        moe.route = fn
+
+
+def kept_experts(cfg, idx):
+    """The experts that keep a token's choices (``[B, S, E]`` bool) under
+    the one-hot einsum dispatch, the zoo's: capacity per batch row, a
+    choice's buffer position its rank in a cumsum over tokens, then
+    choices (``models/moe.py`` ``moe_apply``)."""
+    import torch.nn.functional as F
+    if cfg.moe_sorted or cfg.moe_local_chunks:
+        fail(f"{cfg.name}: kept_experts follows the einsum dispatch only")
+    b, s, k = idx.shape
+    e = cfg.n_experts
+    cap = max(1, -(-int(cfg.capacity_factor * s * k) // e))
+    oh = F.one_hot(idx.long(), e)
+    pos = (oh.reshape(b, s * k, e).cumsum(dim=1).reshape(b, s, k, e) - oh)
+    return ((pos < cap) & (oh > 0)).any(dim=2)
+
+
+def route_flips(got, want, what, cfg):
+    """Tokens whose MoE output may differ between two runs (``got``,
+    ``want``: their ``recording_routes`` lists, call by call): a bool mask
+    of each call's token shape, one a call.  A token is flagged where the
+    two runs chose another set of experts (a flip), or kept its choices in
+    another set (its expert's capacity was taken by an earlier flip in
+    its row).  A flip is legitimate only where ``want``'s k-th minus
+    (k+1)-th probability is within twice the largest difference between
+    the two runs' router probabilities in that call (the routing was not
+    decided there); a kept set that differs needs a flip at or before it
+    in its row.  Anything else fails."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} MoE routings against {len(want)}")
+    masks, stats = [], dict(flips=0, dropped_otherwise=0, decisions=0, worst_margin=0.0)
+    for (pg, _, ig), (pw, _, iw) in zip(got, want):
+        k = ig.shape[-1]
+        flip = (ig.sort(dim=-1).values != iw.sort(dim=-1).values).any(dim=-1)
+        kept = (kept_experts(cfg, ig) != kept_experts(cfg, iw)).any(dim=-1) & ~flip
+        if bool((kept & ~(flip.cumsum(dim=1) > 0)).any()):
+            fail(f"{what}: a token kept in other experts with no routing flip before it "
+                 f"in its row")
+        top = pw.topk(min(k + 1, pw.shape[-1]), dim=-1).values
+        margin = top[..., k - 1] - top[..., k] if top.shape[-1] > k else top[..., -1]
+        noise = float((pg - pw).abs().max())
+        if bool(flip.any()):
+            worst = float(margin[flip].max())
+            if not worst <= 2 * noise:
+                fail(f"{what}: a token routed differently at a probability margin of "
+                     f"{worst}, above twice the runs' router difference {noise}")
+            stats["worst_margin"] = max(stats["worst_margin"], worst)
+        stats["flips"] += int(flip.sum())
+        stats["dropped_otherwise"] += int(kept.sum())
+        stats["decisions"] += flip.numel()
+        masks.append(flip | kept)
+    return masks, stats
+
+
+def any_flip(masks):
+    """The tokens routed differently in any of the calls (one shape)."""
+    out = masks[0]
+    for m in masks[1:]:
+        out = out | m
+    return out
+
+
+def per_layer_errors(model, batch, max_len):
     """Every layer through the kernels and through the plain versions from
     the same input (the plain path's residual stream); the worst error of
-    each output over the layers (max |d| / max |ref|)."""
+    each output over the layers (max |d| / max |ref|).  ``batch``: a
+    prefill's batch dict, or its tokens.  A MoE layer's output is compared
+    on the tokens both paths routed alike (``route_flips``); the caches
+    come before the FFN."""
     from repro_torch.models import lm
-    x = model.embed[prompt.long()]
-    positions = torch.arange(prompt.shape[1], dtype=torch.int32,
-                             device=x.device).expand(prompt.shape)
-    worst = {}
-    for layer in model.layers:
+    x, positions, cross = lm.prefill_inputs(model, batch)
+    worst, flips = {}, dict(flips=0, decisions=0, worst_margin=0.0)
+    for i, layer in enumerate(model.layers):
         model.backend = "kernel"
-        xk, ck = lm.prefill_layer(model, layer, x, positions, max_len)
+        with recording_routes([]) as rk:
+            xk, ck = lm.prefill_layer(model, layer, x, positions, max_len, cross)
         model.backend = "plain"
-        x, cp = lm.prefill_layer(model, layer, x, positions, max_len)
-        for name, e in [("x", rel_err(x, xk))] + [(f"cache.{n}", rel_err(cp[n], ck[n]))
-                                                  for n in cp]:
+        with recording_routes([]) as rp:
+            x, cp = lm.prefill_layer(model, layer, x, positions, max_len, cross)
+        same = slice(None)
+        if rp:
+            flip, st = route_flips(rk, rp, f"{model.cfg.name} layer {i}", model.cfg)
+            same = ~any_flip(flip)
+            flips = {k: max(flips.get(k, 0), v) if k == "worst_margin" else
+                     flips.get(k, 0) + v for k, v in st.items()}
+        for name, e in [("x", rel_err(x[same], xk[same]))] + \
+                [(f"cache.{n}", rel_err(cp[n], ck[n])) for n in cp]:
             worst[name] = max(worst.get(name, 0.0), e)
+    if flips["decisions"]:
+        worst["moe_flips"] = flips
     return worst
 
 
@@ -2431,9 +2638,11 @@ def attention_variant(variant):
     from repro_torch.kernels.flash_attn import kernel as FK, ops as FO
     fn = FO.flash_attention
 
-    def routed(q, k, v, *, causal=True, window=0, backend="kernel"):
-        if backend != "kernel":
-            fail(f"attention_variant({variant!r}) routes the kernel backend only")
+    def routed(q, k, v, *, causal=True, window=0, backend="kernel",
+               score_dtype=torch.float32):
+        if backend != "kernel" or score_dtype != torch.float32:
+            fail(f"attention_variant({variant!r}) routes the kernel backend's f32 "
+                 f"scores only")
         return FK.flash_attention(q, k, v, causal=causal, window=window, variant=variant)
     if variant is not None:
         FO.flash_attention = routed
@@ -2679,6 +2888,234 @@ def phase_serving(dev):
     return results
 
 
+# --------------------------------------------------------- 5b. the zoo
+
+# The other eight architectures at full width from a seeded init, one at a
+# time: (arch, layers on the card; None: the whole depth).  Depth is cut
+# where one 80 GB card cannot hold the model: llama-3.2-vision-90b one
+# pattern of 5 (the cross layer included), dbrx-132b and mixtral-8x22b 2
+# layers, jamba-1.5-large-398b pattern positions 0-4 (Mamba+dense,
+# Mamba+MoE, Mamba+dense, Mamba+MoE, attention+dense).
+ZOO = (("qwen2-0.5b", None), ("phi3-mini-3.8b", None), ("minicpm3-4b", None),
+       ("musicgen-large", None), ("llama-3.2-vision-90b", 5), ("dbrx-132b", 2),
+       ("mixtral-8x22b", 2), ("jamba-1.5-large-398b", 5))
+ZOO_REQUEST = (4, 512, 16)      # (batch, prompt tokens or frames, new tokens)
+ZOO_TTFT_REPEATS = 5
+
+
+def zoo_config(arch, layers):
+    """The full config of ``arch``, its depth cut to ``layers`` (the
+    pattern's first ``layers`` positions when that is less than one
+    pattern)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, pattern=cfg.pattern[:layers], n_layers=layers)
+
+
+def serve_loop(model, batch, new, max_len, frames=None, forced=None):
+    """``lm.prefill`` then ``new`` decode steps, as ``serve.generate`` runs
+    them, for any batch (a cross feed, embeddings): each step is fed the
+    argmax token, ``forced[:, i]``, or the frame ``frames[:, i]``.  Returns
+    (tokens ``[B, new]``, or None when fed frames; the logits ``[B, new,
+    vocab]`` that chose each step's input, the last step's discarded)."""
+    from repro_torch.models import lm
+    vocab = model.cfg.vocab
+    logits, caches, cl = lm.prefill(model, batch, max_len)
+    steps, toks = [logits[:, -1, :vocab]], []
+    for i in range(new):
+        if frames is not None:
+            nxt = {"embeds": frames[:, i:i + 1]}
+        else:
+            tok = (forced[:, i] if forced is not None
+                   else steps[-1].argmax(dim=-1)).to(torch.int32)
+            toks.append(tok)
+            nxt = {"tokens": tok[:, None]}
+        cl = cl + 1
+        logits, caches = lm.decode_step(model, nxt, caches, cl)
+        if i + 1 < new:
+            steps.append(logits[:, -1, :vocab])
+    return (torch.stack(toks, dim=1) if toks else None), torch.stack(steps, dim=1)
+
+
+def zoo_request(model, layers_by_kernel, dev):
+    """One request of ZOO_REQUEST through the kernels against the plain
+    versions on the card, phase 5's gates: each layer from the same input
+    within SERVE_LAYER_TOL, the prefill and teacher-forced logits within
+    SERVE_MAX_TOL, every token the margin decides equal; a MoE token that
+    the two paths route differently (route_flips) is left out of its
+    layer's output and of the logits of its row's position."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import MIXER_CROSS
+    from repro_torch.serve import engine
+    cfg = model.cfg
+    b, s, new = ZOO_REQUEST
+    tag = f"{cfg.name} ({cfg.n_layers} layers) B={b} S={s} +{new}"
+    max_len = s + new + 1
+    g = torch.Generator(device=dev).manual_seed(7 * b + s)
+    batch, frames = {}, None
+    if cfg.frontend == "tokens":
+        batch["tokens"] = torch.randint(0, cfg.vocab, (b, s), device=dev, dtype=torch.int32,
+                                        generator=g)
+    else:       # seeded frame embeddings for the prompt and each decode step
+        batch["embeds"] = torch.randn((b, s, cfg.d_model), generator=g,
+                                      device=dev).to(torch.bfloat16)
+        frames = torch.randn((b, new, cfg.d_model), generator=g,
+                             device=dev).to(torch.bfloat16)
+    if any(sp.mixer == MIXER_CROSS for sp in cfg.pattern):
+        batch["cross"] = torch.randn((b, cfg.cross_kv_len, cfg.d_model), generator=g,
+                                     device=dev).to(torch.bfloat16)
+    by_generate = "tokens" in batch and "cross" not in batch
+
+    # prefill through the kernels and through the plain versions
+    model.backend = "kernel"
+    with recording_routes([]) as rk:
+        lk, ck, _ = lm.prefill(model, batch, max_len)
+    model.backend = "plain"
+    with recording_routes([]) as rp:
+        lp, cp, _ = lm.prefill(model, batch, max_len)
+    if lk.shape != (b, 1, cfg.padded_vocab) or not bool(torch.isfinite(lk).all()):
+        fail(f"{tag}: prefill logits {tuple(lk.shape)}, finite {bool(torch.isfinite(lk).all())}")
+    rows = torch.ones(b, dtype=torch.bool, device=dev)
+    flips = None
+    if rp:          # rows whose last position was routed alike in every layer
+        flip, flips = route_flips(rk, rp, f"{tag} prefill", cfg)
+        rows = ~any_flip(flip)[:, -1]
+    errs = {"logits.max": rel_err(lp[rows], lk[rows]), "logits.l2": rel_l2(lp, lk)}
+    for name in set().union(*(c.keys() for c in ck)):
+        have = [i for i, c in enumerate(ck) if name in c]
+        want = torch.cat([cp[i][name].float().flatten() for i in have])
+        got = torch.cat([ck[i][name].float().flatten() for i in have])
+        errs[f"cache.{name}.l2"] = rel_l2(want, got)
+        errs[f"cache.{name}.max"] = rel_err(want, got)
+    layer_errs = per_layer_errors(model, batch, max_len)
+    layer_flips = layer_errs.pop("moe_flips", None)
+    log(f"[zoo] {tag}: prefill, kernel against plain: whole depth {errs}; worst layer "
+        f"from the same input {layer_errs}; MoE tokens routed differently: whole depth "
+        f"{flips}, layer by layer {layer_flips}")
+    bad = {k: v for k, v in layer_errs.items() if not v <= SERVE_LAYER_TOL}
+    if not errs["logits.max"] <= SERVE_MAX_TOL:
+        bad["logits.max"] = errs["logits.max"]
+    if bad or not bool(rows.any()):
+        fail(f"{tag}: prefill through the kernels differs from the plain versions {bad} "
+             f"(tolerance {SERVE_LAYER_TOL} a layer, {SERVE_MAX_TOL} for the logits; "
+             f"{int(rows.sum())} rows compared)")
+
+    # time to first token, the median of ZOO_TTFT_REPEATS in turns
+    ts = {"kernel": [], "plain": []}
+    for _ in range(ZOO_TTFT_REPEATS):
+        for w in ts:
+            model.backend = w
+            ts[w].append(timed(lambda: lm.prefill(model, batch, max_len)[0]
+                               [:, -1, :cfg.vocab].argmax(-1))[1])
+    ttft = {w: sorted(v)[len(v) // 2] for w, v in ts.items()}
+
+    # the path: counts at 0 just before, read just after (after one untimed
+    # request, so that the decode steps' first calls are not timed)
+    def serve(fn):
+        return fn() if by_generate else serve_loop(model, batch, new, max_len, frames)[0]
+    model.backend = "kernel"
+    serve(lambda: engine.generate(model, batch["tokens"], max_new=new, max_len=max_len))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    toks, gen_s = timed(lambda: serve(lambda: engine.generate(
+        model, batch["tokens"], max_new=new, max_len=max_len)))
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    for kname, n in layers_by_kernel.items():
+        want[kname] = want[f"{kname}:tc"] = n
+    if launches != want:
+        fail(f"{tag}: the request launched {launches}, expected {want} (one a layer of "
+             f"the prefill, on the tensor cores; none in decode)")
+    if toks is not None and (toks.shape != (b, new) or int(toks.min()) < 0
+                             or int(toks.max()) >= cfg.vocab):
+        fail(f"{tag}: generated tokens {tuple(toks.shape)} outside [0, {cfg.vocab})")
+    reset_counts()
+    nxt = {"tokens": toks[:, :1]} if toks is not None else {"embeds": frames[:, :1]}
+    lm.decode_step(model, nxt, ck, torch.full((b,), s + 1, dtype=torch.int32, device=dev))
+    if any(read_counts().values()):
+        fail(f"{tag}: a decode step launched {read_counts()}")
+    model.backend = "plain"
+    _, gen_p = timed(lambda: serve(lambda: engine.generate(
+        model, batch["tokens"], max_new=new, max_len=max_len)))
+
+    # teacher-forced: both fed the kernel run's tokens (or the same frames)
+    def forced(w):
+        model.backend = w
+        with recording_routes([]) as r:
+            if by_generate:
+                out = engine.teacher_forced_logits(model, batch["tokens"], toks,
+                                                   max_len=max_len)
+            else:
+                out = serve_loop(model, batch, new, max_len, frames, forced=toks)[1]
+        return out, r
+    (fk, rfk), (fp, rfp) = forced("kernel"), forced("plain")
+    keep = torch.ones(fk.shape[:2], dtype=torch.bool, device=dev)
+    if rfp:         # a step whose input was routed differently in some layer
+        flip, _ = route_flips(rfk, rfp, f"{tag} teacher-forced", cfg)
+        n_moe = sum(f.shape[1] == s for f in flip)      # the prefill's calls
+        keep[:, 0] = ~any_flip(flip[:n_moe])[:, -1]
+        for i in range(1, new):                         # decode step i - 1
+            keep[:, i] = ~any_flip(flip[n_moe * i:n_moe * (i + 1)])[:, 0]
+    errs["forced_logits.l2"] = rel_l2(fp, fk)
+    errs["forced_logits.max"] = rel_err(fp[keep], fk[keep])
+    top2 = fp.float().topk(2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > SERVE_MAX_TOL * float(fp.float().abs().max())) \
+        & keep
+    ref_tok = toks if toks is not None else fp.argmax(-1)
+    agree_k = bool((fk.argmax(-1)[decided] == ref_tok[decided]).all())
+    agree_p = bool((fp.argmax(-1)[decided] == ref_tok[decided]).all())
+    if not (errs["forced_logits.max"] <= SERVE_MAX_TOL and agree_k and agree_p
+            and bool(decided.any())):
+        fail(f"{tag}: teacher-forced logits error {errs['forced_logits.max']} (tolerance "
+             f"{SERVE_MAX_TOL}); tokens agree where the margin decides: kernel {agree_k}, "
+             f"plain {agree_p} ({int(decided.sum())} of {decided.numel()} decided)")
+    rate = {"kernel": b * new / (gen_s - ttft["kernel"]), "plain": b * new / (gen_p - ttft["plain"])}
+    log(f"[zoo] {tag}: launches {dict((k, v) for k, v in launches.items() if v)}, 0 in "
+        f"decode; TTFT kernel {ttft['kernel'] * 1e3:.2f} ms, plain {ttft['plain'] * 1e3:.2f} "
+        f"ms (median of {ZOO_TTFT_REPEATS} in turns); decode kernel {rate['kernel']:.1f} "
+        f"tok/s, plain {rate['plain']:.1f} tok/s; {'generate' if by_generate else 'prefill + decode_step'} "
+        f"{gen_s:.3f} s (plain {gen_p:.3f} s); peak memory {peak / 2**30:.3f} GiB; "
+        f"teacher-forced errors {errs['forced_logits.max']:.4g} max, "
+        f"{int(decided.sum())}/{decided.numel()} steps decided by the margin, all agree; "
+        f"{int((~keep).sum())} steps left out for a MoE routing flip")
+    return dict(launches={k: v for k, v in launches.items() if v}, ttft_ms=ttft["kernel"] * 1e3,
+                ttft_plain_ms=ttft["plain"] * 1e3, decode_tok_s=rate["kernel"],
+                decode_tok_s_plain=rate["plain"], generate_s=gen_s, generate_plain_s=gen_p,
+                peak_bytes=peak, errors=errs, layer_errors=layer_errs, moe_flips=flips,
+                moe_layer_flips=layer_flips, decided=int(decided.sum()),
+                steps=decided.numel(), path="generate" if by_generate else "prefill+decode_step")
+
+
+def phase_zoo(dev):
+    """Each ZOO arch at full width (depth cut as ZOO says) from a seeded
+    init on the card, one at a time, serving ZOO_REQUEST (zoo_request)."""
+    from repro_torch.models import lm
+    from repro_torch.models.config import MIXER_MAMBA
+    results = {}
+    for arch, layers in ZOO:
+        cfg = zoo_config(arch, layers)
+        torch.cuda.reset_peak_memory_stats()
+        model, init_s = timed(lambda: lm.LM(
+            cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+        n = sum(p.numel() for p in model.parameters())
+        nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        mixers = [cfg.pattern[i % len(cfg.pattern)].mixer for i in range(cfg.n_layers)]
+        by_kernel = {"flash_attention": sum(m != MIXER_MAMBA for m in mixers),
+                     "ssd_chunk_scan": sum(m == MIXER_MAMBA for m in mixers)}
+        log(f"[zoo] {arch}: {cfg.n_layers} layers{' (cut)' if layers else ''}, d_model "
+            f"{cfg.d_model}, {n / 1e9:.3f} B parameters ({nbytes / 1e9:.2f} GB), seeded init "
+            f"on the card in {init_s:.2f} s")
+        rec = zoo_request(model, {k: v for k, v in by_kernel.items() if v}, dev)
+        rec.update(layers=cfg.n_layers, params=n, param_bytes=nbytes, init_s=init_s)
+        results[arch] = rec
+        del model
+        torch.cuda.empty_cache()
+    return results
+
+
 def dev_us(e):
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
@@ -2773,11 +3210,90 @@ def phase_profile():
         "kernel", "plain-departures", "split-arrivals", "split-control", "split-sends")}
 
 
+# ------------------------------------------------------- 4f. the bridge
+
+# collectives/bridge.py's estimate of the collectives of examples/
+# torch_collective_estimate.py (a jamba-398b cross-pod gradient all-reduce,
+# a dbrx expert-parallel all-to-all) under each transport, on 32 nodes of
+# a 4:1 oversubscribed two-rack fabric.  The JAX package's values, pinned
+# by tests/test_torch_bridge.py, as dataclasses.astuple(CollectiveEstimate):
+BRIDGE_KW = dict(nodes=32, oversub=4)
+BRIDGE_REFERENCE = {
+    ("all-to-all", 4 << 20, "smartt"): ("all-to-all", "smartt", 32, 2097152, 1946, 506, 1.0,
+                                        1.1353711790393013, 0, 0.8534152042834456),
+    ("all-to-all", 4 << 20, "swift"): ("all-to-all", "swift", 32, 2097152, 1946, 506, 1.0,
+                                       1.1353711790393013, 0, 0.8534152042834456),
+    ("all-to-all", 4 << 20, "eqds"): ("all-to-all", "eqds", 32, 2097152, 1946, 506, 1.0,
+                                      1.1353711790393013, 0, 0.8534152042834456),
+    ("all-reduce", 8 << 20, "smartt"): ("all-reduce", "smartt", 32, 2097152, 2074, 2187,
+                                        0.9483310470964792, 0.4540806420296421, 647,
+                                        0.9893013307345078),
+    ("all-reduce", 8 << 20, "swift"): ("all-reduce", "swift", 32, 2097152, 2074, 2214,
+                                       0.9367660343270099, 0.7994065090475115, 459,
+                                       0.9622939865978168),
+    ("all-reduce", 8 << 20, "eqds"): ("all-reduce", "eqds", 32, 2097152, 2074, 2200,
+                                      0.9427272727272727, 0.8629342475036375, 23544,
+                                      0.9278546135238712),
+}
+# the CPU port's estimates, in a process of their own started before the
+# build (one torch thread); phase 4f reads them
+BRIDGE_CPU = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+import torch
+torch.set_num_threads(1)
+from repro_torch.collectives.bridge import estimate
+cases = json.loads(sys.argv[1])
+out = [dataclasses.astuple(estimate(kind, nbytes, algo=algo, device="cpu", **kw))
+       for kind, nbytes, algo, kw in cases]
+print(json.dumps(out))
+"""
+
+
+def start_bridge_cpu():
+    cases = [(kind, nbytes, algo, BRIDGE_KW) for kind, nbytes, algo in BRIDGE_REFERENCE]
+    return subprocess.Popen([sys.executable, "-c", BRIDGE_CPU, json.dumps(cases)],
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True)
+
+
+def phase_bridge(bridge_cpu):
+    """bridge.estimate of every BRIDGE_REFERENCE case on the card: every
+    field equal to the pinned JAX values and to the CPU port's result."""
+    from repro_torch.collectives.bridge import estimate
+    out, _ = bridge_cpu.communicate(timeout=900)
+    if bridge_cpu.returncode != 0:
+        fail(f"the CPU port's bridge estimates exited {bridge_cpu.returncode}")
+    cpu = [tuple(r) for r in json.loads(out)]
+    rec = {}
+    for (key, want), on_cpu in zip(BRIDGE_REFERENCE.items(), cpu):
+        kind, nbytes, algo = key
+        est, wall = timed(lambda: estimate(kind, nbytes, algo=algo, **BRIDGE_KW))
+        got = dataclasses.astuple(est)
+        if got != want or on_cpu != want:
+            fail(f"bridge {key}: card {got}, CPU port {on_cpu}, JAX (pinned) {want}")
+        rec[f"{kind} {nbytes} {algo}"] = dict(dataclasses.asdict(est), wall_s=wall)
+        log(f"[bridge] {kind} {nbytes >> 20} MiB {algo}: efficiency {est.efficiency}, "
+            f"straggler spread {est.straggler_spread}, trims {est.trims}, fairness "
+            f"{est.fairness}, {est.achieved_ticks} ticks; every field equal to the CPU "
+            f"port's and the JAX package's; {wall:.3f} s on the card")
+    return rec
+
+
 # ------------------------------------------------------------------ main
 
 
 def main():
     name, smi_line = phase_device()
+    bridge_cpu = start_bridge_cpu()
+    try:
+        run(name, smi_line, bridge_cpu)
+    finally:
+        if bridge_cpu.poll() is None:
+            bridge_cpu.kill()
+        bridge_cpu.wait()
+
+
+def run(name, smi_line, bridge_cpu):
     # f32 products and convolutions in full f32 (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2828,7 +3344,9 @@ def main():
     comparison = timed_phase("comparison", phase_comparison, smartt_rate, finals)
     experiment_api = timed_phase("api", phase_api, paths, finals)
     lanes_rec = timed_phase("lanes", phase_lanes, lanes_checked)
+    bridge = timed_phase("bridge", phase_bridge, bridge_cpu)
     serving = timed_phase("serving", phase_serving, dev)
+    zoo = timed_phase("zoo", phase_zoo, dev)
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
     # (source, the TPU kernel it replaces, the path whose launches it reports);
@@ -2892,7 +3410,9 @@ def main():
                 "plain_phase_ms", "phase_call_ms", "split_phase_call_ms",
                 "plain_phase_call_ms", "phase_launches", "split_phase_launches",
                 "plain_phase_launches")
-               or k_.startswith("a2a_")}))
+               or k_.startswith(("a2a_", "mla_", "cross_"))},
+            **({"launches_zoo": {a: r["launches"].get(k, 0) for a, r in zoo.items()}}
+               if k in ("flash_attention", "ssd_chunk_scan") else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":
                       v["ticks"] / wall for w, wall in v["walls"].items()},
@@ -2928,7 +3448,7 @@ def main():
                                        kernels=kernels, end_to_end=e2e,
                                        red_mark_check=red, comparison=comparison,
                                        experiment_api=experiment_api,
-                                       lanes=lanes_rec,
+                                       lanes=lanes_rec, bridge=bridge, zoo=zoo,
                                        serving=serving, profile=prof), indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
-"""PyTorch/CUDA port of the SMaRTT packet simulator and of the model zoo's
-serving path.
+"""PyTorch/CUDA port of the SMaRTT packet simulator, of the model zoo's
+serving path and of the collective bridge between them.
 
 Mirrors the layout of the JAX package (``netsim/``, ``core/``,
-``models/``, ``configs/``, ``serve/``, ``kernels/<name>/{ref,kernel,ops}.py``)
+``models/``, ``configs/``, ``serve/``, ``collectives/``,
+``kernels/<name>/{ref,kernel,ops}.py``)
 so every counterpart is easy to find.  The kernels are hand-written CUDA
 C++ for Hopper (``csrc/*.cu``), built at first use into
 ``build/repro_torch/`` at the repository root and bound with ``ctypes``.

@@ -18,7 +18,9 @@
 // each thread owns a 4x4 block of scores and a 4x(D/16) block of the f32
 // accumulator, with the running max and sum reduced over the 16 threads
 // of a row by warp shuffles.  Query head h reads kv head h / (Hq / Hkv)
-// (no materialized repeat).  Ragged Sq and Sk are masked in the kernel:
+// (no materialized repeat).  V and O have their own head dim Dv <= D (MLA:
+// q/k 96, v 64): V is loaded and O stored for columns < Dv only, the
+// columns Dv..D of the V tile are zeros.  Ragged Sq and Sk are masked in the kernel:
 // out-of-range keys weigh exactly 0.  Masked scores are -1e30 as in the
 // TPU kernel; tiles that are masked for every row are skipped only when
 // every row of the tile has an unmasked key, which changes no bit of the
@@ -36,7 +38,7 @@ struct FlashArgs {
     const void* v;
     void* o;
     long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-    int b, hq, hkv, sq, sk, d, causal, window, dtype;
+    int b, hq, hkv, sq, sk, d, dv, causal, window, dtype;
     float scale;
 };
 
@@ -121,7 +123,7 @@ __global__ void __launch_bounds__(NT) flash_attn_kernel(FlashArgs a) {
         for (int e = tid; e < BK * D; e += NT) {
             const int r = e / D, c = e % D;
             Ks[r * ld + c] = r < nk ? to_f(k[(k0 + r) * a.k_ss + c]) : 0.f;
-            Vs[r * ld + c] = r < nk ? to_f(v[(k0 + r) * a.v_ss + c]) : 0.f;
+            Vs[r * ld + c] = r < nk && c < a.dv ? to_f(v[(k0 + r) * a.v_ss + c]) : 0.f;
         }
         __syncthreads();
 
@@ -185,7 +187,7 @@ __global__ void __launch_bounds__(NT) flash_attn_kernel(FlashArgs a) {
 #pragma unroll
             for (int j = 0; j < DMAX / 16; ++j) {
                 const int dd = tx + 16 * j;
-                if (dd < D) {
+                if (dd < a.dv) {
                     const float vb = Vs[c * ld + dd];
 #pragma unroll
                     for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pa[i], vb, acc[i][j]);
@@ -202,7 +204,7 @@ __global__ void __launch_bounds__(NT) flash_attn_kernel(FlashArgs a) {
 #pragma unroll
         for (int j = 0; j < DMAX / 16; ++j) {
             const int dd = tx + 16 * j;
-            if (dd < D) o[(q0 + r) * a.o_ss + dd] = from_f<T>(acc[i][j] / den);
+            if (dd < a.dv) o[(q0 + r) * a.o_ss + dd] = from_f<T>(acc[i][j] / den);
         }
     }
 }
@@ -221,7 +223,8 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 }  // namespace
 
 REPRO_EXPORT int repro_flash_attention(FlashArgs a, void* stream) {
-    if (a.d < 1 || a.d > DMAX || a.hkv < 1 || a.hq % a.hkv) return (int)cudaErrorInvalidValue;
+    if (a.d < 1 || a.d > DMAX || a.dv < 1 || a.dv > a.d || a.hkv < 1 || a.hq % a.hkv)
+        return (int)cudaErrorInvalidValue;
     return a.dtype == 1 ? launch<__nv_bfloat16>(a, (cudaStream_t)stream)
                         : launch<float>(a, (cudaStream_t)stream);
 }

@@ -29,6 +29,10 @@
 //   buffered, so the next key tile loads while this one is computed.
 //   Ragged rows and keys, and columns D..DPAD, are zero-filled by the
 //   src-size-0 form of cp.async.
+// V and O may have a head dim Dv <= D of their own (MLA: q/k 96, v 64;
+// a multiple of 8): V is loaded and O stored for columns < Dv only; the
+// V tile's columns Dv..DPAD are zero-filled, so P·V over DPAD columns
+// gives zeros there and nothing else changes.
 // Numerics: S is summed in f32 and scaled in f32 by D^-0.5 * log2(e)
 // (Q is not pre-scaled, so it is rounded only once, as given); the
 // softmax runs in the log2 domain with exp2f.  A masked score is -1e30
@@ -53,7 +57,7 @@ struct FlashArgs {
     const void* v;
     void* o;
     long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-    int b, hq, hkv, sq, sk, d, causal, window, dtype;
+    int b, hq, hkv, sq, sk, d, dv, causal, window, dtype;
     float scale;
 };
 
@@ -144,7 +148,7 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
     if (t_begin < t_end) {
         const int k0 = t_begin * BK, nk = min(BK, a.sk - k0);
         load_tile<DPAD>(k_s, k + k0 * a.k_ss, a.k_ss, nk, a.d, tid);
-        load_tile<DPAD>(v_s, v + k0 * a.v_ss, a.v_ss, nk, a.d, tid);
+        load_tile<DPAD>(v_s, v + k0 * a.v_ss, a.v_ss, nk, a.dv, tid);
     }
     cp_async_commit();
 
@@ -168,7 +172,7 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
         if (t + 1 < t_end) {         // the next tile loads while this one is computed
             const int k1 = (t + 1) * BK, n1 = min(BK, a.sk - k1);
             load_tile<DPAD>(k_s + (TB - st), k + k1 * a.k_ss, a.k_ss, n1, a.d, tid);
-            load_tile<DPAD>(v_s + (TB - st), v + k1 * a.v_ss, a.v_ss, n1, a.d, tid);
+            load_tile<DPAD>(v_s + (TB - st), v + k1 * a.v_ss, a.v_ss, n1, a.dv, tid);
             cp_async_commit();
             cp_async_wait<1>();
         } else {
@@ -298,7 +302,7 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
 #pragma unroll
     for (int i = 0; i < 16 * CH / 32; ++i) {
         const int e = lane + 32 * i, r = warp * 16 + e / CH, c = e % CH;
-        if (r < rows && c * 8 < a.d)
+        if (r < rows && c * 8 < a.dv)
             *reinterpret_cast<uint4*>(o + (q0 + r) * a.o_ss + c * 8) =
                 *reinterpret_cast<const uint4*>(Qs + r * LD + c * 8);
     }
@@ -317,10 +321,11 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 
 }  // namespace
 
-// bf16 only; D a multiple of 8 up to 128; every row 16-byte aligned (the
-// wrapper checks the pointers and strides).
+// bf16 only; D a multiple of 8 up to 128, Dv a multiple of 8 up to D;
+// every row 16-byte aligned (the wrapper checks the pointers and strides).
 REPRO_EXPORT int repro_flash_attention_tc(FlashArgs a, void* stream) {
-    if (a.dtype != 1 || a.d < 8 || a.d > 128 || a.d % 8 || a.hkv < 1 || a.hq % a.hkv)
+    if (a.dtype != 1 || a.d < 8 || a.d > 128 || a.d % 8 || a.dv < 8 || a.dv > a.d ||
+        a.dv % 8 || a.hkv < 1 || a.hq % a.hkv)
         return (int)cudaErrorInvalidValue;
     return a.d <= 64 ? launch<64>(a, (cudaStream_t)stream)
                      : launch<128>(a, (cudaStream_t)stream);

@@ -2,14 +2,16 @@
 
 The dtype decides which kernel takes a call (:func:`variant`), one rule
 with no fallback: f32 goes to the SIMT kernel (``csrc/flash_attn.cu``),
-bf16 to the tensor-core kernel (``csrc/flash_attn_tc.cu``), which takes a
-head dim that is a multiple of 8 and rows that are 16-byte aligned; bf16
-operands it does not take raise ``ValueError``.
+bf16 to the tensor-core kernel (``csrc/flash_attn_tc.cu``), which takes
+head dims (q/k's and v's) that are multiples of 8 and rows that are
+16-byte aligned; bf16 operands it does not take raise ``ValueError``.
+V may have a head dim ``Dv <= D`` of its own (MLA), as the JAX package's
+``blocked_attention`` takes; the output then has ``Dv`` columns.
 
 The wrapper checks every operand (device, dtype, shape, a unit innermost
 stride: the kernels take the other strides, so ``gqa``'s ``[B, S, H, D]``
 -> ``[B, H, S, D]`` transposes reach them without a copy), allocates the
-output as a ``[B, Hq, Sq, D]`` view of ``[B, Sq, Hq, D]`` storage (so the
+output as a ``[B, Hq, Sq, Dv]`` view of ``[B, Sq, Hq, Dv]`` storage (so the
 caller's transpose back is free), launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in
 ``flash_attention.launches``, and by kernel in ``launches_tc`` and
@@ -37,7 +39,7 @@ class _Args(ctypes.Structure):
     argument struct of both kernels."""
     _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "o")]
                 + [(f"{t}_s{a}", _LL) for t in "qkvo" for a in "bhs"]
-                + [(n, ctypes.c_int) for n in ("b", "hq", "hkv", "sq", "sk", "d",
+                + [(n, ctypes.c_int) for n in ("b", "hq", "hkv", "sq", "sk", "d", "dv",
                                                "causal", "window", "dtype")]
                 + [("scale", ctypes.c_float)])
 
@@ -51,13 +53,15 @@ def _fn(kind: str):
 
 def _check_tc(q, k, v) -> None:
     """Raise ``ValueError`` unless the tensor-core kernel takes the
-    operands: bf16, head dim a multiple of 8, every row 16-byte aligned
-    (pointer and the b, h, s strides) with a unit innermost stride."""
+    operands: bf16, head dims (q/k's and v's) multiples of 8, every row
+    16-byte aligned (pointer and the b, h, s strides) with a unit innermost
+    stride."""
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the tensor-core kernel takes bf16, got {q.dtype}")
-    if q.shape[-1] % TC_ALIGN:
-        raise ValueError(f"head dim {q.shape[-1]}: the tensor-core kernel takes a "
-                         f"multiple of {TC_ALIGN}")
+    for what, n in (("head dim", q.shape[-1]), ("value head dim", v.shape[-1])):
+        if n % TC_ALIGN:
+            raise ValueError(f"{what} {n}: the tensor-core kernel takes a "
+                             f"multiple of {TC_ALIGN}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if (t.data_ptr() % 16 or t.stride(-1) != 1
                 or any(s % TC_ALIGN for s in t.stride()[:-1])):
@@ -81,8 +85,9 @@ _by_dtype = variant     # flash_attention's keyword of the same name shadows it
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     variant: str | None = None):
-    """Launch a kernel on CUDA tensors; q ``[B, Hq, Sq, D]``, k/v
-    ``[B, Hkv, Sk, D]``, f32 or bf16, ``D <= 128``, ``Hq % Hkv == 0``.
+    """Launch a kernel on CUDA tensors; q ``[B, Hq, Sq, D]``, k ``[B, Hkv,
+    Sk, D]``, v ``[B, Hkv, Sk, Dv]``, f32 or bf16, ``Dv <= D <= 128``,
+    ``Hq % Hkv == 0``; returns ``[B, Hq, Sq, Dv]``.
 
     ``variant`` (``"tc"`` or ``"simt"``) names the kernel; left ``None``,
     the dtype decides (:func:`variant`).  Only the card's checks name it,
@@ -93,25 +98,26 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{tuple(k.shape)}")
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1] if v.dim() == 4 else d
     if q.dtype not in DTYPES:
         raise TypeError(f"q: dtype {q.dtype}, expected one of {list(DTYPES)}")
-    if not 1 <= d <= D_MAX or hkv < 1 or hq % hkv:
-        raise ValueError(f"head dim {d} (1..{D_MAX}) and heads {hq}/{hkv} "
-                         f"(a multiple) not supported")
+    if not 1 <= dv <= d <= D_MAX or hkv < 1 or hq % hkv:
+        raise ValueError(f"head dims {d}, {dv} (1 <= Dv <= D <= {D_MAX}) and heads "
+                         f"{hq}/{hkv} (a multiple) not supported")
     ptrs = dict(q=build.require(q, "q", q.dtype, (b, hq, sq, d), dev, last_dim_only=True),
                 k=build.require(k, "k", q.dtype, (b, hkv, sk, d), dev, last_dim_only=True),
-                v=build.require(v, "v", q.dtype, (b, hkv, sk, d), dev, last_dim_only=True))
+                v=build.require(v, "v", q.dtype, (b, hkv, sk, dv), dev, last_dim_only=True))
     if variant not in (None, *VARIANTS):
         raise ValueError(f"variant {variant!r}: expected one of {VARIANTS} or None")
     if variant == "tc":
         _check_tc(q, k, v)
     kind = variant or _by_dtype(q, k, v)
     build.on_card(dev, "flash_attention")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev).transpose(1, 2)
     strides = {f"{n}_s{a}": t.stride(i) for n, t in zip("qkvo", (q, k, v, out))
                for i, a in enumerate("bhs")}
     args = _Args(**{n: p.value for n, p in ptrs.items()}, o=out.data_ptr(),
-                 **strides, b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d,
+                 **strides, b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d, dv=dv,
                  causal=int(bool(causal)), window=int(window),
                  dtype=DTYPES[q.dtype], scale=d ** -0.5)
     build.check(_fn(kind)(args, build.stream(dev)), f"flash_attention ({kind})")

@@ -7,8 +7,10 @@ for each ``BLOCK_Q`` query tile, visiting the same tiles the CUDA kernel
 visits, in f32, rounded once to ``q.dtype`` — the plain version that the
 CPU runs and the card compares the kernel with.
 
-Layout (both): q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with
-``Hq % Hkv == 0`` (query head ``h`` reads kv head ``h // (Hq // Hkv)``).
+Layout (both): q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Sk, D]``, v ``[B, Hkv,
+Sk, Dv]`` (``Dv`` may differ from ``D``: MLA) with ``Hq % Hkv == 0`` (query
+head ``h`` reads kv head ``h // (Hq // Hkv)``); the output is ``[B, Hq,
+Sq, Dv]``, the scale ``D^-0.5``.
 The ends of q and k are aligned: query row ``i`` sits at key position
 ``i + Sk - Sq``.  Masked scores are ``-1e30``, as in the JAX package, so
 a row with no unmasked key averages every value, as there.
@@ -42,7 +44,7 @@ def _mask(qpos, kpos, causal, window):
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """Naive attention in f32; returns f32 ``[B, Hq, Sq, D]``."""
+    """Naive attention in f32; returns f32 ``[B, Hq, Sq, Dv]``."""
     k, v = _kv_heads(q, k, v)
     q, k, v = q.float(), k.float(), v.float()
     d = q.shape[-1]
@@ -82,29 +84,36 @@ def key_tiles(q0: int, rows: int, sq: int, sk: int, causal: bool, window: int,
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        block_q: int = BLOCK_Q, block_k: int = BLOCK_K):
-    """The kernel's blocked online softmax; returns ``q.dtype``."""
+                        block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                        score_dtype=torch.float32):
+    """The kernel's blocked online softmax; returns ``q.dtype``.
+
+    ``score_dtype=torch.bfloat16`` rounds each tile's scores and
+    probabilities to bf16, the softmax statistics staying f32, as the JAX
+    package's ``blocked_attention(score_dtype=)`` does (``cfg.attn_bf16``);
+    no kernel takes it."""
     b, hq, sq, d = q.shape
-    sk = k.shape[2]
+    sk, dv = k.shape[2], v.shape[-1]
     k, v = _kv_heads(q, k, v)
     qf = q.float() * (d ** -0.5)
     kf, vf = k.float(), v.float()
-    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     for q0 in range(0, sq, block_q):
         rows = min(block_q, sq - q0)
         qt = qf[:, :, q0:q0 + rows]
         qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None] + (sk - sq)
         m = torch.full((b, hq, rows, 1), NEG_INF, device=q.device)
         l = torch.zeros((b, hq, rows, 1), device=q.device)
-        acc = torch.zeros((b, hq, rows, d), device=q.device)
+        acc = torch.zeros((b, hq, rows, dv), device=q.device)
         for t in key_tiles(q0, rows, sq, sk, causal, window, block_k):
             k0 = t * block_k
             kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
             kpos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
             s = torch.where(_mask(qpos, kpos, causal, window),
                             qt @ kt.transpose(-1, -2), NEG_INF)
+            s = s.to(score_dtype).float()
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-            p = torch.exp(s - m_new)
+            p = torch.exp(s - m_new).to(score_dtype).float()
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1, keepdim=True)
             acc = alpha * acc + p @ vt

@@ -101,7 +101,9 @@ def operand(x, name: str, dtype, shape, device, n: int, *, state: bool = False):
     in bytes)``.  ``x`` must be ``[n, *shape]`` on ``device`` with each
     lane's block contiguous.  A ``state`` operand (one the kernel writes)
     needs a row of its own a lane; a constant may be shared (lane stride
-    0, an ``expand``-ed view)."""
+    0, an ``expand``-ed view).  An empty block (a zero in ``shape``: a
+    case with no dependencies, say) is never read; its lane stride is
+    passed as 0, whatever PyTorch's strides for a zero-size tensor are."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
     if x.device != device:
@@ -117,8 +119,8 @@ def operand(x, name: str, dtype, shape, device, n: int, *, state: bool = False):
         per *= s
     if not x[0].is_contiguous():
         raise ValueError(f"{name}: a lane's block is not contiguous (strides {x.stride()})")
-    stride = x.stride(0) if n > 1 else 0
-    if n > 1 and not (stride == per or (stride == 0 and not state)):
+    stride = x.stride(0) if n > 1 and per else 0
+    if n > 1 and per and not (stride == per or (stride == 0 and not state)):
         raise ValueError(f"{name}: lane stride {stride} elements; expected {per}"
                          + ("" if state else " or 0 (shared)"))
     return ctypes.c_void_p(x.data_ptr()), stride * x.element_size()

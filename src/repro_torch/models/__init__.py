@@ -1,2 +1,3 @@
-"""Serving path of the model zoo: config, layers, attention, Mamba-2,
-decoder layers and the language model (prefill + decode)."""
+"""Serving path of the model zoo: config, layers, attention (self and
+cross), MLA, Mamba-2, MoE, decoder layers and the language model
+(prefill + decode)."""

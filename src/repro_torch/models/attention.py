@@ -1,6 +1,8 @@
-"""GQA self-attention (the JAX package's ``models/attention.py``, serving
-half): the q/k/v projection, prefill attention through the
-``flash_attention`` kernel, and single-token decode attention.
+"""GQA self-attention and cross-attention (the JAX package's
+``models/attention.py``, serving half): the q/k/v projection, prefill
+attention through the ``flash_attention`` kernel (causal for
+self-attention, non-causal over the cross feed's ``Sk`` keys for
+cross-attention), and single-token decode attention.
 
 ``decode_attention`` stays plain PyTorch, as the JAX package computes it
 outside any Pallas kernel.
@@ -19,7 +21,9 @@ NEG_INF = -1e30
 
 class Attention(nn.Module):
     """Parameters of one GQA attention block, in the JAX package's layout
-    (``wq [d, Hq*Dh]``, ``wk``/``wv [d, Hkv*Dh]``, ``wo [Hq*Dh, d]``)."""
+    (``wq [d, Hq*Dh]``, ``wk``/``wv [d, Hkv*Dh]``, ``wo [Hq*Dh, d]``); a
+    cross-attention block has the same parameters, its k/v projected from
+    the cross feed."""
 
     def __init__(self, cfg, device, generator=None):
         super().__init__()
@@ -62,15 +66,39 @@ def attn_qkv(p, cfg, x, kv_src, positions):
     return q, k, v
 
 
-def gqa(q, k, v, *, causal: bool = True, window: int = 0, backend: str = "kernel"):
-    """Prefill attention, q ``[B, S, Hq, D]`` and k/v ``[B, S, Hkv, D]``
-    layout.  The kv heads are read in place by the kernel (the JAX
-    package repeats them first: the same function); the transposes are
-    views, which the kernel takes by their strides."""
+def score_dtype(cfg):
+    """The dtype of the attention scores: bf16 under ``cfg.attn_bf16``
+    (which only the plain version takes), else f32."""
+    return torch.bfloat16 if cfg.attn_bf16 else torch.float32
+
+
+def gqa(q, k, v, *, causal: bool = True, window: int = 0, backend: str = "kernel",
+        score_dtype=torch.float32):
+    """Prefill attention, q ``[B, Sq, Hq, D]`` and k/v ``[B, Sk, Hkv, D]``
+    layout (v may have its own head dim).  The kv heads are read in place
+    by the kernel (the JAX package repeats them first: the same function);
+    the transposes are views, which the kernel takes by their strides."""
     out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2), causal=causal,
-                                    window=window, backend=backend)
+                                    window=window, backend=backend,
+                                    score_dtype=score_dtype)
     return out.transpose(1, 2)
+
+
+def attn_apply(p, cfg, x, positions, *, cross_feed=None, backend: str = "kernel"):
+    """The attention block's body (the caller owns the norm and the
+    residual): causal self-attention over ``x``, or, given ``cross_feed``
+    ``[B, Sk, d]``, non-causal cross-attention onto it with no RoPE.
+    Returns (output ``[B, S, d]``, k, v): the k/v are the prefill's cache."""
+    if cross_feed is not None:
+        q, k, v = attn_qkv(p, cfg, x, cross_feed, None)
+        out = gqa(q, k, v, causal=False, backend=backend, score_dtype=score_dtype(cfg))
+    else:
+        q, k, v = attn_qkv(p, cfg, x, x, positions)
+        out = gqa(q, k, v, causal=True, window=cfg.sliding_window, backend=backend,
+                  score_dtype=score_dtype(cfg))
+    out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
+    return out @ p.wo, k, v
 
 
 def decode_attention(q1, k_cache, v_cache, cache_len, *, window: int = 0):

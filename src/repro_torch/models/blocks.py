@@ -1,10 +1,12 @@
 """Decoder layers (the JAX package's ``models/blocks.py``): a pre-norm
-mixer (attention or Mamba-2) and an optional dense SwiGLU FFN.
+mixer (attention, cross-attention, MLA or Mamba-2) and an optional FFN
+(dense SwiGLU or MoE), dispatched over the layer spec as the JAX
+package's ``layer_init`` does.
 
 The JAX package stacks each pattern position's parameters over the
 repetitions and scans over them; here the depth is a ``ModuleList`` of
 ``n_layers`` layers, layer ``l`` being pattern position
-``l % len(pattern)``.  MoE, MLA and cross-attention are not ported.
+``l % len(pattern)``.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from torch import nn
 
 from repro_torch.models import layers as L
 from repro_torch.models.attention import Attention
-from repro_torch.models.config import (FFN_DENSE, FFN_NONE, MIXER_ATTN,
-                                       MIXER_MAMBA, LayerSpec)
+from repro_torch.models.config import (FFN_DENSE, FFN_MOE, FFN_NONE, MIXER_ATTN,
+                                       MIXER_CROSS, MIXER_MAMBA, LayerSpec)
 from repro_torch.models.mamba2 import Mamba2
+from repro_torch.models.mla import MLA
+from repro_torch.models.moe import MoE
 
 
 class SwiGLU(nn.Module):
@@ -29,24 +33,29 @@ class SwiGLU(nn.Module):
 
 
 class Layer(nn.Module):
-    """One decoder layer: ``ln``, ``mixer`` and, for a dense FFN, ``ln2``
-    and ``ffn`` (the JAX package's parameter names)."""
+    """One decoder layer: ``ln``, ``mixer`` and, unless the FFN is
+    ``"none"``, ``ln2`` and ``ffn`` (the JAX package's parameter names).
+    An attention or cross layer of an MLA config holds MLA, as there."""
 
     def __init__(self, cfg, spec: LayerSpec, device, generator=None):
         super().__init__()
-        if cfg.mla is not None or spec.mixer not in (MIXER_ATTN, MIXER_MAMBA):
-            raise NotImplementedError(
-                f"{cfg.name}: mixer {spec.mixer!r}{' (MLA)' if cfg.mla else ''} "
-                f"is not ported (attention and Mamba-2 are)")
-        if spec.ffn not in (FFN_DENSE, FFN_NONE):
-            raise NotImplementedError(f"{cfg.name}: ffn {spec.ffn!r} is not ported "
-                                      f"(dense and none are)")
         self.spec = spec
         ones = lambda: nn.Parameter(torch.ones(cfg.d_model, device=device),
                                     requires_grad=False)
         self.ln = ones()
-        self.mixer = (Attention(cfg, device, generator) if spec.mixer == MIXER_ATTN
-                      else Mamba2(cfg, device, generator))
-        if spec.ffn == FFN_DENSE:
-            self.ln2 = ones()
+        if spec.mixer in (MIXER_ATTN, MIXER_CROSS):
+            self.mixer = (MLA(cfg, device, generator) if cfg.mla is not None
+                          else Attention(cfg, device, generator))
+        elif spec.mixer == MIXER_MAMBA:
+            self.mixer = Mamba2(cfg, device, generator)
+        else:
+            raise ValueError(spec.mixer)
+        if spec.ffn == FFN_NONE:
+            return
+        self.ln2 = ones()
+        if spec.ffn == FFN_MOE:
+            self.ffn = MoE(cfg, device, generator)
+        elif spec.ffn == FFN_DENSE:
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device, generator)
+        else:
+            raise ValueError(spec.ffn)

@@ -1,7 +1,8 @@
 """Model configuration (the JAX package's ``models/config.py`` dataclasses).
 
 A model is a repeated layer pattern: a dense transformer is
-``(attn+dense,) * L``, Mamba-2 is ``(mamba,) * L``.  Depth is
+``(attn+dense,) * L``, Mamba-2 is ``(mamba,) * L``, Jamba interleaves
+Mamba-2 and attention layers with dense and MoE FFNs.  Depth is
 ``len(pattern) * repeats``; layer ``l`` is pattern position
 ``l % len(pattern)`` of repetition ``l // len(pattern)``.
 """
@@ -112,3 +113,7 @@ class ModelConfig:
 
 def dense_pattern() -> tuple:
     return (LayerSpec(MIXER_ATTN, FFN_DENSE),)
+
+
+def moe_pattern() -> tuple:
+    return (LayerSpec(MIXER_ATTN, FFN_MOE),)

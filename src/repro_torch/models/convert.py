@@ -2,9 +2,10 @@
 
 ``from_jax_params(cfg, params_np)`` takes the JAX parameter pytree with
 numpy leaves — ``groups``: one dict per pattern position, each leaf
-stacked ``[repeats, ...]``; ``embed``; ``final_norm``; ``lm_head`` when
-the embeddings are not tied — and returns the port's ``LM`` with every
-leaf loaded bit for bit.  JAX's bf16 arrays come as ``ml_dtypes.bfloat16``,
+stacked ``[repeats, ...]`` (a MoE expert stack ``[repeats, E, ...]``);
+``embed`` for a token frontend; ``final_norm``; ``lm_head`` when the
+embeddings are not tied or the frontend takes embeddings — and returns
+the port's ``LM`` with every leaf loaded bit for bit.  JAX's bf16 arrays come as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` refuses; they are reinterpreted through a
 ``uint16`` view (exact, no copy).
 """

@@ -1,18 +1,25 @@
-"""Language model, serving half (the JAX package's ``models/lm.py``):
-token embedding -> decoder layers -> final norm -> tied head, with the
-prefill that emits the caches and the single-token decode step.
+"""Language model, serving half (the JAX package's ``models/lm.py``): the
+frontend (token embedding, or precomputed frame / patch embeddings) ->
+decoder layers -> final norm -> head, with the prefill that emits the
+caches and the single-token decode step.
 
 A model is built on the card unless the caller asks for the CPU::
 
     model = LM(get_config("qwen3-0.6b"), generator=g)        # cuda
     model = LM(cfg, device="cpu", generator=g)               # plain versions
 
+``prefill`` and ``decode_step`` take the JAX package's batch dict —
+``tokens`` int ``[B, S]`` or ``embeds`` ``[B, S, d]`` (the
+``"embeddings"`` frontend), and ``cross`` ``[B, Sk, d]`` for a model with
+cross-attention layers — or a token tensor alone.
+
 ``backend`` selects how prefill runs the two kernels of the path:
-``"kernel"`` launches ``flash_attention`` and ``ssd_chunk_scan`` on a
-card (their plain versions on the CPU), ``"plain"`` runs the plain
-versions everywhere.  Caches are a list with one dict per layer;
-``decode_step`` writes the new token's K/V into the attention caches in
-place and replaces each Mamba cache.
+``"kernel"`` launches ``flash_attention`` (self-attention, cross-attention,
+MLA) and ``ssd_chunk_scan`` (Mamba-2) on a card (their plain versions on
+the CPU), ``"plain"`` runs the plain versions everywhere.  Caches are a
+list with one dict per layer; ``decode_step`` writes the new token's K/V
+(or MLA latent) into the caches in place, leaves the cross caches as the
+prefill wrote them, and replaces each Mamba cache.
 """
 
 from __future__ import annotations
@@ -23,13 +30,17 @@ from torch import nn
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models.blocks import Layer
-from repro_torch.models.config import FFN_NONE, MIXER_MAMBA, ModelConfig
+from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_CROSS, MIXER_MAMBA,
+                                       ModelConfig)
 
 
 class LM(nn.Module):
-    """Parameters: ``embed [Vpad, D]``, ``layers.{l}.*``, ``final_norm``
-    (and ``lm_head [D, Vpad]`` when the embeddings are not tied).
+    """Parameters: ``embed [Vpad, D]`` (token frontend), ``layers.{l}.*``,
+    ``final_norm`` and ``lm_head [D, Vpad]`` (unless the token embeddings
+    are tied; always for the embeddings frontend).
 
     ``generator`` (a ``torch.Generator`` on ``device``) draws the seeded
     init, with the JAX package's distributions; without one the weights
@@ -38,9 +49,8 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda", generator=None,
                  backend: str = "kernel"):
         super().__init__()
-        if cfg.frontend != "tokens":
-            raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} is not "
-                                      f"ported (token models are)")
+        if cfg.frontend not in ("tokens", "embeddings"):
+            raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r}")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("LM(device='cuda') needs a CUDA card; pass "
@@ -53,33 +63,59 @@ class LM(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, device=device),
                                        requires_grad=False)
         v, d = cfg.padded_vocab, cfg.d_model
-        self.embed = nn.Parameter(L.embed_init(generator, v, d, device),
-                                  requires_grad=False)
-        if not cfg.tie_embeddings:
+        if cfg.frontend == "tokens":
+            self.embed = nn.Parameter(L.embed_init(generator, v, d, device),
+                                      requires_grad=False)
+        if not cfg.tie_embeddings or cfg.frontend != "tokens":
             self.lm_head = nn.Parameter(L.dense_init(generator, d, v, device, scale=0.02),
                                         requires_grad=False)
 
     @property
     def device(self):
-        return self.embed.device
+        return self.final_norm.device
+
+    @property
+    def has_cross(self) -> bool:
+        return any(s.mixer == MIXER_CROSS for s in self.cfg.pattern)
 
     def head(self, x):
         w = self.lm_head if hasattr(self, "lm_head") else self.embed.T
         return x @ w
 
+    def frontend(self, batch):
+        """The first layer's input ``[B, S, d]`` bf16 from a batch dict."""
+        if self.cfg.frontend == "tokens":
+            return self.embed[batch["tokens"].long()]
+        return batch["embeds"].to(L.PARAM_DTYPE)
+
+
+def as_batch(batch) -> dict:
+    """A token tensor alone stands for ``{"tokens": tensor}``."""
+    return batch if isinstance(batch, dict) else {"tokens": batch}
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                dtype=torch.bfloat16):
-    """Per-layer caches: attention ``k``/``v [B, max_len, Hkv, Dh]`` in
-    ``dtype``; Mamba ``ssm``/``conv_*`` in f32."""
+    """Per-layer caches: attention ``k``/``v [B, max_len, Hkv, Dh]``,
+    cross-attention ``k``/``v [B, cross_kv_len, Hkv, Dh]`` and MLA
+    ``ckv [B, max_len, R]``, ``kr [B, max_len, Dr]``, all in ``dtype``;
+    Mamba ``ssm``/``conv_*`` in f32."""
     caches = []
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     for i in range(cfg.n_layers):
-        if cfg.pattern[i % len(cfg.pattern)].mixer == MIXER_MAMBA:
+        mixer = cfg.pattern[i % len(cfg.pattern)].mixer
+        if mixer == MIXER_MAMBA:
             caches.append(M.mamba_init_cache(cfg, batch, device))
+        elif mixer == MIXER_CROSS:
+            shape = (batch, cfg.cross_kv_len, cfg.n_kv_heads, cfg.head_dim_)
+            caches.append({"k": zeros(*shape), "v": zeros(*shape)})
+        elif cfg.mla is not None:
+            m = cfg.mla
+            caches.append({"ckv": zeros(batch, max_len, m.kv_lora_rank),
+                           "kr": zeros(batch, max_len, m.qk_rope_dim)})
         else:
             shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-            caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                           "v": torch.zeros(shape, dtype=dtype, device=device)})
+            caches.append({"k": zeros(*shape), "v": zeros(*shape)})
     return caches
 
 
@@ -87,51 +123,79 @@ def _ffn(layer, cfg, x):
     if layer.spec.ffn == FFN_NONE:
         return x
     h2 = L.rmsnorm(x, layer.ln2, cfg.rms_eps)
+    if layer.spec.ffn == FFN_MOE:
+        return x + MOE.moe_apply(layer.ffn, cfg, h2)[0]
     return x + L.swiglu(layer.ffn, h2)
 
 
+def _pad_rows(t, max_len):
+    """Pad dim 1 (the sequence) of ``t`` to ``max_len`` rows, as bf16."""
+    pad = [0, 0] * (t.dim() - 2) + [0, max_len - t.shape[1]]
+    return torch.nn.functional.pad(t, pad).to(torch.bfloat16)
+
+
 @torch.no_grad()
-def prefill_layer(model: LM, layer, x, positions, max_len: int):
+def prefill_layer(model: LM, layer, x, positions, max_len: int, cross=None):
     """One decoder layer of the prefill: returns (x, the layer's cache)."""
     cfg = model.cfg
     p = layer.mixer
     h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
     if layer.spec.mixer == MIXER_MAMBA:
         mix, cache = M.mamba_apply(p, cfg, h, return_state=True, backend=model.backend)
+    elif layer.spec.mixer == MIXER_CROSS:
+        mix, k, v = A.attn_apply(p, cfg, h, None, cross_feed=cross, backend=model.backend)
+        cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    elif cfg.mla is not None:
+        mix, ckv, kr = MLA.mla_apply(p, cfg, h, positions, backend=model.backend)
+        cache = {"ckv": _pad_rows(ckv, max_len), "kr": _pad_rows(kr[:, :, 0], max_len)}
     else:
-        q, k, v = A.attn_qkv(p, cfg, h, h, positions)
-        mix = A.gqa(q, k, v, causal=True, window=cfg.sliding_window,
-                    backend=model.backend)
-        mix = mix.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_) @ p.wo
-        pad = (0, 0, 0, 0, 0, max_len - x.shape[1])
-        cache = {"k": torch.nn.functional.pad(k, pad).to(torch.bfloat16),
-                 "v": torch.nn.functional.pad(v, pad).to(torch.bfloat16)}
+        mix, k, v = A.attn_apply(p, cfg, h, positions, backend=model.backend)
+        cache = {"k": _pad_rows(k, max_len), "v": _pad_rows(v, max_len)}
     return _ffn(layer, cfg, x + mix), cache
 
 
-@torch.no_grad()
-def prefill(model: LM, tokens, max_len: int):
-    """Process a prompt ``[B, S]``; returns (logits ``[B, 1, Vpad]`` of the
-    last position, caches allocated at ``max_len``, cache_len ``[B]``)."""
-    x = model.embed[tokens.long()]
+def prefill_inputs(model: LM, batch):
+    """(x, positions, cross) of a prefill: the frontend's output, positions
+    ``0..S-1`` and the cross feed cast to x's dtype (``None`` without
+    one).  A model with cross-attention layers and no ``cross`` raises
+    ``ValueError``."""
+    batch = as_batch(batch)
+    x = model.frontend(batch)
     bsz, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(bsz, s)
+    cross = batch.get("cross")
+    if cross is not None:
+        cross = cross.to(x.dtype)
+    elif model.has_cross:
+        raise ValueError(f"{model.cfg.name} has cross-attention layers: the batch "
+                         f"needs 'cross' [B, {model.cfg.cross_kv_len}, "
+                         f"{model.cfg.d_model}]")
+    return x, positions, cross
+
+
+@torch.no_grad()
+def prefill(model: LM, batch, max_len: int):
+    """Process a prompt (a batch dict, or tokens ``[B, S]``); returns
+    (logits ``[B, 1, Vpad]`` of the last position, caches allocated at
+    ``max_len``, cache_len ``[B]``)."""
+    x, positions, cross = prefill_inputs(model, batch)
     caches = []
     for layer in model.layers:
-        x, cache = prefill_layer(model, layer, x, positions, max_len)
+        x, cache = prefill_layer(model, layer, x, positions, max_len, cross)
         caches.append(cache)
     x = L.rmsnorm(x, model.final_norm, model.cfg.rms_eps)
-    cache_len = torch.full((bsz,), s, dtype=torch.int32, device=x.device)
+    cache_len = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
     return model.head(x[:, -1:]), caches, cache_len
 
 
 @torch.no_grad()
-def decode_step(model: LM, tokens, caches, cache_len):
-    """One new token ``[B, 1]`` against the caches; ``cache_len [B]`` is
-    the prefix length including this token, whose K/V go to row
+def decode_step(model: LM, batch, caches, cache_len):
+    """One new token (a batch dict of ``tokens [B, 1]`` or ``embeds [B, 1,
+    d]``, or tokens alone) against the caches; ``cache_len [B]`` is the
+    prefix length including this token, whose K/V (MLA: latent) go to row
     ``cache_len - 1``.  Returns (logits ``[B, 1, Vpad]``, caches)."""
     cfg = model.cfg
-    x = model.embed[tokens.long()]
+    x = model.frontend(as_batch(batch))
     positions = (cache_len - 1)[:, None]
     rows = torch.arange(x.shape[0], device=x.device)
     at = (cache_len - 1).long()
@@ -140,6 +204,15 @@ def decode_step(model: LM, tokens, caches, cache_len):
         h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
         if layer.spec.mixer == MIXER_MAMBA:
             mix, caches[i] = M.mamba_decode(p, cfg, h, caches[i])
+        elif layer.spec.mixer == MIXER_CROSS:
+            q, _, _ = A.attn_qkv(p, cfg, h, h, None)
+            kc, vc = caches[i]["k"], caches[i]["v"]
+            clen = torch.full_like(cache_len, kc.shape[1])
+            out = A.decode_attention(q, kc, vc, clen)
+            mix = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_) @ p.wo
+        elif cfg.mla is not None:
+            mix = MLA.mla_decode(p, cfg, h, positions, caches[i]["ckv"], caches[i]["kr"],
+                                 cache_len)
         else:
             q, k, v = A.attn_qkv(p, cfg, h, h, positions)
             kc, vc = caches[i]["k"], caches[i]["v"]

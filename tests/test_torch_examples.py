@@ -1,8 +1,9 @@
 """The port's example twins: ``examples/torch_quickstart.py --quick`` runs
 to its end on the CPU (``--device cpu``) and prints the table of all four
-algorithms; without ``--device`` it asks for the card, so on a machine
-without one it stops with the port's error instead of falling back to
-the CPU."""
+algorithms; without ``--device`` it, and
+``examples/torch_collective_estimate.py``, ask for the card, so on a
+machine without one they stop with the port's error instead of falling
+back to the CPU."""
 
 import os
 import subprocess
@@ -16,9 +17,9 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _run(*args):
+def _run(*args, script="torch_quickstart.py"):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    return subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+    return subprocess.run([sys.executable, str(ROOT / "examples" / script),
                            *args], cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
 
@@ -34,5 +35,13 @@ def test_torch_quickstart_runs_on_the_cpu():
 @pytest.mark.skipif(torch.cuda.is_available(), reason="the card is there")
 def test_torch_quickstart_asks_for_the_card_by_default():
     out = _run("--quick")
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr
+
+
+def test_torch_collective_estimate_asks_for_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default run succeeds")
+    out = _run(script="torch_collective_estimate.py")
     assert out.returncode != 0
     assert "torch.cuda.is_available() is False" in out.stderr

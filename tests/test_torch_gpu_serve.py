@@ -1,9 +1,10 @@
 """PyTorch port on a CUDA card, serving slice: the ``flash_attention`` and
 ``ssd_chunk_scan`` kernels against their plain PyTorch versions at the
-model shapes (qwen3-0.6b and mamba2-780m prefill) and at ragged ones
-(Sq != Sk, S=300, chunk < 128, a sliding window, strided views), and a
-reduced model served through the kernels against the same model served
-through the plain versions on the card.
+model shapes (qwen3-0.6b and mamba2-780m prefill, MLA's value head dim
+of its own, cross-attention's non-causal Sk > Sq) and at ragged ones
+(Sq != Sk, S=300, chunk < 128, a sliding window, strided views), and
+reduced models of all ten architectures served through the kernels
+against the same models served through the plain versions on the card.
 
 Tolerances: f32 attention 2e-5 and SSD 2e-4 (the order of the sums
 differs only; the SSD tensor-core kernel's split TF32 keeps ~21 bits of
@@ -95,6 +96,52 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     assert _err(out, ref) <= tol
     if dt == torch.float32:
         assert _err(out, FR.attention_ref(q, k, v, causal=causal, window=win)) <= tol
+
+
+# (b, hq, hkv, sq, sk, d, dv, causal, dtype): v with a head dim of its own,
+# read as MLA's prefill hands it over (the last dv columns of a wider
+# row); cross-attention's non-causal Sk > Sq
+DV_CASES = [
+    (4, 40, 40, 512, 512, 96, 64, True, torch.bfloat16),     # minicpm3-4b prefill
+    (2, 5, 5, 37, 37, 24, 16, True, torch.bfloat16),         # reduced minicpm3-4b
+    (4, 64, 8, 512, 4096, 128, 128, False, torch.bfloat16),  # llama-3.2-vision-90b cross
+    (1, 4, 2, 70, 130, 64, 32, False, torch.bfloat16),
+    (2, 5, 5, 37, 37, 24, 16, True, torch.float32),
+    (1, 2, 1, 100, 300, 48, 24, True, torch.float32),
+    (2, 4, 2, 90, 333, 32, 8, False, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", DV_CASES)
+def test_flash_attention_value_head_dim_and_cross(cuda, case):
+    b, hq, hkv, sq, sk, d, dv, causal, dt = case
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + dv)
+    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(dt).transpose(1, 2)
+    k = torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dt).transpose(1, 2)
+    kv = torch.randn((b, sk, hkv, 64 + dv), generator=g, device=cuda).to(dt)
+    v = kv[..., 64:].transpose(1, 2)
+    out = FK.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = FR.flash_attention_ref(q, k, v, causal=causal)
+    assert out.shape == (b, hq, sq, dv) and out.dtype == dt
+    tol = FLASH_F32_TOL if dt == torch.float32 else FLASH_BF16_TOL
+    assert _err(out, ref) <= tol
+    if dt == torch.float32:
+        assert _err(out, FR.attention_ref(q, k, v, causal=causal)) <= tol
+
+
+def test_flash_attention_tc_refuses_a_value_head_dim_off_8(cuda):
+    """A bf16 value head dim that is not a multiple of 8 raises ValueError
+    and launches nothing; the kernel path refuses bf16 scores."""
+    from repro_torch.kernels.flash_attn import ops as FO
+    q = torch.zeros((1, 2, 64, 96), dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros((1, 2, 64, 60), dtype=torch.bfloat16, device=cuda)
+    n0 = FK.flash_attention.launches
+    with pytest.raises(ValueError, match="value head dim 60"):
+        FK.flash_attention(q, q, v)
+    with pytest.raises(ValueError, match="score_dtype"):
+        FO.flash_attention(q, q, q, score_dtype=torch.bfloat16)
+    assert FK.flash_attention.launches == n0
 
 
 def test_flash_attention_simt_variant_on_bf16(cuda):
@@ -241,3 +288,58 @@ def test_reduced_model_serves_through_the_kernels(cuda, arch):
     assert fn.launches == 2 * cfg.n_layers      # generate, then one prefill
     err = _err(got.float(), want.float()) / float(want.float().abs().max())
     assert err <= 2e-2
+
+
+ZOO = ("qwen2-0.5b", "phi3-mini-3.8b", "minicpm3-4b", "musicgen-large",
+       "llama-3.2-vision-90b", "dbrx-132b", "mixtral-8x22b", "jamba-1.5-large-398b")
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_reduced_zoo_prefill_through_the_kernels(cuda, arch, monkeypatch):
+    """A reduced model of each new architecture: one prefill through the
+    kernels (flash_attention once an attention, cross or MLA layer,
+    ssd_chunk_scan once a Mamba-2 layer, all on the tensor cores) against
+    the plain versions on the card, the last position's logits within
+    2e-2 (relative to the largest) in every row whose MoE tokens both
+    paths routed to the same experts; no launch in a decode step."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import MIXER_CROSS, MIXER_MAMBA
+    cfg = get_config(arch, reduced=True)
+    model = lm.LM(cfg, generator=torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s = 4, 37
+    batch = ({"tokens": torch.randint(0, cfg.vocab, (b, s), device=cuda, generator=g)}
+             if cfg.frontend == "tokens" else
+             {"embeds": torch.randn((b, s, cfg.d_model), device=cuda, generator=g)})
+    if any(sp.mixer == MIXER_CROSS for sp in cfg.pattern):
+        batch["cross"] = torch.randn((b, cfg.cross_kv_len, cfg.d_model), device=cuda,
+                                     generator=g).to(torch.bfloat16)
+    routes = []
+    orig = moe.route
+    monkeypatch.setattr(moe, "route", lambda *a: routes.append(orig(*a)) or routes[-1])
+    FK.reset_launches()
+    SK.reset_launches()
+    got, caches, cl = lm.prefill(model, batch, s + 4)
+    torch.cuda.synchronize()
+    mixers = [cfg.pattern[i % len(cfg.pattern)].mixer for i in range(cfg.n_layers)]
+    n_ssd = sum(m == MIXER_MAMBA for m in mixers)
+    assert (FK.flash_attention.launches, FK.flash_attention.launches_tc) == \
+        (cfg.n_layers - n_ssd,) * 2
+    assert (SK.ssd_chunk_scan.launches, SK.ssd_chunk_scan.launches_tc) == (n_ssd,) * 2
+    model.backend = "plain"
+    want, _, _ = lm.prefill(model, batch, s + 4)
+    rows = torch.ones(b, dtype=torch.bool, device=cuda)
+    half = len(routes) // 2
+    for (_, _, ik), (_, _, ip) in zip(routes[:half], routes[half:]):
+        rows &= ~(ik.sort(-1).values != ip.sort(-1).values).any(-1).any(-1)
+    assert bool(rows.any())
+    err = _err(got[rows].float(), want[rows].float()) / float(want.float().abs().max())
+    assert err <= 2e-2
+    model.backend = "kernel"
+    FK.reset_launches()
+    SK.reset_launches()
+    nxt = ({"tokens": batch["tokens"][:, :1]} if "tokens" in batch
+           else {"embeds": batch["embeds"][:, :1]})
+    lm.decode_step(model, nxt, caches, cl + 1)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches == SK.ssd_chunk_scan.launches == 0

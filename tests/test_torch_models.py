@@ -1,7 +1,9 @@
 """PyTorch port, serving slice, module by module on the CPU: the plain
-versions of the two new kernels against the JAX package's Pallas kernels
-(interpret mode) and oracles, the attention and Mamba-2 layers against
-the JAX layers, the configs, and the weight converter.
+versions of the two kernels against the JAX package's Pallas kernels
+(interpret mode) and oracles (and, with a value head dim of its own and
+non-causal Sk > Sq, against ``blocked_attention``), the attention and
+Mamba-2 layers against the JAX layers, the configs and parameter counts
+of all ten architectures, and the weight converter.
 
 All inputs are made with numpy from a seed and handed to both sides.
 
@@ -26,6 +28,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_IDS as JARCH_IDS  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.kernels.flash_attn.ops import gqa_flash_attention  # noqa: E402
 from repro.kernels.flash_attn.ref import attention_ref as jattention_ref  # noqa: E402
@@ -50,6 +53,7 @@ SSD_TOL = 2e-4
 LAYER_REL_TOL = 2e-2
 
 ARCHS = ("qwen3-0.6b", "mamba2-780m")
+ALL_ARCHS = JARCH_IDS
 
 
 def _np(x):
@@ -71,7 +75,7 @@ def _rel(want, got):
 # ------------------------------------------------------------- configs
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_equals_reference(arch, reduced):
     want = dataclasses.asdict(jget_config(arch, reduced=reduced))
@@ -80,8 +84,24 @@ def test_config_equals_reference(arch, reduced):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("mixtral-8x22b")
+    """Every arch of the JAX package's registry is ported; an unknown id
+    raises ``KeyError``, as there."""
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mixtral-8x23b")
+    with pytest.raises(KeyError):
+        jget_config("mixtral-8x23b")
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_param_count_equals_reference(arch):
+    """The port's full-width model, built on ``device="meta"`` (no memory),
+    holds as many parameters as ``jax.eval_shape(lm.init_params)``."""
+    from repro_torch.models import lm as tlm
+    jcfg = jget_config(arch)
+    shapes = jax.eval_shape(lambda: jlm.init_params(jcfg, jax.random.key(0)))
+    want = sum(int(x.size) for x in jax.tree.leaves(shapes))
+    model = tlm.LM(get_config(arch), device="meta")
+    assert sum(p.numel() for p in model.parameters()) == want
 
 
 # ------------------------------------------------------ flash_attention
@@ -142,6 +162,56 @@ def test_flash_plain_matches_pallas_and_oracle(case):
         np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
     np.testing.assert_allclose(_np(naive), _np(want_ref), rtol=KERNEL_F32_TOL,
                                atol=KERNEL_F32_TOL)
+
+
+# (b, hq, hkv, sq, sk, d, dv, causal, q_chunk, k_chunk): a value head dim
+# of its own (MLA's q/k 24 and v 16 reduced, 96 and 64 full) and
+# cross-attention's non-causal Sk > Sq (the reduced feed of 32 rows; Sk
+# past one 64-row tile), against the JAX package's blocked_attention
+DV_CASES = [
+    (2, 5, 5, 16, 16, 24, 16, True, 16, 16),
+    (1, 4, 4, 128, 128, 96, 64, True, 64, 64),
+    (2, 4, 2, 16, 32, 16, 16, False, 16, 16),
+    (1, 4, 2, 40, 160, 32, 32, False, 8, 32),
+    (1, 2, 1, 48, 200, 48, 24, False, 16, 40),
+]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", DV_CASES)
+def test_flash_plain_dv_and_cross_match_blocked_attention(case, dt):
+    b, hq, hkv, sq, sk, d, dv, causal, qc, kc = case
+    rng = np.random.default_rng(sq + sk + d)
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sk, dv)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dt == "f32" else (jnp.bfloat16, torch.bfloat16)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    want = jattn.blocked_attention(jq, _rep(jk, hq // hkv), _rep(jv, hq // hkv),
+                                   causal=causal, q_chunk=qc, k_chunk=kc)
+    got = flash_ops.flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), causal=causal)
+    assert got.dtype == tdt and tuple(got.shape) == (b, hq, sq, dv)
+    tol = KERNEL_F32_TOL if dt == "f32" else KERNEL_BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+    naive = flash_ref.attention_ref(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(_np(naive), _np(jattn.blocked_attention(
+        *(jnp.asarray(a) for a in (q, np.repeat(k, hq // hkv, 1), np.repeat(v, hq // hkv, 1))),
+        causal=causal, q_chunk=qc, k_chunk=kc)), rtol=KERNEL_F32_TOL, atol=KERNEL_F32_TOL)
+
+
+def test_flash_plain_bf16_scores_match_blocked_attention():
+    """``attn_bf16``: the plain version rounds scores and probabilities to
+    bf16 as ``blocked_attention(score_dtype=bf16)`` does; the kernel path
+    refuses it on a card (no config sets it)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((1, 2, 64, 16)).astype(np.float32) for _ in range(3))
+    want = jattn.blocked_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                                   q_chunk=64, k_chunk=64, score_dtype=jnp.bfloat16)
+    got = flash_ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                                    score_dtype=torch.bfloat16)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=KERNEL_BF16_TOL, atol=KERNEL_BF16_TOL)
+    f32 = flash_ops.flash_attention(_t(q), _t(k), _t(v), causal=True)
+    assert not torch.equal(got, f32)
 
 
 @pytest.mark.parametrize("case", RAGGED_CASES)
@@ -294,7 +364,7 @@ def test_mamba_layer_matches_reference(S):
 # ----------------------------------------------------------- converter
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_converter_maps_every_leaf_once_exactly(arch):
     cfg = get_config(arch, reduced=True)
     params = jlm.init_params(jget_config(arch, reduced=True), jax.random.key(1))
@@ -313,10 +383,12 @@ def test_converter_maps_every_leaf_once_exactly(arch):
                 assert str(got.dtype).split(".")[-1] == leaf.dtype.name, key
                 assert got.float().numpy().tobytes() == \
                     np.asarray(leaf[r], np.float32).tobytes(), key
-    for name in ("embed", "final_norm"):
-        seen.add(name)
-        assert sd[name].float().numpy().tobytes() == \
-            np.asarray(pnp[name], np.float32).tobytes()
+    for name in ("embed", "final_norm", "lm_head"):
+        assert (name in pnp) == (name in sd), name
+        if name in pnp:
+            seen.add(name)
+            assert sd[name].float().numpy().tobytes() == \
+                np.asarray(pnp[name], np.float32).tobytes()
     assert seen == set(sd)
 
 
@@ -332,7 +404,7 @@ def test_converter_refuses_a_missing_leaf():
 # ----------------------------- the serving path's operands (CPU rehearsal)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("minicpm3-4b", "llama-3.2-vision-90b"))
 def test_serving_operands_pass_every_wrapper_check(monkeypatch, arch):
     """Each CUDA wrapper checks device, dtype, shape and strides of every
     operand before it asks for the card.  Route a full-width prefill's
@@ -340,7 +412,11 @@ def test_serving_operands_pass_every_wrapper_check(monkeypatch, arch):
     padded one) through the wrappers on the CPU: every check must pass,
     so the only refusal left is the one that says the tensors are not on
     a card.  This is where a strided view such as ``gqa``'s
-    ``[B, S, H, D]`` -> ``[B, H, S, D]`` transpose is caught."""
+    ``[B, S, H, D]`` -> ``[B, H, S, D]`` transpose, or MLA's v (the last
+    64 columns of the expanded latents' rows), is caught.  MLA
+    (minicpm3-4b) and cross-attention (llama-3.2-vision-90b's cross layer
+    onto its 4096-row feed) keep their attention widths; their vocab and
+    d_ff, which no kernel sees, are cut."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -366,14 +442,21 @@ def test_serving_operands_pass_every_wrapper_check(monkeypatch, arch):
              lambda x, loga, B, C, chunk: (SK.variant(x, loga, B, C, chunk=chunk),
                                            B.shape[0], C.shape[0]))
     monkeypatch.setattr(build, "use_kernel", lambda backend, x: backend == "kernel")
-    cfg = dataclasses.replace(get_config(arch), n_layers=1)
+    cfg = get_config(arch)
+    cut = (dict(vocab=512, d_ff=128, pattern=cfg.pattern[-1:])
+           if arch in ("minicpm3-4b", "llama-3.2-vision-90b") else {})
+    cfg = dataclasses.replace(cfg, n_layers=1, **cut)
     model = tlm.LM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab, (2, 130), generator=torch.Generator().manual_seed(1))
-    tlm.prefill(model, prompt, 140)
-    want = "flash_attention" if arch.startswith("qwen3") else "ssd_chunk_scan"
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 130), generator=g)}
+    if cfg.cross_kv_len:
+        batch["cross"] = torch.randn((2, cfg.cross_kv_len, cfg.d_model),
+                                     generator=g).to(torch.bfloat16)
+    tlm.prefill(model, batch, 140)
+    want = "ssd_chunk_scan" if arch.startswith("mamba2") else "flash_attention"
     assert calls == {want: 1}
-    assert kinds == (["tc"] if arch.startswith("qwen3")
-                     else [("tc", 2 * cfg.ssm.n_groups, 2 * cfg.ssm.n_groups)])
+    assert kinds == ([("tc", 2 * cfg.ssm.n_groups, 2 * cfg.ssm.n_groups)]
+                     if arch.startswith("mamba2") else ["tc"])
 
 
 class _OnCard:

@@ -109,3 +109,18 @@ def test_earlier_designs_refuse_a_lane_batch(key, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.run_batch([0, 1], 40)
     assert sim.run_batch([0], 40).now.tolist() == [sim.run(40).now.item()]
+
+
+def test_lane_operand_takes_an_empty_block():
+    """A lane-batched operand whose per-lane block is empty (a sends case
+    with no dependencies: ``dep_par [L, F, 0]``) passes the wrappers'
+    check with lane stride 0, whatever strides PyTorch gives a zero-size
+    tensor; a non-empty block still needs its own row a lane."""
+    from repro_torch.kernels import lanes
+    x = torch.zeros((4, 0, 600), dtype=torch.int32)
+    assert x.stride(0) != 0
+    _, stride = lanes.operand(x, "dep_par", torch.int32, (0, 600), x.device, 4, state=True)
+    assert stride == 0
+    y = torch.zeros((4, 3, 600), dtype=torch.int32)[:, :2]
+    with pytest.raises(ValueError, match="lane stride"):
+        lanes.operand(y, "dep_par", torch.int32, (2, 600), y.device, 4, state=True)
