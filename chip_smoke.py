@@ -152,6 +152,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                the card (phase 5's gates; a MoE token the two paths route
                differently, where the router did not decide, is left out);
                TTFT in turns, decode tokens/s, peak memory
+  5c. train — first (with the kernel checks, so --kernels-only covers
+               it) the two kernels' autograd Functions against autograd
+               through the plain versions (GRAD_*_CASES: causal, window,
+               cross, MLA's dv, B/C in group form, bf16 and f32, a
+               microbatch at full width): one launch a forward, none in the
+               backward (plain PyTorch).  Then qwen3-0.6b (28 layers) and
+               mamba2-780m (48) at full width from a seeded init, one at a
+               time: one 4 x 1024 microbatch's loss and every parameter's
+               gradient through the kernels against the plain versions on
+               the same weights (launches counted: 2 a layer, the forward
+               and remat's recompute); TRAIN_STEPS AdamW steps of 8 x 1024
+               tokens in 2 microbatches (counts reset just before, read
+               just after: 4 a layer a step), the loss falling, every loss
+               and gradient norm finite; step wall, tokens/s, a
+               microbatch's forward and backward, peak memory, the
+               device's busy share of a step (torch.profiler) and the
+               plain versions' step time in turns.  Then the restart:
+               qwen3-0.6b through train.loop for 2 steps and a checkpoint,
+               resumed to 4, against 4 uninterrupted steps, under
+               torch.use_deterministic_algorithms(True, warn_only=True):
+               losses, final parameters and moments equal bit for bit
   6. profile — where perm_1024n_3t's tick time goes, through the fused
                launches and through each earlier design (plain departures,
                split arrivals, control, sends): each phase's ms a tick, the
@@ -3116,6 +3137,409 @@ def phase_zoo(dev):
     return results
 
 
+# --------------------------------------------------------- 5c. training
+
+# The kernels' autograd Functions on the card: (b, hq, hkv, sq, sk, d, dv,
+# causal, window, dtype) through models/attention.py's gqa ([B, S, H, D]
+# storage read through [B, H, S, D] views, v a slice of a wider tensor
+# where dv < d, as MLA's) and (BH, BG, L, P, N, chunk, B/C dtype) through
+# ssd_ops.ssd_chunk_scan, against autograd through the plain versions.
+# The first of each is a training microbatch at full width: qwen3-0.6b's
+# attention and mamba2-780m's SSD operands at B=4, S=1024.
+GRAD_FLASH_CASES = (
+    (4, 16, 8, 1024, 1024, 128, 128, True, 0, torch.bfloat16),
+    (2, 4, 2, 300, 300, 64, 64, True, 0, torch.float32),
+    (1, 4, 2, 256, 256, 64, 64, True, 64, torch.bfloat16),      # sliding window
+    (2, 8, 2, 128, 512, 128, 128, False, 0, torch.bfloat16),    # cross: Sk > Sq
+    (2, 8, 8, 256, 256, 96, 64, True, 0, torch.bfloat16),       # MLA: dv < d
+    (1, 4, 4, 200, 200, 96, 64, True, 0, torch.float32),
+)
+GRAD_SSD_CASES = (
+    (192, 4, 1024, 64, 128, 128, torch.bfloat16),
+    (12, 4, 256, 64, 128, 128, torch.bfloat16),      # (G, rep) = (2, 3)
+    (12, 4, 96, 16, 32, 48, torch.float32),
+)
+# output and gradients, max |d| / max |ref|: the backward is the plain
+# version's on both sides (the dense oracle against autograd through the
+# tiled version: f32 sums in another order), so the gradients differ by
+# their one bf16 rounding; the outputs by the kernels' FLASH_TOL / SSD_TOL
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TRAIN_MODELS = (("qwen3-0.6b", "flash_attention"), ("mamba2-780m", "ssd_chunk_scan"))
+TRAIN_KERNEL = dict(TRAIN_MODELS)
+TRAIN_BATCH = (8, 1024, 2)      # global batch, sequence, microbatches: 8192 tokens a step
+TRAIN_STEPS = 8
+TRAIN_ADAM = dict(lr=3e-4, warmup_steps=2)
+TRAIN_PLAIN_TURNS = 1           # steps a backend, in turns (kernels, plain), for the plain step time
+# kernels against plain at full width, one 4 x 1024 microbatch from the
+# same weights: the loss within TRAIN_LOSS_REL (relative) and each
+# parameter's gradient within TRAIN_GRAD_REL_L2 (relative L2).  Both
+# backwards are the plain versions'; the forwards round otherwise (P in
+# bf16 before P.V, split TF32), and bf16 weights and activations carry
+# that through 28 / 48 layers and back.  The spread of the kernels' path
+# with itself, the same microbatch as four of one row (other GEMM shapes,
+# the same function), measures that noise, and this phase prints it
+# beside the gate: on mamba2-780m it is about half of the kernels'
+# distance from the plain versions, which is ~4.5 % of the whole gradient,
+# its worst leaves A_log (48 per-head sums over 4096 tokens that cancel)
+# up to ~10 %.  So each leaf is held to 5e-2 on qwen3-0.6b and 0.15 on
+# mamba2-780m, and the whole gradient to TRAIN_FLOOR_FACTOR times the spread
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = {"qwen3-0.6b": 5e-2, "mamba2-780m": 0.15}
+TRAIN_FLOOR_FACTOR = 3.0
+RESTART = (4, 2)                # steps, the checkpoint's step
+
+
+def grad_rel(want, got) -> float:
+    want, got = want.detach(), got.detach()
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
+def flash_grad_errors(case, dev, seed=0):
+    """One GRAD_FLASH_CASES case through gqa with the kernel backend
+    (FlashAttention: the kernel forward, the plain backward) and the plain
+    one, the same seeded inputs and output weights: each of out, dq, dk, dv
+    as max |d| / max |ref|, and the kernel's launches (forward, backward)."""
+    from repro_torch.kernels.flash_attn import kernel as FK
+    from repro_torch.models import attention as A
+    b, hq, hkv, sq, sk, d, dv, causal, window, dt = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dt)
+    k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dt)
+    kv = torch.randn((b, sk, hkv, d + dv), generator=g, device=dev).to(dt)
+    w = torch.randn((b, sq, hq, dv), generator=g, device=dev)
+    res, launches = {}, []
+    for backend in ("plain", "kernel"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, kv)]
+        FK.reset_launches()
+        out = A.gqa(leaves[0], leaves[1], leaves[2][..., d:], causal=causal, window=window,
+                    backend=backend)
+        fwd = FK.flash_attention.launches
+        grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+        launches.append((fwd, FK.flash_attention.launches - fwd))
+        res[backend] = (out, *grads)
+    torch.cuda.synchronize()
+    errs = {n: grad_rel(a, b_) for n, a, b_ in zip(("out", "dq", "dk", "dkv"),
+                                                  res["plain"], res["kernel"])}
+    if launches[0] != (0, 0):
+        fail(f"flash_attention {case}: the plain backend launched {launches[0]}")
+    return errs, launches[1]
+
+
+def ssd_grad_errors(case, dev, seed=0):
+    """One GRAD_SSD_CASES case through ssd_ops.ssd_chunk_scan with the
+    kernel backend (SSDChunkScan) and the plain one: each output and each
+    input's gradient (B/C in group form) as max |d| / max |ref|, and the
+    kernel's launches (forward, backward)."""
+    from repro_torch.kernels.ssd_scan import kernel as SK, ops as SO
+    bh, bg, L, P, N, chunk, dt = case
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ins = [torch.randn((bh, L, P), generator=g, device=dev),
+           -torch.rand((bh, L), generator=g, device=dev) * 0.5,
+           (torch.randn((bg, L, N), generator=g, device=dev) * 0.3).to(dt),
+           (torch.randn((bg, L, N), generator=g, device=dev) * 0.3).to(dt)]
+    ws = None
+    res, launches = {}, []
+    for backend in ("plain", "kernel"):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        SK.reset_launches()
+        outs = SO.ssd_chunk_scan(*leaves, chunk=chunk, backend=backend)
+        fwd = SK.ssd_chunk_scan.launches
+        if ws is None:
+            ws = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
+        grads = torch.autograd.grad(sum((o * w).sum() for o, w in zip(outs, ws)), leaves)
+        launches.append((fwd, SK.ssd_chunk_scan.launches - fwd))
+        res[backend] = (*outs, *grads)
+    torch.cuda.synchronize()
+    names = ("y", "s", "t", "dx", "dloga", "dB", "dC")
+    errs = {n: grad_rel(a, b_) for n, a, b_ in zip(names, res["plain"], res["kernel"])}
+    if launches[0] != (0, 0):
+        fail(f"ssd_chunk_scan {case}: the plain backend launched {launches[0]}")
+    return errs, launches[1]
+
+
+def grad_tolerance(name, dt):
+    """The bound of one output or gradient of a GRAD_*_CASES case."""
+    if name == "out":
+        return FLASH_TOL[dt]
+    if name in ("y", "s", "t"):
+        return SSD_TOL
+    return GRAD_TOL[dt]
+
+
+def train_function_checks(dev):
+    """The autograd Functions of flash_attention and ssd_chunk_scan on the
+    card (GRAD_*_CASES): output and gradients against autograd through the
+    plain versions; one kernel launch a forward, none in the backward."""
+    out = {}
+    for what, cases, fn in (("flash_attention", GRAD_FLASH_CASES, flash_grad_errors),
+                            ("ssd_chunk_scan", GRAD_SSD_CASES, ssd_grad_errors)):
+        worst = {}
+        for case in cases:
+            errs, launches = fn(case, dev)
+            if launches != (1, 0):
+                fail(f"{what} {case}: launches (forward, backward) {launches}, "
+                     f"expected (1, 0)")
+            for name, e in errs.items():
+                tol = grad_tolerance(name, case[-1])
+                if not e <= tol:
+                    fail(f"{what} {case}: {name} {e} of the largest against the plain "
+                         f"version's (tolerance {tol})")
+                key = f"{name} {str(case[-1]).split('.')[-1]}"
+                worst[key] = max(worst.get(key, 0.0), e)
+        log(f"[train] {what} autograd Function against autograd through the plain version "
+            f"({len(cases)} cases, worst max |d| / max |ref|): " + ", ".join(
+                f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+        out[what] = worst
+    return out
+
+
+def train_batch(cfg, dev, b, s, seed=0):
+    """A batch of the port's SyntheticLM (tokens, labels) on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.step import to_device
+    return to_device(next(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                                 global_batch=b, seed=seed))), dev)
+
+
+def train_grads(model, batch):
+    """(loss, metrics, gradients) of one microbatch through loss_fn, remat on."""
+    from repro_torch.models import lm
+    loss, met = lm.loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return loss.detach(), met, grads
+
+
+def step_busy(step, model, opt, batch):
+    """torch.profiler over one train step: its wall, the device's busy time
+    (its kernels' sum) and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy = sum(dev_us(e) for e in events) / 1e6
+    top = sorted(events, key=dev_us, reverse=True)[:6]
+    return dict(wall_s=wall, busy_s=busy, busy_share=busy / wall,
+                kernels=sum(e.count for e in events),
+                top=[dict(name=e.key, ms=dev_us(e) / 1e3, count=e.count) for e in top])
+
+
+def train_model(arch, kname, dev):
+    """One TRAIN_MODELS arch at full width from a seeded init: the loss and
+    every gradient through the kernels against the plain versions, then
+    TRAIN_STEPS steps of AdamW through the kernels, then the plain step
+    time in turns."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, make_train_step, to_device
+    cfg = get_config(arch)
+    gb, seq, micro = TRAIN_BATCH
+    model, init_s = timed(lambda: lm.init_params(cfg, 0, device=dev))
+    n = sum(p.numel() for p in model.parameters())
+    layers = cfg.n_layers
+    log(f"[train] {arch}: {layers} layers, d_model {cfg.d_model}, {n / 1e6:.1f} M "
+        f"parameters, vocab {cfg.padded_vocab}; seeded init on the card in {init_s:.2f} s")
+    rec = dict(params=n, layers=layers)
+
+    # 1. kernels against plain: one microbatch, the same weights
+    batch = train_batch(cfg, dev, gb // micro, seq)
+    res = {}
+    for backend in ("kernel", "plain"):
+        model.backend = backend
+        reset_counts()
+        (loss, met, grads), sec = timed(lambda: train_grads(model, batch))
+        res[backend] = (loss, grads, read_counts(), sec)
+    model.backend = "kernel"
+    want_launches = 2 * layers          # the forward's and remat's recompute
+    counts = res["kernel"][2]
+    if counts[kname] != want_launches or counts[f"{kname}:tc"] != want_launches:
+        fail(f"{arch}: {kname} launched {counts[kname]} times ({counts[f'{kname}:tc']} on "
+             f"the tensor cores) in a microbatch's forward and backward, expected "
+             f"{want_launches} (each layer, and again in its remat recompute)")
+    other = "ssd_chunk_scan" if kname == "flash_attention" else "flash_attention"
+    if counts[other] or res["plain"][2][kname] or res["plain"][2][other]:
+        fail(f"{arch}: unexpected launches {counts}, plain {res['plain'][2]}")
+    loss_err = abs(float(res["kernel"][0]) - float(res["plain"][0])) / abs(
+        float(res["plain"][0]))
+    if not loss_err <= TRAIN_LOSS_REL:
+        fail(f"{arch}: loss {float(res['kernel'][0])} through the kernels, "
+             f"{float(res['plain'][0])} through the plain versions ({loss_err} apart, "
+             f"tolerance {TRAIN_LOSS_REL})")
+    names = [nm for nm, _ in model.named_parameters()]
+    errs = {nm: rel_l2(p, k) for nm, k, p in zip(names, res["kernel"][1], res["plain"][1])}
+    worst = max(errs, key=errs.get)
+    tol = TRAIN_GRAD_REL_L2[arch]
+    if not errs[worst] <= tol:
+        fail(f"{arch}: gradient of {worst} {errs[worst]} (relative L2) through the kernels "
+             f"against the plain versions (tolerance {tol})")
+    if not all(bool(torch.isfinite(g).all()) for g in res["kernel"][1]):
+        fail(f"{arch}: a gradient through the kernels is not finite")
+    # the noise: the same microbatch through the kernels as four of one row
+    rows = [train_grads(model, {k: v[i:i + 1] for k, v in batch.items()})[2]
+            for i in range(gb // micro)]
+    split = [sum(r[j].float() for r in rows) / len(rows) for j in range(len(names))]
+    whole = lambda a, b_: rel_l2(torch.cat([t.flatten().float() for t in a]),  # noqa: E731
+                                 torch.cat([t.flatten().float() for t in b_]))
+    floor = whole(res["kernel"][1], split)
+    apart = whole(res["plain"][1], res["kernel"][1])
+    if not apart <= TRAIN_FLOOR_FACTOR * floor:
+        fail(f"{arch}: the whole gradient {apart} (relative L2) through the kernels against "
+             f"the plain versions, above {TRAIN_FLOOR_FACTOR} times the spread of the "
+             f"kernels' own gradient when the microbatch is split in rows ({floor})")
+    above = sorted((nm for nm, e in errs.items() if e > 5e-2), key=errs.get, reverse=True)
+    rec["grads"] = dict(loss_kernel=float(res["kernel"][0]), loss_plain=float(res["plain"][0]),
+                        loss_rel=loss_err, worst_leaf=worst, worst_rel_l2=errs[worst],
+                        median_rel_l2=float(np.median(list(errs.values()))),
+                        whole_rel_l2=apart, floor_rel_l2=floor, leaves=len(errs),
+                        leaves_above_5e_2=len(above), tolerance=tol,
+                        worst8={nm: errs[nm] for nm in sorted(errs, key=errs.get)[-8:]},
+                        launches=counts[kname], microbatch_s=res["kernel"][3],
+                        microbatch_plain_s=res["plain"][3])
+    log(f"[train] {arch} B={gb // micro} x {seq}: loss {float(res['kernel'][0]):.5f} through "
+        f"the kernels, {float(res['plain'][0]):.5f} plain ({loss_err:.2e} apart); "
+        f"{len(errs)} gradients, worst {worst} {errs[worst]:.4f} relative L2 (tolerance "
+        f"{tol}), median {rec['grads']['median_rel_l2']:.4f}, {len(above)} above 5e-2; the "
+        f"whole gradient {apart:.4f} apart, the kernels' own spread over a row split "
+        f"{floor:.4f}; {kname} {counts[kname]} launches (forward + remat recompute), "
+        f"forward + backward {res['kernel'][3]:.3f} s (plain {res['plain'][3]:.3f} s)")
+    del res, grads, rows, split
+
+    # 2. steps through the kernels
+    tcfg = TrainConfig(adam=adamw.AdamWConfig(**TRAIN_ADAM), microbatches=micro)
+    opt = adamw.init(tcfg.adam, model)
+    step = make_train_step(cfg, tcfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, walls = [], [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        b = to_device(next(data), dev)
+        stats, sec = timed(lambda: step(model, opt, b))
+        losses.append(float(stats["loss"]))
+        gnorms.append(float(stats["grad_norm"]))
+        walls.append(sec)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = counts[kname] / TRAIN_STEPS
+    if per_step != 2 * micro * layers:
+        fail(f"{arch}: {kname} {per_step} launches a step, expected {2 * micro * layers}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        fail(f"{arch}: a loss or gradient norm is not finite: {losses}, {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"{arch}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    step_s = float(np.median(walls[1:]))
+    tokens = gb * seq
+    # forward and backward of one microbatch, apart
+    model.backend = "kernel"
+    mb = to_device({k: v[: gb // micro] for k, v in next(data).items()}, dev)
+    (loss_met), fwd_s = timed(lambda: lm.loss_fn(model, mb))
+    _, bwd_s = timed(lambda: torch.autograd.grad(loss_met[0], list(model.parameters())))
+    del loss_met
+    prof = step_busy(step, model, opt, to_device(next(data), dev))
+    # the plain versions' step time, in turns with the kernels'
+    turns = {"kernel": [], "plain": []}
+    for _ in range(TRAIN_PLAIN_TURNS):
+        for backend in ("kernel", "plain"):
+            model.backend = backend
+            b = to_device(next(data), dev)
+            turns[backend].append(timed(lambda: step(model, opt, b))[1])
+    model.backend = "kernel"
+    rec["steps"] = dict(losses=losses, grad_norms=gnorms, walls_s=walls, step_s=step_s,
+                        tokens_per_step=tokens, tokens_per_s=tokens / step_s,
+                        launches_per_step=per_step, peak_bytes=peak,
+                        microbatch_forward_s=fwd_s, microbatch_backward_s=bwd_s,
+                        profile=prof, turns_s=turns,
+                        kernel_step_s_turns=float(np.median(turns["kernel"])),
+                        plain_step_s_turns=float(np.median(turns["plain"])))
+    log(f"[train] {arch}: {TRAIN_STEPS} steps of {gb} x {seq} tokens in {micro} microbatches "
+        f"(AdamW lr {TRAIN_ADAM['lr']}, warmup {TRAIN_ADAM['warmup_steps']}): loss "
+        + " ".join(f"{x:.4f}" for x in losses) + "; grad norm "
+        + " ".join(f"{x:.3f}" for x in gnorms))
+    log(f"[train] {arch}: step {step_s:.4f} s (median of steps 2-{TRAIN_STEPS}; first "
+        f"{walls[0]:.3f} s), {tokens / step_s:,.0f} tokens/s; a microbatch's forward "
+        f"{fwd_s:.4f} s, backward {bwd_s:.4f} s; peak memory {peak / 2**30:.3f} GiB; "
+        f"{kname} {per_step:.0f} launches a step; device busy {prof['busy_share'] * 100:.1f} % "
+        f"of a {prof['wall_s']:.4f} s step ({prof['kernels']} kernels); in turns: kernels "
+        f"{rec['steps']['kernel_step_s_turns']:.4f} s a step, plain "
+        f"{rec['steps']['plain_step_s_turns']:.4f} s")
+    for e in prof["top"]:
+        log(f"[train]   {e['ms']:9.2f} ms  x{e['count']:5d}  {e['name'][:90]}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_restart(dev, directory):
+    """qwen3-0.6b through the training loop: RESTART[1] steps with a
+    checkpoint at the end, a restart from it to RESTART[0], and an
+    uninterrupted run of RESTART[0] steps, in one process under
+    torch.use_deterministic_algorithms(True): the resumed losses, final
+    parameters and optimizer state equal the uninterrupted run's bit for
+    bit.  ``warn_only``: an operation with no deterministic version warns
+    (cuBLAS among them, whose workspace setting the script leaves as it
+    is: one stream), and the bit-for-bit gate is the test."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.step import TrainConfig
+    cfg = get_config("qwen3-0.6b")
+    gb, seq, micro = TRAIN_BATCH
+    tcfg = TrainConfig(adam=adamw.AdamWConfig(**TRAIN_ADAM), microbatches=micro)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=2)
+    steps, at = RESTART
+    quiet = dict(device=dev, log=lambda *_: None)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (_, _, first), s1 = timed(lambda: train(cfg, tcfg, LoopConfig(
+            steps=at, ckpt_dir=directory, ckpt_every=at), dcfg, **quiet))
+        (m2, o2, rest), s2 = timed(lambda: train(cfg, tcfg, LoopConfig(
+            steps=steps, ckpt_dir=directory, ckpt_every=steps * 10), dcfg, **quiet))
+        resumed = {k: v.detach().clone() for k, v in m2.state_dict().items()}
+        opt2 = {f"{kind}.{n}": t for kind in ("mu", "nu") for n, t in getattr(o2, kind).items()}
+        del m2
+        (m3, o3, whole), s3 = timed(lambda: train(cfg, tcfg, LoopConfig(steps=steps), dcfg,
+                                                  **quiet))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if len(rest) != steps - at or first + rest != whole:
+        fail(f"restart: losses {first} + {rest} resumed, {whole} uninterrupted")
+    differ = [k for k, v in m3.state_dict().items() if not bit_equal(v, resumed[k])]
+    differ += [k for k, t in opt2.items()
+               if not bit_equal(t, getattr(o3, k.split(".")[0])[k.split(".", 1)[1]])]
+    if differ or int(o2.step) != int(o3.step):
+        fail(f"restart: {len(differ)} leaves differ from the uninterrupted run's "
+             f"(first: {differ[:3]}); steps {int(o2.step)}, {int(o3.step)}")
+    nbytes = sum(f.stat().st_size for f in Path(directory).rglob("*") if f.is_file())
+    log(f"[train] restart: qwen3-0.6b {at} steps and a checkpoint ({nbytes / 1e9:.2f} GB) "
+        f"in {s1:.1f} s, resumed to step {steps} in {s2:.1f} s, uninterrupted {steps} steps "
+        f"in {s3:.1f} s; losses {whole} equal, parameters and moments equal bit for bit "
+        f"(deterministic algorithms on)")
+    del m3, o3
+    torch.cuda.empty_cache()
+    return dict(losses=whole, checkpoint_bytes=nbytes, first_s=s1, resumed_s=s2,
+                whole_s=s3, deterministic=True, bit_equal=True)
+
+
+def phase_train(dev):
+    """5c: TRAIN_MODELS at full width, one at a time (train_model), then
+    the restart (train_restart)."""
+    import tempfile
+    results = {}
+    for arch, kname in TRAIN_MODELS:
+        results[arch] = train_model(arch, kname, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        results["restart"] = train_restart(dev, d)
+    return results
+
+
 def dev_us(e):
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
@@ -3321,6 +3745,7 @@ def run(name, smi_line, bridge_cpu):
     records["departures"] = departures_timing(timed_departures)
     lanes_checked = lanes_kernel_checks()
     records.update(serve_kernel_checks(dev))
+    function_checks = train_function_checks(dev)
     if "--kernels-only" in sys.argv[1:]:
         log("[done] --kernels-only: stopping before the main path (no result)")
         sys.exit(4)
@@ -3345,8 +3770,11 @@ def run(name, smi_line, bridge_cpu):
     experiment_api = timed_phase("api", phase_api, paths, finals)
     lanes_rec = timed_phase("lanes", phase_lanes, lanes_checked)
     bridge = timed_phase("bridge", phase_bridge, bridge_cpu)
-    serving = timed_phase("serving", phase_serving, dev)
-    zoo = timed_phase("zoo", phase_zoo, dev)
+    with torch.no_grad():
+        serving = timed_phase("serving", phase_serving, dev)
+        zoo = timed_phase("zoo", phase_zoo, dev)
+    train_rec = timed_phase("train", phase_train, dev)
+    train_rec["functions"] = function_checks
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
     # (source, the TPU kernel it replaces, the path whose launches it reports);
@@ -3412,6 +3840,12 @@ def run(name, smi_line, bridge_cpu):
                 "plain_phase_launches")
                or k_.startswith(("a2a_", "mla_", "cross_"))},
             **({"launches_zoo": {a: r["launches"].get(k, 0) for a, r in zoo.items()}}
+               if k in ("flash_attention", "ssd_chunk_scan") else {}),
+            **({"launches_train_step": {a: r["steps"]["launches_per_step"]
+                                        for a, r in train_rec.items()
+                                        if TRAIN_KERNEL.get(a) == k},
+                "launches_train_path": f"train {TRAIN_BATCH[0]} x {TRAIN_BATCH[1]} tokens "
+                                       f"in {TRAIN_BATCH[2]} microbatches, remat"}
                if k in ("flash_attention", "ssd_chunk_scan") else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":
@@ -3449,7 +3883,8 @@ def run(name, smi_line, bridge_cpu):
                                        red_mark_check=red, comparison=comparison,
                                        experiment_api=experiment_api,
                                        lanes=lanes_rec, bridge=bridge, zoo=zoo,
-                                       serving=serving, profile=prof), indent=1))
+                                       serving=serving, train=train_rec, profile=prof),
+                                  indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,13 @@
 
 ``"kernel"`` launches the CUDA kernel for CUDA tensors and takes the
 plain version for CPU tensors; ``"plain"`` always takes the plain version.
+
+Under autograd the kernel is the forward of :class:`FlashAttention`; its
+backward is plain PyTorch: it recomputes the same function through the
+dense oracle ``attention_ref`` and differentiates that (the kernel keeps
+no log-sum-exp, and the JAX package has no backward kernel either: its
+``jax.grad`` differentiates the jnp version).  The plain backend is
+differentiated by autograd directly.
 """
 
 from __future__ import annotations
@@ -14,6 +21,31 @@ from repro_torch.kernels.flash_attn import kernel as K
 from repro_torch.kernels.flash_attn import ref as R
 
 BACKENDS = ("kernel", "plain")
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward, a plain backward.  The backward recomputes
+    ``attention_ref`` (one product a head, not the kernel's 64 x 64 tiles,
+    which would leave thousands of autograd nodes a layer) from the saved
+    q, k, v and returns its gradients; autograd carries them back through
+    the caller's views (``gqa``'s transposes, MLA's slice of v)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return K.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = R.attention_ref(*ins, causal=ctx.causal, window=ctx.window)
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wrt, grad_out.float()))
+        return (*(next(got) if n else None for n in need), None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -29,6 +61,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if score_dtype != torch.float32:
             raise ValueError(f"score_dtype {score_dtype} (attn_bf16): the flash_attention "
                              f"kernels keep f32 scores; use backend='plain'")
-        return K.flash_attention(q, k, v, causal=causal, window=window)
+        return FlashAttention.apply(q, k, v, causal, window)
     return R.flash_attention_ref(q, k, v, causal=causal, window=window,
                                  score_dtype=score_dtype)

@@ -4,6 +4,11 @@ too; it is bandwidth-trivial beside the chunk products).
 
 ``"kernel"`` launches the CUDA kernel for CUDA tensors and takes the
 plain version for CPU tensors; ``"plain"`` always takes the plain version.
+
+Under autograd the kernel is the forward of :class:`SSDChunkScan`; its
+backward is plain PyTorch (``ssd_chunk_scan_ref`` recomputed and
+differentiated), as the JAX package differentiates its jnp version.
+``_inter_chunk`` is differentiated by autograd on either backend.
 """
 
 from __future__ import annotations
@@ -18,13 +23,40 @@ BACKENDS = ("kernel", "plain")
 TILE = K.TC_MULT        # rows a chunk is a multiple of, for the tensor-core kernel
 
 
+class SSDChunkScan(torch.autograd.Function):
+    """The kernel's forward, a plain backward: ``ssd_chunk_scan_ref``
+    recomputed from the saved x, loga, B, C and differentiated, giving
+    gradients for all four; B and C keep their group form, the gradient
+    of a group row summed over the heads that read it (the backward of
+    the reference's ``repeat_interleave``)."""
+
+    @staticmethod
+    def forward(ctx, x, loga, B, C, chunk):
+        ctx.save_for_backward(x, loga, B, C)
+        ctx.chunk = chunk
+        return K.ssd_chunk_scan(x, loga, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gs, gt):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            outs = R.ssd_chunk_scan_ref(*ins, chunk=ctx.chunk)
+            used = [(o, g) for o, g in zip(outs, (gy, gs, gt)) if o.requires_grad]
+            wrt = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in used], wrt,
+                                           [g for _, g in used], allow_unused=True))
+        return (*(next(got) if n else None for n in need), None)
+
+
 def ssd_chunk_scan(x, loga, B, C, *, chunk: int, backend: str = "kernel"):
     """Intra-chunk pass: ``(y_intra, s_chunk, t_chunk)`` (see ``ref.py``);
     B/C ``[BH, L, N]`` or in group form ``[BG, L, N]``."""
     if backend not in BACKENDS:
         raise KeyError(f"unknown SSD backend {backend!r}; have {BACKENDS}")
     if build.use_kernel(backend, x):
-        return K.ssd_chunk_scan(x, loga, B, C, chunk=chunk)
+        return SSDChunkScan.apply(x, loga, B, C, chunk)
     return R.ssd_chunk_scan_ref(x, loga, B, C, chunk=chunk)
 
 

@@ -1,3 +1,3 @@
-"""Serving path of the model zoo: config, layers, attention (self and
-cross), MLA, Mamba-2, MoE, decoder layers and the language model
-(prefill + decode)."""
+"""The model zoo: config, layers, attention (self and cross), MLA,
+Mamba-2, MoE, decoder layers and the language model (the training
+forward and loss, prefill + decode)."""

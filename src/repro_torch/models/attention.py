@@ -32,17 +32,15 @@ class Attention(nn.Module):
                   "wo": (hq * dh, d)}
         for name, shape in shapes.items():
             self.register_parameter(name, nn.Parameter(
-                L.dense_init(generator, *shape, device), requires_grad=False))
+                L.dense_init(generator, *shape, device)))
         if cfg.attn_bias:
             for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
                 self.register_parameter(name, nn.Parameter(
-                    torch.zeros(n, dtype=L.PARAM_DTYPE, device=device),
-                    requires_grad=False))
+                    torch.zeros(n, dtype=L.PARAM_DTYPE, device=device)))
         if cfg.qk_norm:
             for name in ("q_norm", "k_norm"):
                 self.register_parameter(name, nn.Parameter(
-                    torch.ones(dh, dtype=torch.float32, device=device),
-                    requires_grad=False))
+                    torch.ones(dh, dtype=torch.float32, device=device)))
 
 
 def attn_qkv(p, cfg, x, kv_src, positions):

@@ -1,20 +1,28 @@
 """Decoder layers (the JAX package's ``models/blocks.py``): a pre-norm
 mixer (attention, cross-attention, MLA or Mamba-2) and an optional FFN
 (dense SwiGLU or MoE), dispatched over the layer spec as the JAX
-package's ``layer_init`` does.
+package's ``layer_init`` does; ``layer_apply`` is one layer's
+whole-sequence forward and ``stack_apply`` the training forward of the
+depth.
 
 The JAX package stacks each pattern position's parameters over the
 repetitions and scans over them; here the depth is a ``ModuleList`` of
 ``n_layers`` layers, layer ``l`` being pattern position
-``l % len(pattern)``.
+``l % len(pattern)``, and repetition ``r`` the layers ``r * len(pattern)``
+to ``(r + 1) * len(pattern) - 1``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models import mla as MLA_
+from repro_torch.models import moe as MOE
 from repro_torch.models.attention import Attention
 from repro_torch.models.config import (FFN_DENSE, FFN_MOE, FFN_NONE, MIXER_ATTN,
                                        MIXER_CROSS, MIXER_MAMBA, LayerSpec)
@@ -29,7 +37,7 @@ class SwiGLU(nn.Module):
         for name, shape in (("gate", (d_model, d_ff)), ("up", (d_model, d_ff)),
                             ("down", (d_ff, d_model))):
             self.register_parameter(name, nn.Parameter(
-                L.dense_init(generator, *shape, device), requires_grad=False))
+                L.dense_init(generator, *shape, device)))
 
 
 class Layer(nn.Module):
@@ -40,8 +48,7 @@ class Layer(nn.Module):
     def __init__(self, cfg, spec: LayerSpec, device, generator=None):
         super().__init__()
         self.spec = spec
-        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, device=device),
-                                    requires_grad=False)
+        ones = lambda: nn.Parameter(torch.ones(cfg.d_model, device=device))
         self.ln = ones()
         if spec.mixer in (MIXER_ATTN, MIXER_CROSS):
             self.mixer = (MLA(cfg, device, generator) if cfg.mla is not None
@@ -59,3 +66,63 @@ class Layer(nn.Module):
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, device, generator)
         else:
             raise ValueError(spec.ffn)
+
+
+def ffn_apply(layer, cfg, x):
+    """The FFN half of a layer with its residual: (x, the MoE aux loss, or
+    ``None`` for a dense FFN or none)."""
+    if layer.spec.ffn == FFN_NONE:
+        return x, None
+    h2 = L.rmsnorm(x, layer.ln2, cfg.rms_eps)
+    if layer.spec.ffn == FFN_MOE:
+        out, aux = MOE.moe_apply(layer.ffn, cfg, h2)
+        return x + out, aux
+    return x + L.swiglu(layer.ffn, h2), None
+
+
+def layer_apply(layer, cfg, x, positions, cross_feed=None, backend: str = "kernel"):
+    """The training / eval forward of one layer over the whole sequence:
+    (x, aux loss f32, 0 without a MoE FFN)."""
+    p = layer.mixer
+    h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
+    if layer.spec.mixer == MIXER_CROSS:
+        mix = A.attn_apply(p, cfg, h, None, cross_feed=cross_feed, backend=backend)[0]
+    elif layer.spec.mixer == MIXER_ATTN:
+        mix = (MLA_.mla_apply(p, cfg, h, positions, backend=backend)[0]
+               if cfg.mla is not None
+               else A.attn_apply(p, cfg, h, positions, backend=backend)[0])
+    else:
+        mix = M.mamba_apply(p, cfg, h, backend=backend)
+    x, aux = ffn_apply(layer, cfg, x + mix)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def _repetition(layers, cfg, x, positions, cross_feed, backend):
+    """One repetition of the pattern (the JAX package's scan body)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in layers:
+        x, a = layer_apply(layer, cfg, x, positions, cross_feed, backend)
+        aux = aux + a
+    return x, aux
+
+
+def stack_apply(layers, cfg, x, positions, cross_feed=None, *, remat: bool = True,
+                backend: str = "kernel"):
+    """The depth, one repetition of the pattern at a time: (x, the aux
+    losses summed).  ``remat`` wraps each repetition in
+    ``torch.utils.checkpoint`` (non-reentrant), where the JAX package puts
+    ``jax.checkpoint`` around its scan body: only a repetition's input is
+    kept, and the backward runs the repetition again, the kernels
+    included.  The recompute must equal the forward: the kernels add
+    without atomics and MoE routing is the same function of the same
+    input."""
+    npat = len(cfg.pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.repeats):
+        args = (layers[r * npat:(r + 1) * npat], cfg, x, positions, cross_feed, backend)
+        x, a = (checkpoint(_repetition, *args, use_reentrant=False) if remat
+                else _repetition(*args))
+        aux = aux + a
+    return x, aux

@@ -5,7 +5,8 @@ numpy leaves — ``groups``: one dict per pattern position, each leaf
 stacked ``[repeats, ...]`` (a MoE expert stack ``[repeats, E, ...]``);
 ``embed`` for a token frontend; ``final_norm``; ``lm_head`` when the
 embeddings are not tied or the frontend takes embeddings — and returns
-the port's ``LM`` with every leaf loaded bit for bit.  JAX's bf16 arrays come as ``ml_dtypes.bfloat16``,
+the port's ``LM`` with every leaf loaded bit for bit;
+``opt_state_from_jax`` carries an AdamW state across the same way.  JAX's bf16 arrays come as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` refuses; they are reinterpreted through a
 ``uint16`` view (exact, no copy).
 """
@@ -59,3 +60,20 @@ def from_jax_params(cfg, params_np, *, device="cuda", backend: str = "kernel") -
     sd = state_dict_from_jax(cfg, params_np)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def opt_state_from_jax(cfg, state_np, *, device="cuda"):
+    """The port's ``AdamWState`` from the JAX package's (numpy leaves):
+    the same step count, moments and f32 master weights (if any), each
+    tree keyed as the port's ``state_dict``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = torch.device(device)
+
+    def tree(t):
+        return {k: v.to(dev) for k, v in state_dict_from_jax(cfg, t).items()}
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state_np.step)), dtype=torch.int32, device=dev),
+        mu=tree(state_np.mu), nu=tree(state_np.nu),
+        master=None if state_np.master is None else tree(state_np.master))

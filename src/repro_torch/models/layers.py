@@ -69,3 +69,14 @@ def swiglu(p, x):
     h = silu(x @ p.gate) * (x @ p.up)
     return h @ p.down
 
+
+
+def cross_entropy(logits, labels, mask=None):
+    """logits ``[B, S, V]`` (any float dtype), labels int ``[B, S]`` -> the
+    mean negative log-likelihood in f32; with a mask, its sum over the
+    mask's divided by ``max(sum(mask), 1)``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,19 +1,22 @@
-"""Language model, serving half (the JAX package's ``models/lm.py``): the
-frontend (token embedding, or precomputed frame / patch embeddings) ->
-decoder layers -> final norm -> head, with the prefill that emits the
-caches and the single-token decode step.
+"""Language model (the JAX package's ``models/lm.py``): the frontend
+(token embedding, or precomputed frame / patch embeddings) -> decoder
+layers -> final norm -> head; the training forward and loss, and the
+serving paths: the prefill that emits the caches and the single-token
+decode step.
 
 A model is built on the card unless the caller asks for the CPU::
 
     model = LM(get_config("qwen3-0.6b"), generator=g)        # cuda
     model = LM(cfg, device="cpu", generator=g)               # plain versions
 
-``prefill`` and ``decode_step`` take the JAX package's batch dict —
+``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take the JAX
+package's batch dict —
 ``tokens`` int ``[B, S]`` or ``embeds`` ``[B, S, d]`` (the
 ``"embeddings"`` frontend), and ``cross`` ``[B, Sk, d]`` for a model with
-cross-attention layers — or a token tensor alone.
+cross-attention layers, ``labels`` int ``[B, S]`` (-1 masked) for the
+loss — or a token tensor alone.
 
-``backend`` selects how prefill runs the two kernels of the path:
+``backend`` selects how forward and prefill run the two kernels of the path:
 ``"kernel"`` launches ``flash_attention`` (self-attention, cross-attention,
 MLA) and ``ssd_chunk_scan`` (Mamba-2) on a card (their plain versions on
 the CPU), ``"plain"`` runs the plain versions everywhere.  Caches are a
@@ -28,13 +31,12 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as A
+from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
-from repro_torch.models import moe as MOE
 from repro_torch.models.blocks import Layer
-from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_CROSS, MIXER_MAMBA,
-                                       ModelConfig)
+from repro_torch.models.config import MIXER_CROSS, MIXER_MAMBA, ModelConfig
 
 
 class LM(nn.Module):
@@ -60,15 +62,12 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(
             Layer(cfg, cfg.pattern[i % len(cfg.pattern)], device, generator)
             for i in range(cfg.n_layers))
-        self.final_norm = nn.Parameter(torch.ones(cfg.d_model, device=device),
-                                       requires_grad=False)
+        self.final_norm = nn.Parameter(torch.ones(cfg.d_model, device=device))
         v, d = cfg.padded_vocab, cfg.d_model
         if cfg.frontend == "tokens":
-            self.embed = nn.Parameter(L.embed_init(generator, v, d, device),
-                                      requires_grad=False)
+            self.embed = nn.Parameter(L.embed_init(generator, v, d, device))
         if not cfg.tie_embeddings or cfg.frontend != "tokens":
-            self.lm_head = nn.Parameter(L.dense_init(generator, d, v, device, scale=0.02),
-                                        requires_grad=False)
+            self.lm_head = nn.Parameter(L.dense_init(generator, d, v, device, scale=0.02))
 
     @property
     def device(self):
@@ -87,6 +86,20 @@ class LM(nn.Module):
         if self.cfg.frontend == "tokens":
             return self.embed[batch["tokens"].long()]
         return batch["embeds"].to(L.PARAM_DTYPE)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+                backend: str = "kernel") -> LM:
+    """The seeded model (the JAX package's ``init_params``): ``LM`` with
+    its weights drawn from a generator on ``device`` seeded with ``seed``.
+    The draws are PyTorch's, not JAX's: the JAX package's weights come
+    across through ``convert.from_jax_params``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_params(device='cuda') needs a CUDA card; pass "
+                           "device='cpu' for the plain versions on the CPU")
+    g = torch.Generator(device=device).manual_seed(seed)
+    return LM(cfg, device=device, generator=g, backend=backend)
 
 
 def as_batch(batch) -> dict:
@@ -119,15 +132,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     return caches
 
 
-def _ffn(layer, cfg, x):
-    if layer.spec.ffn == FFN_NONE:
-        return x
-    h2 = L.rmsnorm(x, layer.ln2, cfg.rms_eps)
-    if layer.spec.ffn == FFN_MOE:
-        return x + MOE.moe_apply(layer.ffn, cfg, h2)[0]
-    return x + L.swiglu(layer.ffn, h2)
-
-
 def _pad_rows(t, max_len):
     """Pad dim 1 (the sequence) of ``t`` to ``max_len`` rows, as bf16."""
     pad = [0, 0] * (t.dim() - 2) + [0, max_len - t.shape[1]]
@@ -151,7 +155,7 @@ def prefill_layer(model: LM, layer, x, positions, max_len: int, cross=None):
     else:
         mix, k, v = A.attn_apply(p, cfg, h, positions, backend=model.backend)
         cache = {"k": _pad_rows(k, max_len), "v": _pad_rows(v, max_len)}
-    return _ffn(layer, cfg, x + mix), cache
+    return B.ffn_apply(layer, cfg, x + mix)[0], cache
 
 
 def prefill_inputs(model: LM, batch):
@@ -171,6 +175,28 @@ def prefill_inputs(model: LM, batch):
                          f"needs 'cross' [B, {model.cfg.cross_kv_len}, "
                          f"{model.cfg.d_model}]")
     return x, positions, cross
+
+
+def forward(model: LM, batch, remat: bool = True):
+    """The training / eval forward of a batch dict (or tokens ``[B, S]``):
+    (logits ``[B, S, Vpad]`` in the parameters' dtype, bf16, as the JAX
+    package's; the MoE aux loss f32).  ``remat`` recomputes each
+    repetition of the pattern in the backward (``blocks.stack_apply``)."""
+    x, positions, cross = prefill_inputs(model, batch)
+    x, aux = B.stack_apply(model.layers, model.cfg, x, positions, cross, remat=remat,
+                           backend=model.backend)
+    x = L.rmsnorm(x, model.final_norm, model.cfg.rms_eps)
+    return model.head(x), aux
+
+
+def loss_fn(model: LM, batch, remat: bool = True, aux_weight: float = 0.01):
+    """(``nll + aux_weight * aux``, {"nll", "aux"}); ``batch["labels"]``
+    of -1 are left out of the mean."""
+    logits, aux = forward(model, batch, remat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    nll = L.cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 @torch.no_grad()
@@ -220,6 +246,6 @@ def decode_step(model: LM, batch, caches, cache_len):
             vc[rows, at] = v[:, 0].to(vc.dtype)
             out = A.decode_attention(q, kc, vc, cache_len, window=cfg.sliding_window)
             mix = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_) @ p.wo
-        x = _ffn(layer, cfg, x + mix)
+        x = B.ffn_apply(layer, cfg, x + mix)[0]
     x = L.rmsnorm(x, model.final_norm, cfg.rms_eps)
     return model.head(x), caches

@@ -32,7 +32,7 @@ class Mamba2(nn.Module):
         g = generator
 
         def param(name, value):
-            self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(value))
 
         def dense(name, d_in, d_out, scale=None):
             param(name, L.dense_init(g, d_in, d_out, device, scale))
@@ -109,11 +109,12 @@ def mamba_apply(p, cfg, x, return_state: bool = False, backend: str = "kernel"):
 
     def to_bh(t):                        # [B, S, H, *] -> [B*H, S, *] (H: heads or groups)
         t = F.pad(t, (0, 0, 0, 0, 0, pad))
-        return t.transpose(1, 2).reshape(b * t.shape[2], slp, t.shape[-1])
+        # contiguous: at B=1 the reshape is a strided view, which the kernel refuses
+        return t.transpose(1, 2).reshape(b * t.shape[2], slp, t.shape[-1]).contiguous()
 
     loga_p = F.pad(loga, (0, 0, 0, pad))
     y, state = ssd_ops.ssd_with_state(
-        to_bh(xbar), loga_p.transpose(1, 2).reshape(b * h, slp),
+        to_bh(xbar), loga_p.transpose(1, 2).reshape(b * h, slp).contiguous(),
         to_bh(Bg), to_bh(Cg), chunk=chunk, backend=backend)
     y = y.reshape(b, h, slp, pdim)[:, :, :sl].transpose(1, 2)  # [B, S, H, P]
     y = y + xh.float() * p.Dskip[None, None, :, None]

@@ -34,11 +34,11 @@ class MLA(nn.Module):
 
         def dense(name, d_in, d_out, scale=None):
             self.register_parameter(name, nn.Parameter(
-                L.dense_init(generator, d_in, d_out, device, scale), requires_grad=False))
+                L.dense_init(generator, d_in, d_out, device, scale)))
 
         def norm(name, n):
             self.register_parameter(name, nn.Parameter(
-                torch.ones(n, dtype=torch.float32, device=device), requires_grad=False))
+                torch.ones(n, dtype=torch.float32, device=device)))
 
         dense("wdq", d, m.q_lora_rank)
         norm("q_ln", m.q_lora_rank)

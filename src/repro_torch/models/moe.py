@@ -43,11 +43,10 @@ class MoE(nn.Module):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
         self.router = nn.Parameter(L.normal((d, e), generator, device, 0.02,
-                                            dtype=torch.float32), requires_grad=False)
+                                            dtype=torch.float32))
         for name, d_in, d_out in (("gate", d, f), ("up", d, f), ("down", f, d)):
             self.register_parameter(name, nn.Parameter(
-                experts_init(generator, e, d_in, d_out, device, d_in ** -0.5),
-                requires_grad=False))
+                experts_init(generator, e, d_in, d_out, device, d_in ** -0.5)))
 
 
 def route(p, cfg, x2):

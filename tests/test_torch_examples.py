@@ -1,6 +1,7 @@
 """The port's example twins: ``examples/torch_quickstart.py --quick`` runs
 to its end on the CPU (``--device cpu``) and prints the table of all four
-algorithms; without ``--device`` it, and
+algorithms; ``examples/torch_train_lm.py`` trains a small model on the CPU
+and resumes from its checkpoint; without ``--device`` they, and
 ``examples/torch_collective_estimate.py``, ask for the card, so on a
 machine without one they stop with the port's error instead of falling
 back to the CPU."""
@@ -45,3 +46,24 @@ def test_torch_collective_estimate_asks_for_the_card_by_default():
     out = _run(script="torch_collective_estimate.py")
     assert out.returncode != 0
     assert "torch.cuda.is_available() is False" in out.stderr
+
+
+def test_torch_train_lm_trains_and_resumes_on_the_cpu(tmp_path):
+    small = ("--d-model", "64", "--layers", "2", "--seq", "32", "--batch", "8",
+             "--ckpt-dir", str(tmp_path / "ck"), "--device", "cpu")
+    out = _run("--steps", "20", *small, script="torch_train_lm.py")
+    assert out.returncode == 0, out.stderr
+    assert "on cpu" in out.stdout and "step    20 loss" in out.stdout
+    first, last = out.stdout.split("done: loss ")[1].split(" over")[0].split(" -> ")
+    assert float(last) < float(first)
+    out = _run("--steps", "25", *small, script="torch_train_lm.py")
+    assert out.returncode == 0, out.stderr
+    assert "[resume] restored step 20" in out.stdout and "over 5 steps" in out.stdout
+
+
+def test_torch_train_lm_asks_for_the_card_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default run succeeds")
+    out = _run("--steps", "1", "--ckpt-dir", str(tmp_path / "ck"), script="torch_train_lm.py")
+    assert out.returncode != 0
+    assert "needs a CUDA card" in out.stderr

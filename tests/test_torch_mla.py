@@ -33,6 +33,16 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import mla as tmla  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def serving_without_autograd():
+    """The layers run here as serving runs them, under ``torch.no_grad()``
+    (the parameters are trainable: a result that requires grad has no
+    ``.numpy()``)."""
+    with torch.no_grad():
+        yield
+
+
 LAYER_REL_TOL = 2e-2
 
 

@@ -47,6 +47,16 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import mamba2 as tmamba  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def serving_without_autograd():
+    """The layers run here as serving runs them, under ``torch.no_grad()``
+    (the parameters are trainable: a result that requires grad has no
+    ``.numpy()``)."""
+    with torch.no_grad():
+        yield
+
+
 KERNEL_F32_TOL = 2e-5
 KERNEL_BF16_TOL = 2e-2
 SSD_TOL = 2e-4

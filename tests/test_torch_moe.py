@@ -34,6 +34,16 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.convert import to_torch  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def serving_without_autograd():
+    """The layers run here as serving runs them, under ``torch.no_grad()``
+    (the parameters are trainable: a result that requires grad has no
+    ``.numpy()``)."""
+    with torch.no_grad():
+        yield
+
+
 ROUTE_MARGIN = 1e-5
 LAYER_REL_TOL = 2e-2
 

@@ -58,6 +58,16 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_CROSS,  # noqa: E402
                                        MIXER_MAMBA)
 
+
+@pytest.fixture(autouse=True)
+def serving_without_autograd():
+    """The layers run here as serving runs them, under ``torch.no_grad()``
+    (the parameters are trainable: a result that requires grad has no
+    ``.numpy()``)."""
+    with torch.no_grad():
+        yield
+
+
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
 CHIP_SMOKE = importlib.util.module_from_spec(_spec)
