@@ -180,6 +180,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                departures, arrivals, control and sends phases' launches and
                device time a call (phase 3: a CUDA graph of the phase, its
                nodes counted)
+  7. analysis — repro_torch.analysis on the card: lint.lint_repo() over the
+               port's sources, then the op auditor's nine programs (init,
+               the six phases, step, horizon; each recorded twice, at
+               consecutive ticks) of tiny_3t, perm_1024n_3t under smartt
+               and eqds, alltoall_3t and corefail_128n_3t past its failure
+               (t = 520), through the fused launches ("kernel") and through
+               the plain versions, and JX006's SimConfig classification.
+               Each phase's row printed (aten ops, custom launches, host
+               syncs, scatter/gather, the same op sequence at both ticks)
+               beside the device kernels torch.profiler saw in one call.
+               Fails on any unallowlisted finding, on a fused phase
+               (departures, arrivals, control, sends; EQDS's grants) that
+               is not one launch of its own kernel a call, and on a host
+               sync inside the six phases; prints the phase's wall time
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
@@ -3634,6 +3648,108 @@ def phase_profile():
         "kernel", "plain-departures", "split-arrivals", "split-control", "split-sends")}
 
 
+# ------------------------------------------------------- 7. analysis
+
+# (scenario, config overrides, ticks run before the programs are recorded;
+# None: one base RTT and two)
+ANALYSIS_AUDITS = (("tiny_3t", {}, None), ("perm_1024n_3t", {}, None),
+                   ("perm_1024n_3t", {"algo": "eqds"}, None), ("alltoall_3t", {}, None),
+                   ("corefail_128n_3t", {}, 520))
+# the phases that are one launch of their own kernel a call (and EQDS's
+# grants, one rr_pick)
+FUSED_PHASES = ("departures", "arrivals", "control", "sends")
+
+# the audits of phase 7, run in a process of their own: its torch.profiler
+# sessions are the first of their process (a session after a long one, as
+# phase 6's, was seen to lose device records)
+ANALYSIS_AUDIT = """
+import dataclasses, json, sys, time
+sys.path.insert(0, "src")
+from repro_torch.analysis import audit
+from repro_torch.netsim import scenarios
+out = []
+for name, ov, ticks in json.loads(sys.argv[1]):
+    sc = scenarios.scenario(name, **ov)
+    if ov:
+        sc = sc.with_(name=f"{name}+{ov['algo']}")
+    t1 = time.perf_counter()
+    f, r = audit.audit_scenario(sc, backends=("kernel", "plain"), device="cuda",
+                                ticks=ticks, profile=True)
+    out.append(dict(name=sc.name, algo=sc.cfg.algo, wall_s=time.perf_counter() - t1,
+                    findings=[dataclasses.asdict(x) for x in f], rows=r))
+print(json.dumps(out))
+"""
+
+
+def run_analysis_audits(audits):
+    """audit_scenario of each of ``audits`` on the card, through the fused
+    launches and the plain versions, profiled, in a fresh process."""
+    torch.cuda.empty_cache()
+    child = subprocess.Popen([sys.executable, "-c", ANALYSIS_AUDIT, json.dumps(audits)],
+                             cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    try:
+        out, _ = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        fail(f"analysis: the audit process exited {child.returncode}")
+    return json.loads(out)
+
+
+def phase_analysis():
+    """The static-analysis layer on the card: the linter, then the op
+    auditor over ANALYSIS_AUDITS through the fused launches and the plain
+    versions, with torch.profiler's device kernels of one call of each
+    program beside its row."""
+    from repro_torch.analysis import audit, lint
+    from repro_torch.analysis.rules import Finding
+    t0 = time.perf_counter()
+    findings = list(lint.lint_repo())
+    log(f"[analysis] lint_repo: {len(findings)} finding(s), "
+        f"{sum(not f.allowlisted for f in findings)} unallowlisted")
+    rows = []
+    for sc in run_analysis_audits(ANALYSIS_AUDITS):
+        f = [Finding(**x) for x in sc["findings"]]
+        r = sc["rows"]
+        findings.extend(f)
+        rows.extend(r)
+        log(f"[analysis] {sc['name']}: {len(f)} finding(s) ({sum(x.allowlisted for x in f)} "
+            f"allowlisted), {sc['wall_s']:.1f} s")
+        for row in r:
+            log(f"[analysis]   {row['backend']:6s} {row['program']:10s} t={row['tick']}: "
+                f"{row['aten_ops']:5d} aten ops, launches {row['launches_by_kernel'] or 0}, "
+                f"{row['host_syncs']} host syncs, scatter/gather {row['scatter_ops']}/"
+                f"{row['gather_ops']}, same at two ticks {row['static']}; torch.profiler: "
+                + ("not profiled" if "profiler_kernels_raw" not in row else
+                   f"{row['profiler_kernels']} device kernels a call (sessions "
+                   f"{row['profiler_kernels_raw']})" if row["profiler_kernels"] is not None
+                   else f"not measured (sessions {row['profiler_kernels_raw']})"))
+        want = {p: p for p in FUSED_PHASES}
+        if sc["algo"] in ("eqds", "eqds_smartt"):
+            want["grants"] = "rr_pick"
+        for row in r:
+            if row["backend"] == "kernel" and row["program"] in want \
+                    and row["launches_by_kernel"] != {want[row["program"]]: 1}:
+                fail(f"analysis: {row['name']} launched {row['launches_by_kernel']}, "
+                     f"expected one {want[row['program']]} launch a call")
+    findings.extend(audit.classify_config())
+    bad = [x for x in findings if not x.allowlisted]
+    for x in bad:
+        log(f"[analysis] FAIL {x}")
+    if bad:
+        fail(f"analysis: {len(bad)} unallowlisted finding(s); host syncs (JX003) at "
+             f"{sorted({x.site for x in bad if x.rule == 'JX003'})}")
+    wall = time.perf_counter() - t0
+    log(f"[analysis] {len(findings)} finding(s), all allowlisted ("
+        + ", ".join(sorted({x.allowed_by.split(':')[0] for x in findings})) + f"); "
+        f"every fused phase one launch of its kernel a call; "
+        f"{sum(x.rule == 'JX003' for x in findings)} host sync finding(s); {sum(r.get('profiler_kernels') is None for r in rows if 'profiler_kernels_raw' in r)}"
+        f" profiled row(s) not measured; phase wall {wall:.1f} s")
+    return dict(rows=rows, findings=len(findings), wall_s=wall)
+
+
 # ------------------------------------------------------- 4f. the bridge
 
 # collectives/bridge.py's estimate of the collectives of examples/
@@ -3873,6 +3989,7 @@ def run(name, smi_line, bridge_cpu):
             f"launches and {rec[f'{pre}phase_ms'] * 1e3:.2f} us; device kernels a tick "
             f"{prof['kernel']['kernels_per_tick']:.1f} fused, "
             f"{prof[split]['kernels_per_tick']:.1f} {split}")
+    analysis = timed_phase("analysis", phase_analysis)
     log(f"[done] total {time.perf_counter() - t0:.1f} s; by phase " + ", ".join(
         f"{k} {v:.1f} s" for k, v in spent.items()))
     if "--json" in sys.argv[1:]:
@@ -3883,7 +4000,8 @@ def run(name, smi_line, bridge_cpu):
                                        red_mark_check=red, comparison=comparison,
                                        experiment_api=experiment_api,
                                        lanes=lanes_rec, bridge=bridge, zoo=zoo,
-                                       serving=serving, train=train_rec, profile=prof),
+                                       serving=serving, train=train_rec, profile=prof,
+                                       analysis=analysis),
                                   indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -70,14 +70,18 @@ def _hash_mod(h, n):
     return torch.remainder(h, n.to(torch.int64)).to(I32)
 
 
-def init_lb_state(n_flows: int, params: LBParams, seed: int = 0) -> LBState:
+def init_lb_state(n_flows: int, params: LBParams, seed: int = 0,
+                  lead: tuple = ()) -> LBState:
+    """Tick-0 LB state; ``lead`` a lane batch's leading shape (the entropy
+    count broadcasts against ``lead + (n_flows,)``)."""
     dev = params.num_entropies.device
+    shape = tuple(lead) + (n_flows,)
     flow_ids = torch.arange(n_flows, dtype=I32, device=dev)
-    rand = _hash_mod(hashing.hash2(flow_ids, seed), params.num_entropies)
-    z32 = lambda: torch.zeros((n_flows,), dtype=I32, device=dev)
-    zf = lambda: torch.zeros((n_flows,), dtype=F32, device=dev)
+    rand = _hash_mod(hashing.hash2(flow_ids, seed), params.num_entropies).expand(shape)
+    z32 = lambda: torch.zeros(shape, dtype=I32, device=dev)
+    zf = lambda: torch.zeros(shape, dtype=F32, device=dev)
     return LBState(
-        next_entropy=rand,           # start exploration at a random offset
+        next_entropy=rand.clone(),   # start exploration at a random offset
         cached_entropy=rand.clone(),
         explore_sent=z32(),
         spray_ctr=z32(),

@@ -113,31 +113,35 @@ class CCEvent(NamedTuple):
     credit_grant: torch.Tensor   # f32 bytes of receiver credit arriving (EQDS)
 
 
-def init_cc_state(n_flows: int, params: CCParams, start_cwnd=None) -> CCState:
-    """Tick-0 CC state on the device the parameters live on."""
+def init_cc_state(n_flows: int, params: CCParams, start_cwnd=None,
+                  lead: tuple = ()) -> CCState:
+    """Tick-0 CC state on the device the parameters live on; ``lead`` a
+    lane batch's leading shape (the parameters then broadcast against
+    ``lead + (n_flows,)``)."""
     dev = params.mtu.device
-    f32 = lambda v: torch.full((n_flows,), v, dtype=F32, device=dev)
+    shape = tuple(lead) + (n_flows,)
+    f32 = lambda v: torch.full(shape, v, dtype=F32, device=dev)
     if start_cwnd is None:
         start_cwnd = params.maxcwnd
     return CCState(
-        cwnd=torch.as_tensor(start_cwnd, dtype=F32, device=dev).expand(n_flows).clone(),
+        cwnd=torch.as_tensor(start_cwnd, dtype=F32, device=dev).expand(shape).clone(),
         acked=f32(0.0),
         qa_end=f32(0.0),
-        trigger_qa=torch.zeros((n_flows,), dtype=torch.bool, device=dev),
+        trigger_qa=torch.zeros(shape, dtype=torch.bool, device=dev),
         bytes_to_ignore=f32(0.0),
         bytes_ignored=f32(0.0),
         fi_count=f32(0.0),
-        fi_active=torch.zeros((n_flows,), dtype=torch.bool, device=dev),
+        fi_active=torch.zeros(shape, dtype=torch.bool, device=dev),
         avg_wtd=f32(0.0),
-        ack_count=torch.zeros((n_flows,), dtype=I32, device=dev),
+        ack_count=torch.zeros(shape, dtype=I32, device=dev),
         last_dec=f32(-1e9),
         bw_est=f32(0.0) + params.mtu,   # line rate: 1 MTU per tick
-        rtprop=params.brtt.to(F32) * torch.ones((n_flows,), dtype=F32, device=dev),
+        rtprop=params.brtt.to(F32) * torch.ones(shape, dtype=F32, device=dev),
         win_delivered=f32(0.0),
         win_end=f32(0.0),
         pacing_rate=f32(0.0),
         credits=f32(0.0),
-        spec_budget=params.bdp.to(F32).expand(n_flows).clone(),
+        spec_budget=params.bdp.to(F32).expand(shape).clone(),
     )
 
 

@@ -38,9 +38,10 @@ class Metrics(NamedTuple):
     goodput_hist: torch.Tensor           # f32 [GOODPUT_BINS] binned bytes
 
 
-def init_metrics(device) -> Metrics:
-    i = lambda: torch.zeros((), dtype=I32, device=device)
-    f = lambda: torch.zeros((), dtype=F32, device=device)
+def init_metrics(device, lead: tuple = ()) -> Metrics:
+    lead = tuple(lead)
+    i = lambda: torch.zeros(lead, dtype=I32, device=device)
+    f = lambda: torch.zeros(lead, dtype=F32, device=device)
     return Metrics(
         n_trim=i(),
         n_drop=i(),
@@ -50,12 +51,12 @@ def init_metrics(device) -> Metrics:
         n_ack=i(),
         delivered_pkts=i(),
         delivered_bytes=f(),
-        rtt_hist=torch.zeros((HIST_BINS,), dtype=I32, device=device),
+        rtt_hist=torch.zeros(lead + (HIST_BINS,), dtype=I32, device=device),
         q_sum=f(),
         q_max=i(),
         spurious_retx=i(),
         delivered_bytes_fault=f(),
-        goodput_hist=torch.zeros((GOODPUT_BINS,), dtype=F32, device=device),
+        goodput_hist=torch.zeros(lead + (GOODPUT_BINS,), dtype=F32, device=device),
     )
 
 

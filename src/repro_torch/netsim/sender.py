@@ -140,10 +140,11 @@ def horizon(dims: Dims, consts: Consts, st: SimState, t):
     Never called for paced configurations (``Dims.leap`` is off there: the
     pacing budget accrues every tick)."""
     elig, _, _, _ = admission(dims, consts, st, t)
-    h = torch.where(torch.any(elig, dim=-1), 0, HORIZON_INF)
+    inf = torch.full(elig.shape[:-1], HORIZON_INF, dtype=I32, device=elig.device)
+    h = torch.where(torch.any(elig, dim=-1), 0, inf)
     if dims.credit_based:
         h = torch.minimum(h, torch.where(
-            torch.any(_grant_demand(dims, consts, st, t), dim=-1), 0, HORIZON_INF))
+            torch.any(_grant_demand(dims, consts, st, t), dim=-1), 0, inf))
     unstarted = t < consts.t_start
     h_start = torch.amin(torch.where(unstarted, consts.t_start - t, HORIZON_INF), dim=-1)
     return torch.minimum(h, h_start)

@@ -38,8 +38,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.trace_guard import counter
 from repro_torch.kernels.lanes import Tick
 from repro_torch.netsim import engine, metrics, state
+
+# Counts entries of ``lane_loop``: the reference's ``"engine.step"`` trace
+# counter (``with trace_guard("shard.lane_loop", expect=1): study.run()``).
+_LOOPS = counter("shard.lane_loop")
 
 
 def lane_loop(sim, consts_b, axes, max_ticks: int):
@@ -49,6 +54,7 @@ def lane_loop(sim, consts_b, axes, max_ticks: int):
     ``sim.stats``: lane 0's ``steps``/``leaps``/``ticks`` (a one-lane
     batch is ``Sim.run``) and ``lanes``, every lane's and the batched
     ticks (``batch_ticks``: one launch of each fused kernel each)."""
+    _LOOPS.hit()
     K = max(sim.dims.superstep, 1)
 
     def run(st: state.SimState) -> state.SimState:

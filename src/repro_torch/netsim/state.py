@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.trace_guard import counter as _counter
 from repro_torch.core import registry, reps
 from repro_torch.core.types import (CCParams, CCState, init_cc_state,
                                     make_cc_params)
@@ -560,16 +561,27 @@ def clock(consts: Consts, t: int = 0) -> Clock:
     return Clock(int(t), *(int(v) for v in vals))
 
 
-def init_state(dims: Dims, consts: Consts) -> SimState:
-    """Tick-0 world on the constants' device."""
+# Counts calls of ``init_state``: the reference's ``"state.init"`` trace
+# counter (``with trace_guard("state.init", expect=1): ...``,
+# repro_torch.analysis).  A lane batch is one call.
+_INIT_CALLS = _counter("state.init")
+
+
+def init_state(dims: Dims, consts: Consts, n: int | None = None) -> SimState:
+    """Tick-0 world on the constants' device.  With ``n``, the tick-0
+    world of an ``n``-lane batch, every leaf ``[n, ...]``, from the
+    batch's broadcast constants (``LaneConsts.b``: a swept scalar
+    ``[n, 1]``, a swept vector ``[n, ...]``, a shared leaf as it is)."""
+    _INIT_CALLS.hit()
     dev = consts.src.device
     NF, N, NQ = dims.NF, dims.N, dims.NQ
+    lead = () if n is None else (int(n),)
 
     def zeros(shape, dtype=I32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
 
-    cc = init_cc_state(NF, consts.cc, start_cwnd=consts.start_cwnd)
-    lb = reps.init_lb_state(NF, consts.lb)
+    cc = init_cc_state(NF, consts.cc, start_cwnd=consts.start_cwnd, lead=lead)
+    lb = reps.init_lb_state(NF, consts.lb, lead=lead)
     return SimState(
         now=zeros(()),
         salt=zeros(()),
@@ -584,7 +596,7 @@ def init_state(dims: Dims, consts: Consts) -> SimState:
         next_seq=zeros((NF,)),
         unacked=zeros((NF,), F32),
         done=zeros((NF,), torch.bool),
-        fct=torch.full((NF,), -1, dtype=I32, device=dev),
+        fct=torch.full(lead + (NF,), -1, dtype=I32, device=dev),
         goodput=zeros((NF,)),
         bitmap=zeros((NF + 1, dims.MAXW)),
         granted=zeros((NF,), F32),
@@ -593,7 +605,7 @@ def init_state(dims: Dims, consts: Consts) -> SimState:
         rr_send=zeros((N,)),
         pace_accum=zeros((NF,), F32),
         rto_backoff=zeros((NF,)),
-        cc=cc, lb=lb, m=init_metrics(dev),
+        cc=cc, lb=lb, m=init_metrics(dev, lead),
     )
 
 
@@ -635,19 +647,14 @@ def lane_consts(consts_b: Consts, axes, n: int) -> LaneConsts:
                       l=tree_map(lane, consts_b, axes), n=n)
 
 
-def lane_slice(consts_b: Consts, axes, i: int) -> Consts:
-    """Lane ``i``'s constants (a swept leaf's row ``i``)."""
-    if axes is None:
-        return consts_b
-    return tree_map(lambda x, a: x[i] if a == 0 else x, consts_b, axes)
-
-
 def init_lanes(dims: Dims, consts_b: Consts, axes, salts) -> SimState:
     """The tick-0 world of a lane batch on the constants' device: lane ``i``
     is :func:`init_state` under its own constants with the hash salt
-    ``salts[i]``, every leaf stacked along a leading ``[L]`` axis."""
-    states = [init_state(dims, lane_slice(consts_b, axes, i)) for i in range(len(salts))]
-    st = tree_map(lambda *xs: torch.stack(xs), *states)
+    ``salts[i]``, every leaf along a leading ``[L]`` axis — one
+    :func:`init_state` call for the whole batch, as the reference's one
+    vmapped trace."""
+    n = len(salts)
+    st = init_state(dims, lane_consts(consts_b, axes, n).b, n)
     return st._replace(salt=torch.as_tensor(np.asarray(salts, np.int64)).to(
         dtype=I32, device=st.salt.device))
 

@@ -4,8 +4,9 @@ the standalone ``Sim.run`` of its (point, seed) over the whole final state,
 bitwise; ``Sim.run_batch`` and ``sweep.build_sweep`` equal to the study's
 lanes; the plan-time rejections; name resolution; the derived fields;
 point-major tidy rows; ``best`` ranking unfinished lanes strictly last.
-The reference's one-compile assertions (``trace_guard``) have no
-counterpart in an eager port.  Also the ``trim_seen`` guard of
+The reference's one-compile assertions (``trace_guard``) are held in
+``test_torch_analysis.py``: one lane loop a study, one ``init_state``
+call a batch.  Also the ``trim_seen`` guard of
 ``RunResult.from_state`` on both sides of 2**24, and ``mesh=`` refused.
 The study's rows against the JAX package's are in
 ``test_torch_api_rows.py`` (one file each keeps both under a minute)."""
