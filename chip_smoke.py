@@ -195,6 +195,30 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                is not one launch of its own kernel a call, and on a host
                sync inside the six phases; prints the phase's wall time
 
+  5d. sharded — the train step through the sharded-training layer
+               (repro_torch.sharding, launch.specs, AdamW's ZeRO-1 specs) on
+               a one-rank (1, 1) DeviceMesh (nccl, a FileStore in a
+               temporary directory): qwen3-0.6b (28 layers) and mamba2-780m
+               (4 layers) at full width from a seeded init, the parameters
+               placed by param_specs, the moments by zero1_state_specs; one
+               4 x 1024 microbatch's loss and every gradient, then one AdamW
+               step, against the unsharded kernel path on the same weights
+               (bit for bit, else the worst leaf printed and held to phase
+               5c's gates); launches counted in each run (flash_attention 2
+               an attention layer, ssd_chunk_scan 2 a Mamba-2 layer, on
+               their local heads shard); the step's wall in turns, sharded
+               and unsharded; compressed_psum_mean over the one-rank group
+               on qwen3-0.6b's flattened f32 gradient, equal to the same
+               call on a CPU copy (a one-rank gloo group) bit for bit
+  8. dry run — launch.dryrun.run_cell of DRYRUN_CELLS (qwen3-0.6b x
+               train_4k, prefill_32k, decode_32k on 16x16 and 2x16x16,
+               mamba2-780m x train_4k on 16x16: a fake world of 256 or 512
+               ranks, FakeTensorMode, the step once), in a process of its
+               own started at the top (fake tensors: nothing is allocated
+               on the card); each cell's state GiB a device (equal to the
+               value tests/test_torch_dryrun.py pins), FLOPs a device and
+               collective MiB by kind
+
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
 power limit come on a line before them.
@@ -498,6 +522,18 @@ CHECK_POINTS = ({"kmin_frac": 0.3, "fd": 0.6}, {"start_cwnd_mult": 1.0},
 CHECK_TICKS = (40, 120, 200, 60)
 CHECK_STEPS = 5
 LANE_PROFILE_TICKS = 100
+# phase 8: the dry run's cells (arch, shape, multi-pod, the analytic state
+# bytes a device, pinned by tests/test_torch_dryrun.py against the port's
+# launch.dryrun.state_bytes and the JAX package's per_device_bytes)
+DRYRUN_CELLS = (
+    ("qwen3-0.6b", "train_4k", False, 93437956),
+    ("qwen3-0.6b", "train_4k", True, 84107268),
+    ("qwen3-0.6b", "prefill_32k", False, 74776576),
+    ("qwen3-0.6b", "prefill_32k", True, 74776576),
+    ("qwen3-0.6b", "decode_32k", False, 1953824768),
+    ("qwen3-0.6b", "decode_32k", True, 1014300672),
+    ("mamba2-780m", "train_4k", False, 166956868),
+)
 
 
 def log(*a):
@@ -3554,6 +3590,266 @@ def phase_train(dev):
     return results
 
 
+# --------------------------------------------------------- 5d. sharded
+
+# The train step through the sharded-training layer on a one-rank (1, 1)
+# mesh: (arch, kernel, layers on the card; None: the whole depth).  A 1 x 1
+# mesh moves no data, so the sharded step is held to the unsharded kernel
+# path bit for bit, and where it is not, to phase 5c's gates.
+SHARDED_MODELS = (("qwen3-0.6b", "flash_attention", None),
+                  ("mamba2-780m", "ssd_chunk_scan", 4))
+SHARDED_BATCH = (4, 1024)       # one microbatch: batch, sequence
+SHARDED_TURNS = 2               # timed turns of each path: (unsharded, sharded), then reversed
+
+
+def tensor_of(t):
+    """A DTensor's local tensor (on a one-rank mesh: the whole tensor)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def compare_trees(arch, what, want: dict, got: dict, tol):
+    """(leaves bit-equal, the worst leaf, its relative L2) of two
+    ``{name: tensor}``; fails past ``tol``."""
+    equal, worst, worst_e = 0, None, 0.0
+    for name, w in want.items():
+        g = tensor_of(got[name]).detach()
+        w = w.detach()
+        if g.dtype == w.dtype and bit_equal(g, w):
+            equal += 1
+            continue
+        e = rel_l2(w.float(), g.float())
+        if worst is None or e > worst_e:
+            worst, worst_e = name, e
+    if worst is not None and not worst_e <= tol:
+        fail(f"[sharded] {arch} {what}: {worst} {worst_e} relative L2 from the unsharded "
+             f"path (tolerance {tol})")
+    return equal, worst, worst_e
+
+
+def sharded_model(arch, kname, layers, dev, sh):
+    """(cfg, the unsharded model from the seeded init, the same weights
+    placed as DTensors by param_specs, their specs)."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models import lm
+    cfg = zoo_config(arch, layers)
+    plain = lm.LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    placed = lm.LM(cfg, device=dev)
+    placed.load_state_dict(plain.state_dict())
+    specs = S.param_specs(cfg, sh, placed)
+    return cfg, plain, S.distribute_model(placed, sh, specs), specs
+
+
+def sharded_train(arch, kname, layers, dev, sh):
+    """One SHARDED_MODELS arch: a microbatch's loss and every gradient,
+    then one AdamW step (ZeRO-1 moments), through the sharded path against
+    the unsharded kernel path on the same weights; launches counted in
+    each run; the step's wall in turns."""
+    from repro_torch.launch import specs as S
+    from repro_torch.models import lm
+    from repro_torch.models.config import MIXER_MAMBA
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg, plain, placed, specs = sharded_model(arch, kname, layers, dev, sh)
+    n_kernel = sum((cfg.pattern[i % len(cfg.pattern)].mixer == MIXER_MAMBA)
+                   == (kname == "ssd_chunk_scan") for i in range(cfg.n_layers))
+    want = {kname: 2 * n_kernel, ("ssd_chunk_scan" if kname == "flash_attention"
+                                  else "flash_attention"): 0}
+    batch = train_batch(cfg, dev, *SHARDED_BATCH)
+    bspecs = S.batch_specs(cfg, sh, batch)
+    placed_batch = {k: sh.distribute(v, bspecs[k]) for k, v in batch.items()}
+    names = [n for n, _ in plain.named_parameters()]
+
+    def counted(fn):
+        reset_counts()
+        out, sec = timed(fn)
+        counts = read_counts()
+        for k, n in want.items():
+            if counts[k] != n:
+                fail(f"[sharded] {arch}: {k} launched {counts[k]} times, expected {n} "
+                     f"(2 a layer that runs it: the forward and remat's recompute)")
+        return out, sec
+
+    (loss_u, _, grads_u), sec_u = counted(lambda: train_grads(plain, batch))
+
+    def sharded_grads():
+        loss, _ = lm.loss_fn(placed, placed_batch, sh)
+        return loss.detach(), torch.autograd.grad(loss, list(placed.parameters()))
+    (loss_s, grads_s), sec_s = counted(sharded_grads)
+    lu, ls = float(loss_u), float(tensor_of(loss_s))
+    loss_equal = bit_equal(tensor_of(loss_s), loss_u)
+    loss_rel = abs(ls - lu) / abs(lu)
+    if not loss_rel <= TRAIN_LOSS_REL:
+        fail(f"[sharded] {arch}: loss {ls} sharded, {lu} unsharded ({loss_rel} apart)")
+    g_equal, g_worst, g_e = compare_trees(arch, "gradients", dict(zip(names, grads_u)),
+                                          dict(zip(names, grads_s)), TRAIN_GRAD_REL_L2[arch])
+    placements = {n: str(p.placements) for n, p in placed.named_parameters()}
+    del grads_u, grads_s
+
+    # one AdamW step, ZeRO-1 moments (on a 1 x 1 mesh the data axis splits nothing)
+    acfg = adamw.AdamWConfig(**TRAIN_ADAM)
+    tcfg = TrainConfig(adam=acfg, microbatches=1)
+    opt_u = adamw.init(acfg, plain)
+    shapes = {k: v for k, v in plain.named_parameters()}
+    opt_s = S.distribute_opt_state(adamw.init(acfg, plain), sh,
+                                   adamw.zero1_state_specs(acfg, specs, shapes, sh))
+    step_u = make_train_step(cfg, tcfg, device=dev)
+    step_s = make_train_step(cfg, tcfg, sh, device=dev)
+    stats_u, wall_u = counted(lambda: step_u(plain, opt_u, batch))
+    stats_s, wall_s = counted(lambda: step_s(placed, opt_s, batch))
+    p_equal, p_worst, p_e = compare_trees(arch, "parameters after a step",
+                                          dict(plain.named_parameters()),
+                                          dict(placed.named_parameters()),
+                                          TRAIN_GRAD_REL_L2[arch])
+    m_equal, m_worst, m_e = compare_trees(arch, "first moments after a step", opt_u.mu,
+                                          opt_s.mu, TRAIN_GRAD_REL_L2[arch])
+    v_equal, v_worst, v_e = compare_trees(arch, "second moments after a step", opt_u.nu,
+                                          opt_s.nu, TRAIN_GRAD_REL_L2[arch])
+    gnorm_equal = bit_equal(tensor_of(stats_s["grad_norm"]), stats_u["grad_norm"])
+    # the step's wall in turns (the two models stay on the same weights)
+    turns = {"unsharded": [], "sharded": []}
+    for t in range(SHARDED_TURNS):
+        order = (("unsharded", step_u, plain, opt_u), ("sharded", step_s, placed, opt_s))
+        for way, step, model, opt in (order if t % 2 == 0 else order[::-1]):
+            turns[way].append(timed(lambda: step(model, opt, batch))[1])
+    n = len(names)
+    rec = dict(layers=cfg.n_layers, launches=want[kname], loss_unsharded=lu, loss_sharded=ls,
+               loss_bit_equal=loss_equal, loss_rel=loss_rel,
+               grads_bit_equal=g_equal, grads=n, grad_worst=g_worst, grad_worst_rel_l2=g_e,
+               params_bit_equal=p_equal, param_worst=p_worst, param_worst_rel_l2=p_e,
+               mu_bit_equal=m_equal, mu_worst=m_worst, nu_bit_equal=v_equal, nu_worst=v_worst,
+               moment_worst_rel_l2=max(m_e, v_e), grad_norm_bit_equal=gnorm_equal,
+               microbatch_s=dict(unsharded=sec_u, sharded=sec_s),
+               first_step_s=dict(unsharded=wall_u, sharded=wall_s), turns_s=turns,
+               step_s=dict(unsharded=float(np.median(turns["unsharded"])),
+                           sharded=float(np.median(turns["sharded"]))),
+               placements=dict(list(placements.items())[:6]))
+    log(f"[sharded] {arch} ({cfg.n_layers} layers, B={SHARDED_BATCH[0]} x "
+        f"{SHARDED_BATCH[1]}) on the 1 x 1 mesh: loss {ls:.6f} sharded, {lu:.6f} "
+        f"unsharded ({'bit-equal' if loss_equal else f'{loss_rel:.2e} apart'}); "
+        f"gradients bit-equal {g_equal}/{n}" + (f" (worst {g_worst} {g_e:.2e})" if g_worst
+                                                else "")
+        + f"; after one AdamW step parameters {p_equal}/{n}, mu {m_equal}/{n}, nu {v_equal}/{n} "
+        f"bit-equal" + (f" (worst {p_worst or m_worst or v_worst}, {max(p_e, m_e, v_e):.2e})"
+                        if (p_worst or m_worst or v_worst) else "")
+        + f", grad norm {'bit-equal' if gnorm_equal else 'differs'}; {kname} "
+        f"{want[kname]} launches a microbatch on each path (forward + remat recompute)")
+    log(f"[sharded] {arch}: forward + backward {sec_u:.3f} s unsharded, {sec_s:.3f} s sharded "
+        f"(first calls); a step in turns (median of {SHARDED_TURNS}): unsharded "
+        f"{rec['step_s']['unsharded']:.3f} s, sharded {rec['step_s']['sharded']:.3f} s "
+        f"(turns {turns})")
+    del plain, placed, opt_u, opt_s
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_compression(dev):
+    """compressed_psum_mean over the one-rank group on qwen3-0.6b's
+    flattened f32 gradient, on the card and on a CPU copy (a one-rank gloo
+    group): codes, scales, mean and new error equal bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.models import lm
+    from repro_torch.train import compression as C
+    cfg = zoo_config("qwen3-0.6b", None)
+    model = lm.LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    _, _, grads = train_grads(model, train_batch(cfg, dev, *SHARDED_BATCH))
+    g = torch.cat([x.float().flatten() for x in grads])
+    del model, grads
+    g = torch.nn.functional.pad(g, (0, (-g.numel()) % C.BLOCK))
+    err = torch.zeros_like(g)
+    cpu_group = dist.new_group(backend="gloo")
+    (out, err2), wall = timed(lambda: C.compressed_psum_mean(g, err))
+    (out_c, err_c) = C.compressed_psum_mean(g.cpu(), err.cpu(), cpu_group)
+    q, s = C.quantize(g + err)
+    q_c, s_c = C.quantize(g.cpu() + err.cpu())
+    for name, a, b_ in (("codes", q, q_c), ("scales", s, s_c), ("mean", out, out_c),
+                        ("error", err2, err_c)):
+        if not bit_equal(a.cpu(), b_):
+            fail(f"[sharded] compressed_psum_mean {name}: the card's differ from the CPU's "
+                 f"(max |d| {float((a.cpu().double() - b_.double()).abs().max())})")
+    dist.destroy_process_group(cpu_group)
+    rel = float((out - g).abs().max() / g.abs().max())
+    log(f"[sharded] compressed_psum_mean over the one-rank group: {g.numel()} f32 gradient "
+        f"elements of qwen3-0.6b, {wall * 1e3:.2f} ms on the card; codes, scales, mean and "
+        f"error equal to the CPU's bit for bit; mean within {rel:.2e} of the gradient")
+    return dict(elements=g.numel(), wall_s=wall, bit_equal=True, max_rel=rel)
+
+
+def phase_sharded(dev):
+    """5d: a process group of one rank (nccl, a FileStore in a temporary
+    directory), make_host_mesh, then SHARDED_MODELS through the sharded
+    path and compressed_psum_mean; the group is destroyed at the end."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import Shardings
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as d:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{d}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            sh = Shardings(make_host_mesh("cuda"))
+            results = {arch: sharded_train(arch, kname, layers, dev, sh)
+                       for arch, kname, layers in SHARDED_MODELS}
+            results["compression"] = sharded_compression(dev)
+        finally:
+            dist.destroy_process_group()
+    return results
+
+
+# ------------------------------------------------------------ 8. dry run
+
+# the dry run's cells, in a process of their own started before the build
+# (one torch thread; fake tensors: nothing is allocated, on the card or the
+# host); phase 8 reads them
+DRYRUN_CHILD = """
+import json, sys
+sys.path.insert(0, "src")
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+out = [dryrun.run_cell(arch, shape, multi_pod=mp, device="cpu", verbose=False)
+       for arch, shape, mp in json.loads(sys.argv[1])]
+print(json.dumps(out))
+"""
+
+
+def start_dryrun():
+    cells = [(arch, shape, mp) for arch, shape, mp, _ in DRYRUN_CELLS]
+    return subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, json.dumps(cells)],
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True)
+
+
+def phase_dryrun(child, started):
+    """8: the dry run's DRYRUN_CELLS (run_cell: a fake world of 256 or 512
+    ranks, the production mesh, the state placed by the specs under
+    FakeTensorMode, the step once): each cell's state bytes a device equal
+    to the pinned value, its FLOPs and collective bytes a device printed."""
+    out, _ = child.communicate(timeout=1200)
+    if child.returncode != 0:
+        fail(f"the dry run's process exited {child.returncode}")
+    results = json.loads(out)
+    wall = time.perf_counter() - started
+    for (arch, shape, mp, pinned), res in zip(DRYRUN_CELLS, results):
+        if not res["ok"] or res["state_bytes_per_device"] != pinned:
+            fail(f"[dryrun] {arch} x {shape} x {res['mesh']}: ok {res['ok']}, state bytes "
+                 f"{res['state_bytes_per_device']}, pinned {pinned}")
+        coll = res["collectives"]
+        log(f"[dryrun] {arch} x {shape} x {res['mesh']}: state "
+            f"{res['state_bytes_per_device'] / 2**30:.4f} GiB/device (pinned), "
+            f"{res['flops']:.4e} FLOPs/device, fake step {res['step_s']:.1f} s; collectives "
+            + ", ".join(f"{k} {coll[k] / 2**20:.1f} MiB x{coll['counts'][k]}"
+                        for k in COLLECTIVE_KINDS))
+    log(f"[dryrun] {len(results)} cells in their own process, done "
+        f"{wall:.1f} s after it started")
+    return dict(cells=results, wall_s=wall)
+
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+
+
 def dev_us(e):
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
@@ -3825,15 +4121,20 @@ def phase_bridge(bridge_cpu):
 def main():
     name, smi_line = phase_device()
     bridge_cpu = start_bridge_cpu()
+    dryrun_child = None
     try:
-        run(name, smi_line, bridge_cpu)
+        if "--kernels-only" not in sys.argv[1:]:
+            dryrun_child = (start_dryrun(), time.perf_counter())
+        run(name, smi_line, bridge_cpu, dryrun_child)
     finally:
-        if bridge_cpu.poll() is None:
-            bridge_cpu.kill()
-        bridge_cpu.wait()
+        for child in (bridge_cpu, dryrun_child and dryrun_child[0]):
+            if child is not None:
+                if child.poll() is None:
+                    child.kill()
+                child.wait()
 
 
-def run(name, smi_line, bridge_cpu):
+def run(name, smi_line, bridge_cpu, dryrun_child):
     # f32 products and convolutions in full f32 (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3891,6 +4192,7 @@ def run(name, smi_line, bridge_cpu):
         zoo = timed_phase("zoo", phase_zoo, dev)
     train_rec = timed_phase("train", phase_train, dev)
     train_rec["functions"] = function_checks
+    sharded = timed_phase("sharded", phase_sharded, dev)
     first = f"B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"
 
     # (source, the TPU kernel it replaces, the path whose launches it reports);
@@ -3961,7 +4263,9 @@ def run(name, smi_line, bridge_cpu):
                                         for a, r in train_rec.items()
                                         if TRAIN_KERNEL.get(a) == k},
                 "launches_train_path": f"train {TRAIN_BATCH[0]} x {TRAIN_BATCH[1]} tokens "
-                                       f"in {TRAIN_BATCH[2]} microbatches, remat"}
+                                       f"in {TRAIN_BATCH[2]} microbatches, remat",
+                "launches_sharded": {a: sharded[a]["launches"]
+                                     for a, kn, _ in SHARDED_MODELS if kn == k}}
                if k in ("flash_attention", "ssd_chunk_scan") else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":
@@ -3990,6 +4294,7 @@ def run(name, smi_line, bridge_cpu):
             f"{prof['kernel']['kernels_per_tick']:.1f} fused, "
             f"{prof[split]['kernels_per_tick']:.1f} {split}")
     analysis = timed_phase("analysis", phase_analysis)
+    dryrun = timed_phase("dryrun", phase_dryrun, *dryrun_child)
     log(f"[done] total {time.perf_counter() - t0:.1f} s; by phase " + ", ".join(
         f"{k} {v:.1f} s" for k, v in spent.items()))
     if "--json" in sys.argv[1:]:
@@ -4001,7 +4306,8 @@ def run(name, smi_line, bridge_cpu):
                                        experiment_api=experiment_api,
                                        lanes=lanes_rec, bridge=bridge, zoo=zoo,
                                        serving=serving, train=train_rec, profile=prof,
-                                       analysis=analysis),
+                                       analysis=analysis, sharded=sharded,
+                                       dryrun=dryrun),
                                   indent=1))
     log(f"[device] {smi_line}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,6 +3,12 @@
 
 ``"kernel"`` launches the CUDA kernel for CUDA tensors and takes the
 plain version for CPU tensors; ``"plain"`` always takes the plain version.
+``"dense"`` takes the naive oracle ``attention_ref`` (the same function,
+one product a head over every key): the dry run's, whose fake tensors
+carry no data and run every operation in Python, where the plain
+version's 64 x 64 tiles would be thousands of operations a layer; its
+operations are those of the JAX package's jnp attention, which visits
+every tile.
 
 Under autograd the kernel is the forward of :class:`FlashAttention`; its
 backward is plain PyTorch: it recomputes the same function through the
@@ -20,7 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attn import kernel as K
 from repro_torch.kernels.flash_attn import ref as R
 
-BACKENDS = ("kernel", "plain")
+BACKENDS = ("kernel", "plain", "dense")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -62,5 +68,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"score_dtype {score_dtype} (attn_bf16): the flash_attention "
                              f"kernels keep f32 scores; use backend='plain'")
         return FlashAttention.apply(q, k, v, causal, window)
+    if backend == "dense":
+        return R.attention_ref(q, k, v, causal=causal, window=window).to(q.dtype)
     return R.flash_attention_ref(q, k, v, causal=causal, window=window,
                                  score_dtype=score_dtype)

@@ -3,7 +3,9 @@ JAX package's ``ssd_scan/ops.py``: ``_inter_chunk`` stays plain there
 too; it is bandwidth-trivial beside the chunk products).
 
 ``"kernel"`` launches the CUDA kernel for CUDA tensors and takes the
-plain version for CPU tensors; ``"plain"`` always takes the plain version.
+plain version for CPU tensors; ``"plain"`` always takes the plain version,
+and so does ``"dense"`` (the dry run's model backend, which only changes
+attention: ``flash_attn/ops.py``).
 
 Under autograd the kernel is the forward of :class:`SSDChunkScan`; its
 backward is plain PyTorch (``ssd_chunk_scan_ref`` recomputed and
@@ -19,7 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import kernel as K
 from repro_torch.kernels.ssd_scan import ref as R
 
-BACKENDS = ("kernel", "plain")
+BACKENDS = ("kernel", "plain", "dense")
 TILE = K.TC_MULT        # rows a chunk is a multiple of, for the tensor-core kernel
 
 

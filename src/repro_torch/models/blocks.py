@@ -68,60 +68,66 @@ class Layer(nn.Module):
             raise ValueError(spec.ffn)
 
 
-def ffn_apply(layer, cfg, x):
+def ffn_apply(layer, cfg, x, sh=None):
     """The FFN half of a layer with its residual: (x, the MoE aux loss, or
     ``None`` for a dense FFN or none)."""
     if layer.spec.ffn == FFN_NONE:
         return x, None
     h2 = L.rmsnorm(x, layer.ln2, cfg.rms_eps)
     if layer.spec.ffn == FFN_MOE:
-        out, aux = MOE.moe_apply(layer.ffn, cfg, h2)
+        out, aux = MOE.moe_apply(layer.ffn, cfg, h2, sh)
         return x + out, aux
-    return x + L.swiglu(layer.ffn, h2), None
+    return x + L.swiglu(layer.ffn, h2, sh), None
 
 
-def layer_apply(layer, cfg, x, positions, cross_feed=None, backend: str = "kernel"):
+def layer_apply(layer, cfg, x, positions, sh=None, cross_feed=None, backend: str = "kernel"):
     """The training / eval forward of one layer over the whole sequence:
-    (x, aux loss f32, 0 without a MoE FFN)."""
+    (x, aux loss f32, 0 without a MoE FFN).  Under ``sh`` the residual
+    stream is constrained after the mixer and after the FFN."""
     p = layer.mixer
     h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
     if layer.spec.mixer == MIXER_CROSS:
-        mix = A.attn_apply(p, cfg, h, None, cross_feed=cross_feed, backend=backend)[0]
+        mix = A.attn_apply(p, cfg, h, None, sh, cross_feed=cross_feed, backend=backend)[0]
     elif layer.spec.mixer == MIXER_ATTN:
-        mix = (MLA_.mla_apply(p, cfg, h, positions, backend=backend)[0]
+        mix = (MLA_.mla_apply(p, cfg, h, positions, sh, backend=backend)[0]
                if cfg.mla is not None
-               else A.attn_apply(p, cfg, h, positions, backend=backend)[0])
+               else A.attn_apply(p, cfg, h, positions, sh, backend=backend)[0])
     else:
-        mix = M.mamba_apply(p, cfg, h, backend=backend)
-    x, aux = ffn_apply(layer, cfg, x + mix)
+        mix = M.mamba_apply(p, cfg, h, sh, backend=backend)
+    x = x + mix
+    if sh is not None:
+        x = sh.constrain_act(x)
+    x, aux = ffn_apply(layer, cfg, x, sh)
+    if sh is not None and layer.spec.ffn != FFN_NONE:
+        x = sh.constrain_act(x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
-def _repetition(layers, cfg, x, positions, cross_feed, backend):
+def _repetition(layers, cfg, x, positions, sh, cross_feed, backend):
     """One repetition of the pattern (the JAX package's scan body)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in layers:
-        x, a = layer_apply(layer, cfg, x, positions, cross_feed, backend)
+        x, a = layer_apply(layer, cfg, x, positions, sh, cross_feed, backend)
         aux = aux + a
     return x, aux
 
 
-def stack_apply(layers, cfg, x, positions, cross_feed=None, *, remat: bool = True,
+def stack_apply(layers, cfg, x, positions, sh=None, cross_feed=None, *, remat: bool = True,
                 backend: str = "kernel"):
     """The depth, one repetition of the pattern at a time: (x, the aux
     losses summed).  ``remat`` wraps each repetition in
     ``torch.utils.checkpoint`` (non-reentrant), where the JAX package puts
     ``jax.checkpoint`` around its scan body: only a repetition's input is
-    kept, and the backward runs the repetition again, the kernels
-    included.  The recompute must equal the forward: the kernels add
-    without atomics and MoE routing is the same function of the same
-    input."""
+    kept, and the backward runs the repetition again, the kernels (and,
+    under ``sh``, the collectives) included.  The recompute must equal the
+    forward: the kernels add without atomics and MoE routing is the same
+    function of the same input."""
     npat = len(cfg.pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.repeats):
-        args = (layers[r * npat:(r + 1) * npat], cfg, x, positions, cross_feed, backend)
+        args = (layers[r * npat:(r + 1) * npat], cfg, x, positions, sh, cross_feed, backend)
         x, a = (checkpoint(_repetition, *args, use_reentrant=False) if remat
                 else _repetition(*args))
         aux = aux + a

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding import replicate_like, sharded_dim
+
 PARAM_DTYPE = torch.bfloat16
 
 
@@ -43,7 +45,7 @@ def rope_freqs(head_dim: int, theta: float, positions):
     """positions: int[..., S] -> (cos, sin) [..., S, head_dim/2] f32."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    inv = 1.0 / torch.pow(float(theta), exps)
+    inv = replicate_like(positions, 1.0 / torch.pow(float(theta), exps))
     ang = positions.float()[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
 
@@ -64,9 +66,11 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def swiglu(p, x):
+def swiglu(p, x, sh=None):
     """``p`` holds ``gate``, ``up`` [d_model, d_ff] and ``down`` [d_ff, d_model]."""
     h = silu(x @ p.gate) * (x @ p.up)
+    if sh is not None:
+        h = sh.constrain_ffn(h)
     return h @ p.down
 
 
@@ -74,9 +78,26 @@ def swiglu(p, x):
 def cross_entropy(logits, labels, mask=None):
     """logits ``[B, S, V]`` (any float dtype), labels int ``[B, S]`` -> the
     mean negative log-likelihood in f32; with a mask, its sum over the
-    mask's divided by ``max(sum(mask), 1)``."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    mask's divided by ``max(sum(mask), 1)``.  Logits sharded over their
+    vocab dim (a DTensor) take ``vocab_parallel_nll``."""
+    if sharded_dim(logits, -1):
+        nll = vocab_parallel_nll(logits, labels)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+def vocab_parallel_nll(logits, labels):
+    """The negative log-likelihood ``logsumexp(x) - x[label]`` of logits
+    sharded over the vocab, each rank over its own columns: the max and
+    the sum of exponentials are reduced over the shards (small), the
+    label's logit picked where it lives; the logits are never gathered."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(lf - m).sum(dim=-1))
+    vocab = replicate_like(lf, torch.arange(lf.shape[-1], device=lf.device))
+    hit = vocab == labels[..., None].long()
+    return lse - torch.where(hit, lf, torch.zeros_like(lf)).sum(dim=-1)

@@ -19,7 +19,8 @@ loss — or a token tensor alone.
 ``backend`` selects how forward and prefill run the two kernels of the path:
 ``"kernel"`` launches ``flash_attention`` (self-attention, cross-attention,
 MLA) and ``ssd_chunk_scan`` (Mamba-2) on a card (their plain versions on
-the CPU), ``"plain"`` runs the plain versions everywhere.  Caches are a
+the CPU), ``"plain"`` runs the plain versions everywhere, ``"dense"`` the
+dry run's dense attention (``kernels/flash_attn/ops.py``).  Caches are a
 list with one dict per layer; ``decode_step`` writes the new token's K/V
 (or MLA latent) into the caches in place, leaves the cross caches as the
 prefill wrote them, and replaces each Mamba cache.
@@ -35,8 +36,11 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
 from repro_torch.models.blocks import Layer
-from repro_torch.models.config import MIXER_CROSS, MIXER_MAMBA, ModelConfig
+from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_CROSS, MIXER_MAMBA,
+                                       ModelConfig)
+from repro_torch.sharding import P, is_dtensor, local_apply, replicate_like
 
 
 class LM(nn.Module):
@@ -81,10 +85,20 @@ class LM(nn.Module):
         w = self.lm_head if hasattr(self, "lm_head") else self.embed.T
         return x @ w
 
-    def frontend(self, batch):
-        """The first layer's input ``[B, S, d]`` bf16 from a batch dict."""
+    def frontend(self, batch, sh=None):
+        """The first layer's input ``[B, S, d]`` bf16 from a batch dict.
+        Under ``sh``, a DTensor table is read on each rank's batch shard
+        (``Shardings.local``) from the table gathered whole, its gradient
+        each rank's batch share, summed over the data axes (DTensor's own
+        rule for this lookup differs between PyTorch releases)."""
         if self.cfg.frontend == "tokens":
-            return self.embed[batch["tokens"].long()]
+            tokens = batch["tokens"].long()
+            if sh is not None and sh.enabled and is_dtensor(self.embed):
+                b = sh.maybe(sh.batch, tokens.shape[0], "embedding batch")
+                return sh.local(lambda e, t: e[t], P(b, None, None), (P(), P(b, None)),
+                                self.embed, replicate_like(self.embed, tokens),
+                                summed={0: b})
+            return self.embed[tokens]
         return batch["embeds"].to(L.PARAM_DTYPE)
 
 
@@ -133,40 +147,50 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
 
 
 def _pad_rows(t, max_len):
-    """Pad dim 1 (the sequence) of ``t`` to ``max_len`` rows, as bf16."""
+    """Pad dim 1 (the sequence) of ``t`` to ``max_len`` rows, as bf16 (a
+    DTensor on each rank's shard: the sequence is never split)."""
     pad = [0, 0] * (t.dim() - 2) + [0, max_len - t.shape[1]]
-    return torch.nn.functional.pad(t, pad).to(torch.bfloat16)
+    return local_apply(lambda x: torch.nn.functional.pad(x, pad).to(torch.bfloat16), t,
+                       (t.shape[0], max_len, *t.shape[2:]))
 
 
 @torch.no_grad()
-def prefill_layer(model: LM, layer, x, positions, max_len: int, cross=None):
+def prefill_layer(model: LM, layer, x, positions, max_len: int, cross=None, sh=None):
     """One decoder layer of the prefill: returns (x, the layer's cache)."""
     cfg = model.cfg
     p = layer.mixer
     h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
     if layer.spec.mixer == MIXER_MAMBA:
-        mix, cache = M.mamba_apply(p, cfg, h, return_state=True, backend=model.backend)
+        mix, cache = M.mamba_apply(p, cfg, h, sh, return_state=True, backend=model.backend)
     elif layer.spec.mixer == MIXER_CROSS:
-        mix, k, v = A.attn_apply(p, cfg, h, None, cross_feed=cross, backend=model.backend)
+        mix, k, v = A.attn_apply(p, cfg, h, None, sh, cross_feed=cross,
+                                 backend=model.backend)
         cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
     elif cfg.mla is not None:
-        mix, ckv, kr = MLA.mla_apply(p, cfg, h, positions, backend=model.backend)
+        mix, ckv, kr = MLA.mla_apply(p, cfg, h, positions, sh, backend=model.backend)
         cache = {"ckv": _pad_rows(ckv, max_len), "kr": _pad_rows(kr[:, :, 0], max_len)}
     else:
-        mix, k, v = A.attn_apply(p, cfg, h, positions, backend=model.backend)
+        mix, k, v = A.attn_apply(p, cfg, h, positions, sh, backend=model.backend)
         cache = {"k": _pad_rows(k, max_len), "v": _pad_rows(v, max_len)}
-    return B.ffn_apply(layer, cfg, x + mix)[0], cache
+    x = B.ffn_apply(layer, cfg, x + mix, sh)[0]
+    if sh is not None:
+        x = sh.constrain_act(x)
+    return x, cache
 
 
-def prefill_inputs(model: LM, batch):
+def prefill_inputs(model: LM, batch, sh=None):
     """(x, positions, cross) of a prefill: the frontend's output, positions
     ``0..S-1`` and the cross feed cast to x's dtype (``None`` without
     one).  A model with cross-attention layers and no ``cross`` raises
-    ``ValueError``."""
+    ``ValueError``.  Under ``sh`` the positions are a replicated DTensor
+    when x is a DTensor, and x is constrained as the residual stream."""
     batch = as_batch(batch)
-    x = model.frontend(batch)
+    x = model.frontend(batch, sh)
     bsz, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(bsz, s)
+    if sh is not None:
+        positions = replicate_like(x, positions)
+        x = sh.constrain_act(x)
     cross = batch.get("cross")
     if cross is not None:
         cross = cross.to(x.dtype)
@@ -177,22 +201,44 @@ def prefill_inputs(model: LM, batch):
     return x, positions, cross
 
 
-def forward(model: LM, batch, remat: bool = True):
+def head(model: LM, x, sh=None):
+    """The logits of the final-normed x, vocab-sharded under ``sh``.  A
+    DTensor x takes the head as a local product (``Shardings.local``):
+    each rank multiplies its batch shard by its vocab columns, so the
+    weight's gradient is each rank's batch share, summed over the data
+    axes, and x's its columns' share, summed over the model axis (DTensor's
+    own choice for this product, with tied embeddings and microbatches,
+    asks for a placement it cannot size on fake tensors)."""
+    if sh is not None and sh.enabled and is_dtensor(x):
+        w = model.lm_head if hasattr(model, "lm_head") else model.embed.T
+        b = sh.maybe(sh.batch, x.shape[0], "head batch")
+        v = sh.maybe(sh.model, w.shape[1], "vocab")
+        return sh.local(torch.matmul, P(b, None, v), (P(b, None, None), P(None, v)), x, w,
+                        summed={0: v, 1: b})
+    logits = model.head(x)
+    if sh is not None:
+        logits = sh.constrain_logits(logits)
+    return logits
+
+
+def forward(model: LM, batch, sh=None, remat: bool = True):
     """The training / eval forward of a batch dict (or tokens ``[B, S]``):
     (logits ``[B, S, Vpad]`` in the parameters' dtype, bf16, as the JAX
     package's; the MoE aux loss f32).  ``remat`` recomputes each
-    repetition of the pattern in the backward (``blocks.stack_apply``)."""
-    x, positions, cross = prefill_inputs(model, batch)
-    x, aux = B.stack_apply(model.layers, model.cfg, x, positions, cross, remat=remat,
+    repetition of the pattern in the backward (``blocks.stack_apply``).
+    ``sh`` (``sharding.Shardings``) constrains the activations of a model
+    whose parameters are DTensors (``launch.specs.distribute_model``)."""
+    x, positions, cross = prefill_inputs(model, batch, sh)
+    x, aux = B.stack_apply(model.layers, model.cfg, x, positions, sh, cross, remat=remat,
                            backend=model.backend)
     x = L.rmsnorm(x, model.final_norm, model.cfg.rms_eps)
-    return model.head(x), aux
+    return head(model, x, sh), aux
 
 
-def loss_fn(model: LM, batch, remat: bool = True, aux_weight: float = 0.01):
+def loss_fn(model: LM, batch, sh=None, remat: bool = True, aux_weight: float = 0.01):
     """(``nll + aux_weight * aux``, {"nll", "aux"}); ``batch["labels"]``
     of -1 are left out of the mean."""
-    logits, aux = forward(model, batch, remat)
+    logits, aux = forward(model, batch, sh, remat)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     nll = L.cross_entropy(logits, torch.clamp(labels, min=0), mask)
@@ -200,52 +246,82 @@ def loss_fn(model: LM, batch, remat: bool = True, aux_weight: float = 0.01):
 
 
 @torch.no_grad()
-def prefill(model: LM, batch, max_len: int):
+def prefill(model: LM, batch, max_len: int, sh=None):
     """Process a prompt (a batch dict, or tokens ``[B, S]``); returns
     (logits ``[B, 1, Vpad]`` of the last position, caches allocated at
     ``max_len``, cache_len ``[B]``)."""
-    x, positions, cross = prefill_inputs(model, batch)
+    x, positions, cross = prefill_inputs(model, batch, sh)
     caches = []
     for layer in model.layers:
-        x, cache = prefill_layer(model, layer, x, positions, max_len, cross)
+        x, cache = prefill_layer(model, layer, x, positions, max_len, cross, sh)
         caches.append(cache)
     x = L.rmsnorm(x, model.final_norm, model.cfg.rms_eps)
     cache_len = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
-    return model.head(x[:, -1:]), caches, cache_len
+    return head(model, x[:, -1:], sh), caches, cache_len
 
 
 @torch.no_grad()
-def decode_step(model: LM, batch, caches, cache_len):
+def decode_step(model: LM, batch, caches, cache_len, sh=None):
     """One new token (a batch dict of ``tokens [B, 1]`` or ``embeds [B, 1,
     d]``, or tokens alone) against the caches; ``cache_len [B]`` is the
     prefix length including this token, whose K/V (MLA: latent) go to row
-    ``cache_len - 1``.  Returns (logits ``[B, 1, Vpad]``, caches)."""
+    ``cache_len - 1``.  Returns (logits ``[B, 1, Vpad]``, caches).  Under
+    ``sh`` with DTensor caches, a new K/V row is written by ``where`` into
+    a new cache tensor (``write_row``), which the returned list holds."""
     cfg = model.cfg
-    x = model.frontend(as_batch(batch))
+    x = model.frontend(as_batch(batch), sh)
     positions = (cache_len - 1)[:, None]
     rows = torch.arange(x.shape[0], device=x.device)
     at = (cache_len - 1).long()
     for i, layer in enumerate(model.layers):
         p = layer.mixer
         h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
+        if sh is not None:
+            h = sh.constrain_dec(h)
         if layer.spec.mixer == MIXER_MAMBA:
             mix, caches[i] = M.mamba_decode(p, cfg, h, caches[i])
         elif layer.spec.mixer == MIXER_CROSS:
-            q, _, _ = A.attn_qkv(p, cfg, h, h, None)
+            q, _, _ = A.attn_qkv(p, cfg, h, h, None, sh)
             kc, vc = caches[i]["k"], caches[i]["v"]
             clen = torch.full_like(cache_len, kc.shape[1])
             out = A.decode_attention(q, kc, vc, clen)
-            mix = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_) @ p.wo
+            out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
+            if sh is not None:
+                out = sh.constrain_ffn(out)   # contract-dim layout for wo
+            mix = out @ p.wo
         elif cfg.mla is not None:
             mix = MLA.mla_decode(p, cfg, h, positions, caches[i]["ckv"], caches[i]["kr"],
                                  cache_len)
         else:
-            q, k, v = A.attn_qkv(p, cfg, h, h, positions)
+            q, k, v = A.attn_qkv(p, cfg, h, h, positions, sh)
             kc, vc = caches[i]["k"], caches[i]["v"]
-            kc[rows, at] = k[:, 0].to(kc.dtype)
-            vc[rows, at] = v[:, 0].to(vc.dtype)
+            if is_dtensor(kc):
+                kc, vc = write_row(kc, k, at), write_row(vc, v, at)
+                caches[i] = {"k": kc, "v": vc}
+            else:
+                kc[rows, at] = k[:, 0].to(kc.dtype)
+                vc[rows, at] = v[:, 0].to(vc.dtype)
             out = A.decode_attention(q, kc, vc, cache_len, window=cfg.sliding_window)
-            mix = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_) @ p.wo
-        x = B.ffn_apply(layer, cfg, x + mix)[0]
+            out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
+            if sh is not None:
+                out = sh.constrain_ffn(out)   # contract-dim layout for wo
+            mix = out @ p.wo
+        x = x + mix
+        if layer.spec.ffn != FFN_NONE:
+            h2 = L.rmsnorm(x, layer.ln2, cfg.rms_eps)
+            if sh is not None:
+                h2 = sh.constrain_dec(h2)
+            x = x + (MOE.moe_apply(layer.ffn, cfg, h2, sh)[0] if layer.spec.ffn == FFN_MOE
+                     else L.swiglu(layer.ffn, h2, sh))
     x = L.rmsnorm(x, model.final_norm, cfg.rms_eps)
-    return model.head(x), caches
+    return head(model, x, sh), caches
+
+
+def write_row(cache, new, at):
+    """``cache [B, S, ...]`` with row ``at[b]`` of sequence ``b`` replaced
+    by ``new[b, 0]``: a new tensor (elementwise, so a DTensor cache keeps
+    its placement and no shard moves)."""
+    pos = replicate_like(at, torch.arange(cache.shape[1], device=at.device))
+    hit = (pos[None, :] == at[:, None]).reshape(*at.shape, cache.shape[1],
+                                                *([1] * (cache.dim() - 2)))
+    return torch.where(hit, new.to(cache.dtype), cache)

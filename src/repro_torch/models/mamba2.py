@@ -18,6 +18,7 @@ from torch import nn
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import layers as L
+from repro_torch.sharding import P, split_heads
 
 
 class Mamba2(nn.Module):
@@ -71,8 +72,14 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def mamba_apply(p, cfg, x, return_state: bool = False, backend: str = "kernel"):
-    """x ``[B, S, D]`` -> ``[B, S, D]`` (optionally also the decode cache)."""
+def mamba_apply(p, cfg, x, sh=None, return_state: bool = False, backend: str = "kernel"):
+    """x ``[B, S, D]`` -> ``[B, S, D]`` (optionally also the decode cache).
+
+    Under ``sh`` with DTensor operands, the causal convolutions (channel
+    by channel) and the SSD (the kernel and the inter-chunk recurrence,
+    head by head) run on each rank's shard (``Shardings.local``): the
+    batch over the data axes, the inner channels and heads over the model
+    axis where the heads divide it and the groups divide it or are one."""
     s = cfg.ssm
     b, sl, d = x.shape
     di = s.d_inner(d)
@@ -81,16 +88,32 @@ def mamba_apply(p, cfg, x, return_state: bool = False, backend: str = "kernel"):
     n = s.d_state
     g = s.n_groups
 
+    ba = hx = gx = None
+    if sh is not None and sh.enabled:
+        ba = sh.maybe(sh.batch, b, "mamba batch")
+        m = sh.axis_size(sh.model)
+        hx = sh.model if h % m == 0 and (g % m == 0 or g == 1) else None
+        gx = hx if g > 1 else None
+
+    def conv(t, w, ax):
+        # the weight's gradient on a rank is its batch shard's share
+        spec = P(ba, None, ax)
+        return sh.local(_causal_conv, spec, (spec, P(None, ax)), t, w,
+                        summed={1: ba}) if sh is not None else _causal_conv(t, w)
+
     z = x @ p.wz
     x_pre, B_pre, C_pre = x @ p.wx, x @ p.wB, x @ p.wC
-    xs = L.silu(_causal_conv(x_pre, p.conv_x))
-    Bm = L.silu(_causal_conv(B_pre, p.conv_B))
-    Cm = L.silu(_causal_conv(C_pre, p.conv_C))
+    xs = L.silu(conv(x_pre, p.conv_x, hx))
+    Bm = L.silu(conv(B_pre, p.conv_B, gx))
+    Cm = L.silu(conv(C_pre, p.conv_C, gx))
     dt = _softplus((x @ p.wdt).float() + p.dt_bias)            # [B, S, H]
+    if sh is not None:
+        xs = sh.constrain_ffn(xs)
+        z = sh.constrain_ffn(z)
 
     A = -torch.exp(p.A_log)                                    # [H] negative
     loga = dt * A                                              # [B, S, H]
-    xh = xs.reshape(b, sl, h, pdim)
+    xh = split_heads(xs, h, pdim)
     xbar = xh * dt[..., None]                                  # f32
 
     # B and C stay in group form, [B*G, S, N]: head h of sequence b reads
@@ -107,27 +130,53 @@ def mamba_apply(p, cfg, x, return_state: bool = False, backend: str = "kernel"):
     pad = (-sl) % chunk
     slp = sl + pad
 
-    def to_bh(t):                        # [B, S, H, *] -> [B*H, S, *] (H: heads or groups)
-        t = F.pad(t, (0, 0, 0, 0, 0, pad))
-        # contiguous: at B=1 the reshape is a strided view, which the kernel refuses
-        return t.transpose(1, 2).reshape(b * t.shape[2], slp, t.shape[-1]).contiguous()
+    def ssd(xbar, loga, Bg, Cg, xh, dskip):
+        """The SSD on [B, S, H or G, *] tensors (a rank's shard under sh)
+        with the D skip: y [B, S, H * P] in x's dtype (the heads merged
+        here, so a gradient split over the inner channels reaches this
+        region whole) and the final state [B, H, N, P]."""
+        b, _, h, _ = xbar.shape
 
-    loga_p = F.pad(loga, (0, 0, 0, pad))
-    y, state = ssd_ops.ssd_with_state(
-        to_bh(xbar), loga_p.transpose(1, 2).reshape(b * h, slp).contiguous(),
-        to_bh(Bg), to_bh(Cg), chunk=chunk, backend=backend)
-    y = y.reshape(b, h, slp, pdim)[:, :, :sl].transpose(1, 2)  # [B, S, H, P]
-    y = y + xh.float() * p.Dskip[None, None, :, None]
-    y = y.reshape(b, sl, di).to(x.dtype)
+        def to_bh(t):                    # [B, S, H, *] -> [B*H, S, *] (H: heads or groups)
+            t = F.pad(t, (0, 0, 0, 0, 0, pad))
+            # contiguous: at B=1 the reshape is a strided view, which the kernel refuses
+            return t.transpose(1, 2).reshape(b * t.shape[2], slp, t.shape[-1]).contiguous()
 
-    y = L.rmsnorm(y * L.silu(z), p.norm, cfg.rms_eps)
+        loga_p = F.pad(loga, (0, 0, 0, pad))
+        y, state = ssd_ops.ssd_with_state(
+            to_bh(xbar), loga_p.transpose(1, 2).reshape(b * h, slp).contiguous(),
+            to_bh(Bg), to_bh(Cg), chunk=chunk, backend=backend)
+        y = y.reshape(b, h, slp, pdim)[:, :, :sl].transpose(1, 2)  # [B, S, H, P]
+        y = y + xh.float() * dskip[None, None, :, None]
+        return y.reshape(b, sl, h * pdim).to(x.dtype), state.reshape(b, h, n, pdim)
+
+    args = (xbar, loga, Bg, Cg, xh, p.Dskip)
+    if sh is not None and sh.enabled:
+        heads, groups = P(ba, None, hx, None), P(ba, None, gx, None)
+        # with the heads sharded and the groups not, a rank's B/C gradient
+        # is its heads' share: summed over the model axis; D's is its batch
+        # shard's share
+        summed = {5: ba, **({2: hx, 3: hx} if hx and not gx else {})}
+        y, state = sh.local(ssd, (P(ba, None, hx), P(ba, hx, None, None)),
+                            (heads, P(ba, None, hx), groups, groups, heads, P(hx)), *args,
+                            summed=summed)
+    else:
+        y, state = ssd(*args)
+
+    y = y * L.silu(z)
+    if sh is not None:
+        # the gated norm reduces over the inner channels: gathered first
+        # (left sharded, DTensor moves the sequence onto the model axis in
+        # the backward, a placement it cannot size on fake tensors)
+        y = sh.constrain(y, P(ba, None, None))
+    y = L.rmsnorm(y, p.norm, cfg.rms_eps)
     out = y @ p.out
     if not return_state:
         return out
     k = s.conv_kernel - 1
     cache = {
-        # the SSD state comes back [BH, N, P] -> decode layout [B, H, P, N]
-        "ssm": state.reshape(b, h, n, pdim).transpose(2, 3).contiguous(),
+        # the SSD state comes back [B, H, N, P] -> decode layout [B, H, P, N]
+        "ssm": state.transpose(2, 3).contiguous(),
         "conv_x": x_pre[:, -k:].float(),
         "conv_B": B_pre[:, -k:].float(),
         "conv_C": C_pre[:, -k:].float(),
@@ -170,7 +219,7 @@ def mamba_decode(p, cfg, x1, cache):
 
     A = -torch.exp(p.A_log)
     a = torch.exp(dt * A)                                      # [B, H]
-    xh = xs.reshape(b, h, pdim).float()
+    xh = split_heads(xs, h, pdim).float()
     xbar = xh * dt[..., None]
     rep = h // g
     Bh = Bm.reshape(b, g, n).repeat_interleave(rep, dim=1).float()

@@ -17,6 +17,7 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.sharding import split_heads
 
 NEG_INF = -1e30
 
@@ -63,13 +64,13 @@ def mla_queries(p, cfg, x, positions):
     """q_nope ``[B, S, H, Dn]``, q_rope ``[B, S, H, Dr]``."""
     m = cfg.mla
     q = L.rmsnorm(x @ p.wdq, p.q_ln, cfg.rms_eps) @ p.wuq
-    q = q.reshape(*x.shape[:-1], cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q = split_heads(q, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     cos, sin = L.rope_freqs(m.qk_rope_dim, cfg.rope_theta, positions)
     return q_nope, L.apply_rope(q_rope, cos, sin)
 
 
-def mla_apply(p, cfg, x, positions, backend: str = "kernel"):
+def mla_apply(p, cfg, x, positions, sh=None, backend: str = "kernel"):
     """Prefill: expand the latents to per-head K/V and attend causally over
     the concatenated (nope | rope) head dims.  Returns (output ``[B, S,
     d]``, c_kv, k_rope): the latents are the decode cache's rows."""
@@ -77,11 +78,14 @@ def mla_apply(p, cfg, x, positions, backend: str = "kernel"):
     h = cfg.n_heads
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
     c_kv, k_rope = mla_latents(p, cfg, x, positions)
-    kv = (c_kv @ p.wukv).reshape(*x.shape[:-1], h, m.qk_nope_dim + m.v_head_dim)
+    kv = split_heads(c_kv @ p.wukv, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], m.qk_rope_dim)], dim=-1)
-    out = A.gqa(q, k, v, causal=True, backend=backend, score_dtype=A.score_dtype(cfg))
+    if sh is not None:
+        q, k, v = sh.constrain_heads(q), sh.constrain_heads(k), sh.constrain_heads(v)
+    out = A.gqa(q, k, v, causal=True, backend=backend, score_dtype=A.score_dtype(cfg),
+                sh=sh)
     out = out.reshape(*x.shape[:-1], h * m.v_head_dim)
     return out @ p.wo, c_kv, k_rope
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import P
 
 
 def experts_init(generator, e, d_in, d_out, device, scale):
@@ -74,14 +75,21 @@ def _experts(p, xe):
     return torch.einsum("e...f,efd->e...d", h, p.down)
 
 
-def moe_apply(p, cfg, x):
+def expert_spec(cfg, sh, e, *rest):
+    """The spec of an expert buffer ``[E, *rest]``: experts over the model
+    axis under expert parallelism (``cfg.moe_ep``) where they divide it."""
+    espec = sh.maybe(sh.model, e, "moe experts") if cfg.moe_ep else None
+    return P(espec, *rest)
+
+
+def moe_apply(p, cfg, x, sh=None):
     """x ``[B, S, d]`` -> (``[B, S, d]``, aux loss f32).  Capacity per batch
     row, ``max(1, ceil(int(cf * S * k) / E))``; the buffer position of a
     (token, choice) is its rank in a cumsum over tokens, then choices."""
     if cfg.moe_sorted:
-        return moe_apply_sorted(p, cfg, x)
+        return moe_apply_sorted(p, cfg, x, sh)
     if cfg.moe_local_chunks > 1 and x.shape[1] % cfg.moe_local_chunks == 0:
-        return moe_apply_local(p, cfg, x)
+        return moe_apply_local(p, cfg, x, sh)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(1, -(-int(cfg.capacity_factor * s * k) // e))
@@ -100,22 +108,24 @@ def moe_apply(p, cfg, x):
     comb = ((keep * gate_vals[..., None]).to(ddt)[..., None] * oh_cap).sum(dim=2)
 
     xe = torch.einsum("bsec,bsd->ebcd", disp, x.to(ddt)).to(x.dtype)   # [E, B, C, d]
+    if sh is not None and sh.enabled:
+        xe = sh.constrain(xe, expert_spec(cfg, sh, e, sh.batch, None, None))
     ye = _experts(p, xe)
     y = torch.einsum("bsec,ebcd->bsd", comb, ye.to(ddt)).float()
     return y.to(x.dtype), aux_loss(probs, gate_idx, e)
 
 
-def moe_apply_local(p, cfg, x):
+def moe_apply_local(p, cfg, x, sh=None):
     """Local-capacity routing: the sequence folded into
     ``moe_local_chunks`` routing groups, each with its own capacity."""
     b, s, d = x.shape
     n = cfg.moe_local_chunks
     sub = dataclasses.replace(cfg, moe_local_chunks=0)
-    y, aux = moe_apply(p, sub, x.reshape(b * n, s // n, d))
+    y, aux = moe_apply(p, sub, x.reshape(b * n, s // n, d), sh)
     return y.reshape(b, s, d), aux
 
 
-def moe_apply_sorted(p, cfg, x):
+def moe_apply_sorted(p, cfg, x, sh=None):
     """Sort-based dispatch: (token, choice) pairs sorted stably by expert,
     gathered into ``[E, C, d]`` buffers, capacity global over the batch.
     Each token's k contributions are summed in a fixed order (choice 0
@@ -138,7 +148,10 @@ def moe_apply_sorted(p, cfg, x):
 
     xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     xe[buf] = xf[tok_flat[order]]           # overflow rows all land on the spare row
-    ye = _experts(p, xe[:e * cap].reshape(e, cap, d)).reshape(e * cap, d)
+    xe = xe[:e * cap].reshape(e, cap, d)
+    if sh is not None and sh.enabled:
+        xe = sh.constrain(xe, expert_spec(cfg, sh, e, None, None))
+    ye = _experts(p, xe).reshape(e * cap, d)
 
     contrib = torch.where(keep[:, None], ye[torch.clamp(buf, max=e * cap - 1)],
                           torch.zeros((), dtype=ye.dtype, device=x.device))

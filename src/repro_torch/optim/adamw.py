@@ -12,8 +12,13 @@ parameters' device, and every division has a tensor divisor, never a
 Python number (PyTorch turns ``x / s`` on the card, and ``s / x``
 everywhere, into a product with a reciprocal, one rounding more).
 
-The ZeRO-1 spec helpers (``zero1_spec``, ``zero1_state_specs``) wait for
-the port's sharding module.
+ZeRO-1: ``zero1_spec`` extends a parameter's spec with the data axes for
+its optimizer state, and ``zero1_state_specs`` builds the state's spec
+tree.  ``update`` takes DTensor parameters whose moments carry other
+placements: each gradient is redistributed to its moments' placement
+(the data-parallel reduction, a reduce-scatter under ZeRO-1), the update
+runs there, and the new parameter is redistributed back to its own
+placement (an all-gather) before it is written.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+
+from repro_torch.sharding import P, is_dtensor, placed_like, spec_axes
 
 F32 = torch.float32
 
@@ -91,12 +98,20 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full value on every rank (its shards' sums reduced over
+    the mesh); a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def global_norm(tensors) -> torch.Tensor:
     """The L2 norm over every element of ``tensors`` (or a dict's values),
-    in f32: one sum of squares a tensor, then their sum."""
+    in f32: one sum of squares a tensor, then their sum.  A DTensor's sum
+    of squares is reduced over the whole tensor, not its local shard."""
     if isinstance(tensors, dict):
         tensors = tensors.values()
-    return torch.sqrt(torch.sum(torch.stack([torch.sum(x.to(F32) ** 2) for x in tensors])))
+    return torch.sqrt(torch.sum(torch.stack([_whole(torch.sum(x.to(F32) ** 2))
+                                             for x in tensors])))
 
 
 @torch.no_grad()
@@ -117,17 +132,54 @@ def update(cfg: AdamWConfig, state: AdamWState, params, grads) -> dict:
     bc2 = 1 - torch.pow(_f32(b2, step), step.to(F32))
     mdt = getattr(torch, cfg.moment_dtype)
     for n, p in params.items():
-        g = grads[n].to(F32) * scale
-        m32 = b1 * state.mu[n].to(F32) + (1 - b1) * g
+        mu = state.mu[n]
+        g = placed_like(grads[n], mu).to(F32) * scale
+        m32 = b1 * mu.to(F32) + (1 - b1) * g
         v32 = b2 * state.nu[n].to(F32) + (1 - b2) * g * g
         mhat = m32 / bc1
         vhat = v32 / bc2
-        base = (state.master[n] if state.master is not None else p).to(F32)
+        base = placed_like(state.master[n] if state.master is not None else p, mu).to(F32)
         new = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * base)
         if state.master is not None:
             state.master[n] = new
-        p.copy_(new)
+        p.copy_(placed_like(new, p))
         state.mu[n] = m32.to(mdt)
         state.nu[n] = v32.to(mdt)
     state.step.copy_(step)
     return {"lr": lr, "grad_norm": gnorm}
+
+
+# --------------------------------------------------------------------------
+# ZeRO-1 sharding
+# --------------------------------------------------------------------------
+
+
+def zero1_spec(param_spec, shape, data_axes, axis_sizes) -> P:
+    """Extend a parameter spec with data-axis sharding on the first
+    divisible, currently-unsharded dim (optimizer-state sharding).
+    No-op when the data axes already appear (FSDP-sharded params)."""
+    spec = list(param_spec) if param_spec else []
+    spec += [None] * (len(shape) - len(spec))
+    axes = data_axes if isinstance(data_axes, tuple) else (data_axes,)
+    used = {a for entry in spec for a in spec_axes(entry)}
+    if used & set(axes):
+        return P(*spec)     # already data-sharded (FSDP): ZeRO-1 is implied
+    n = 1
+    for a in axes:
+        n *= axis_sizes.get(a, 1)
+    for i, (dim, cur) in enumerate(zip(shape, spec)):
+        if cur is None and dim % n == 0 and dim >= n:
+            spec[i] = data_axes
+            return P(*spec)
+    return P(*spec)  # nothing divisible: stays replicated over data
+
+
+def zero1_state_specs(cfg: AdamWConfig, param_specs: dict, param_shapes, sh) -> AdamWState:
+    """The ``AdamWState`` spec tree from parameter specs (``{name: P}``)
+    and shapes (a module, or ``{name: tensor or shape}``)."""
+    shapes = named(param_shapes)
+    mom = {n: zero1_spec(ps, tuple(getattr(shapes[n], "shape", shapes[n])),
+                         sh.batch_axes or ("data",), sh.sizes)
+           for n, ps in param_specs.items()}
+    return AdamWState(step=P(), mu=mom, nu=dict(mom),
+                      master=dict(mom) if cfg.master_weights else None)

@@ -11,6 +11,14 @@ in f32, then divided by the count.
 The step runs where the model lives: ``make_train_step`` asks for the
 card unless ``device="cpu"``, and the step moves each batch (numpy
 arrays from ``data.pipeline`` or tensors) there.
+
+Under ``sh`` (a ``Shardings`` on a mesh, the model placed by
+``launch.specs.distribute_model`` and the state by
+``distribute_opt_state``), each microbatch is placed by
+``launch.specs.batch_specs`` (from rank 0's values: every rank passes the
+same global batch), the forward runs under ``sh``'s constraints, and each
+gradient is redistributed to its moments' placement (the data-parallel
+reduction; a reduce-scatter under ZeRO-1) before it is summed.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.optim import adamw
+from repro_torch.sharding import placed_like
 
 F32 = torch.float32
 
@@ -52,15 +61,23 @@ def to_device(batch: dict, device) -> dict:
                 ).to(device) for k, v in batch.items()}
 
 
-def make_train_step(model_cfg, tcfg: TrainConfig, *, device="cuda"):
+def make_train_step(model_cfg, tcfg: TrainConfig, sh=None, *, device="cuda"):
     """Returns ``train_step(model, opt_state, batch) -> stats``: the model's
     parameters and ``opt_state`` are updated in place; ``stats`` holds
     ``lr``, ``grad_norm`` and ``loss`` (and ``nll``, ``aux`` with one
-    microbatch), 0-d tensors on the device."""
+    microbatch), 0-d tensors on the device (DTensors under ``sh``)."""
+    from repro_torch.launch.specs import batch_specs
     device = _device(device)
+    sharded = sh is not None and sh.enabled
+
+    def place(mb):
+        if not sharded:
+            return mb
+        specs = batch_specs(model_cfg, sh, mb)
+        return {k: sh.distribute(v, specs[k]) for k, v in mb.items()}
 
     def grads_of(model, params, batch):
-        loss, metrics = lm.loss_fn(model, batch, remat=tcfg.remat,
+        loss, metrics = lm.loss_fn(model, place(batch), sh, remat=tcfg.remat,
                                    aux_weight=tcfg.aux_weight)
         gs = torch.autograd.grad(loss, params, allow_unused=True)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
@@ -75,15 +92,16 @@ def make_train_step(model_cfg, tcfg: TrainConfig, *, device="cuda"):
         batch = to_device(batch, device)
         named = dict(model.named_parameters())
         params = list(named.values())
+        # the moments' placement of each gradient (themselves when unsharded)
+        homes = [opt_state.mu[n] for n in named]
         m = tcfg.microbatches
         if m == 1:
             loss, metrics, gs = grads_of(model, params, batch)
-            grads = [g.to(F32) if g is not None else torch.zeros(p.shape, dtype=F32,
-                                                                 device=device)
-                     for g, p in zip(gs, params)]
+            grads = [placed_like(g.to(F32), h) if g is not None else
+                     torch.zeros_like(h, dtype=F32) for g, h in zip(gs, homes)]
         else:
             count = torch.full((), m, dtype=F32, device=device)
-            grads = [torch.zeros(p.shape, dtype=F32, device=device) for p in params]
+            grads = [torch.zeros_like(h, dtype=F32) for h in homes]
             loss = torch.zeros((), dtype=F32, device=device)
             for i in range(m):
                 mb = {k: v.reshape(m, v.shape[0] // m, *v.shape[1:])[i]
@@ -91,7 +109,7 @@ def make_train_step(model_cfg, tcfg: TrainConfig, *, device="cuda"):
                 l, _, gs = grads_of(model, params, mb)
                 for acc, g in zip(grads, gs):
                     if g is not None:
-                        acc.add_(g.to(F32))
+                        acc.add_(placed_like(g.to(F32), acc))
                 loss = loss + l
                 del gs
             grads = [g / count for g in grads]
