@@ -207,17 +207,30 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                5c's gates); launches counted in each run (flash_attention 2
                an attention layer, ssd_chunk_scan 2 a Mamba-2 layer, on
                their local heads shard); the step's wall in turns, sharded
-               and unsharded; compressed_psum_mean over the one-rank group
-               on qwen3-0.6b's flattened f32 gradient, equal to the same
-               call on a CPU copy (a one-rank gloo group) bit for bit
+               and unsharded; then SHARDED_MOE, mixtral-8x22b at full
+               width cut to 1 of 56 layers (~2.9 G parameters: one path's
+               weights, gradients and bf16 moments are ~35 GB, so the
+               unsharded path runs first and its results wait on the
+               host), with ARCH_RUN's fsdp, sequence parallelism and bf16
+               moments: the
+               MoE routing and dispatch in each rank's local region, the
+               same checks, each path's MoE routes recorded (a token routed
+               otherwise printed), flash_attention 2 launches a microbatch
+               on each path, the peak memory; compressed_psum_mean over the
+               one-rank group on qwen3-0.6b's flattened f32 gradient, equal
+               to the same call on a CPU copy (a one-rank gloo group) bit
+               for bit
   8. dry run — launch.dryrun.run_cell of DRYRUN_CELLS (qwen3-0.6b x
-               train_4k, prefill_32k, decode_32k on 16x16 and 2x16x16,
-               mamba2-780m x train_4k on 16x16: a fake world of 256 or 512
-               ranks, FakeTensorMode, the step once), in a process of its
-               own started at the top (fake tensors: nothing is allocated
-               on the card); each cell's state GiB a device (equal to the
-               value tests/test_torch_dryrun.py pins), FLOPs a device and
-               collective MiB by kind
+               train_4k, prefill_32k, decode_32k on 16x16 and 2x16x16;
+               on 16x16 mamba2-780m x train_4k, mixtral-8x22b x train_4k
+               at one microbatch (MoE routing and dispatch), phi3-mini-3.8b
+               x prefill_32k (sequence parallelism), minicpm3-4b x
+               decode_32k (MLA's decode on DTensor caches): a fake world of
+               256 or 512 ranks, FakeTensorMode, the step once), in a
+               process of its own started at the top (fake tensors: nothing
+               is allocated on the card); each cell's state GiB a device
+               (equal to the value tests/test_torch_dryrun.py pins), FLOPs
+               a device and collective MiB by kind
 
 The last two lines are the ``{"kernels": [...]}`` record and the contract
 line ``{"ok": true, "device": {...}}``; the card's nvidia-smi name and
@@ -522,17 +535,23 @@ CHECK_POINTS = ({"kmin_frac": 0.3, "fd": 0.6}, {"start_cwnd_mult": 1.0},
 CHECK_TICKS = (40, 120, 200, 60)
 CHECK_STEPS = 5
 LANE_PROFILE_TICKS = 100
-# phase 8: the dry run's cells (arch, shape, multi-pod, the analytic state
-# bytes a device, pinned by tests/test_torch_dryrun.py against the port's
-# launch.dryrun.state_bytes and the JAX package's per_device_bytes)
+# phase 8: the dry run's cells (arch, shape, multi-pod, ARCH_RUN overrides,
+# the analytic state bytes a device, pinned by tests/test_torch_dryrun.py
+# against the port's launch.dryrun.state_bytes and the JAX package's
+# per_device_bytes).  mixtral-8x22b trains at micro=1 (one microbatch of
+# the global 256 x 4096 instead of 16: the state bytes are the same, and
+# the fake step of 56 layers stays behind phases 3-7)
 DRYRUN_CELLS = (
-    ("qwen3-0.6b", "train_4k", False, 93437956),
-    ("qwen3-0.6b", "train_4k", True, 84107268),
-    ("qwen3-0.6b", "prefill_32k", False, 74776576),
-    ("qwen3-0.6b", "prefill_32k", True, 74776576),
-    ("qwen3-0.6b", "decode_32k", False, 1953824768),
-    ("qwen3-0.6b", "decode_32k", True, 1014300672),
-    ("mamba2-780m", "train_4k", False, 166956868),
+    ("qwen3-0.6b", "train_4k", False, {}, 93437956),
+    ("qwen3-0.6b", "train_4k", True, {}, 84107268),
+    ("qwen3-0.6b", "prefill_32k", False, {}, 74776576),
+    ("qwen3-0.6b", "prefill_32k", True, {}, 74776576),
+    ("qwen3-0.6b", "decode_32k", False, {}, 1953824768),
+    ("qwen3-0.6b", "decode_32k", True, {}, 1014300672),
+    ("mamba2-780m", "train_4k", False, {}, 166956868),
+    ("mixtral-8x22b", "train_4k", False, {"micro": 1}, 3310585348),
+    ("phi3-mini-3.8b", "prefill_32k", False, {}, 478556160),
+    ("minicpm3-4b", "decode_32k", False, {}, 2104043520),
 )
 
 
@@ -560,7 +579,8 @@ def leaves(tree, prefix=""):
 
 
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    a, b = a.detach().cpu(), b.detach().cpu()
+    """Equal bit for bit (f32 by its words), compared where ``a`` lives."""
+    a, b = a.detach(), b.detach().to(a.device)
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     if a.dtype == torch.float32:
@@ -3599,6 +3619,13 @@ def phase_train(dev):
 SHARDED_MODELS = (("qwen3-0.6b", "flash_attention", None),
                   ("mamba2-780m", "ssd_chunk_scan", 4))
 SHARDED_BATCH = (4, 1024)       # one microbatch: batch, sequence
+# the MoE arch of phase 5d at full width, cut in depth to 1 layer of 56
+# (one layer is ~2.9 G parameters with the embedding and head: bf16
+# weights and gradients, f32 gradient sums and ARCH_RUN's two bf16
+# moments are ~35 GB a path before the update's f32 temporaries, so the
+# two paths run one after another, the unsharded one's results kept on
+# the host), under ARCH_RUN's fsdp and sequence parallelism
+SHARDED_MOE = ("mixtral-8x22b", "flash_attention", 1)
 SHARDED_TURNS = 2               # timed turns of each path: (unsharded, sharded), then reversed
 
 
@@ -3613,7 +3640,7 @@ def compare_trees(arch, what, want: dict, got: dict, tol):
     equal, worst, worst_e = 0, None, 0.0
     for name, w in want.items():
         g = tensor_of(got[name]).detach()
-        w = w.detach()
+        w = w.detach().to(g.device)
         if g.dtype == w.dtype and bit_equal(g, w):
             equal += 1
             continue
@@ -3742,6 +3769,144 @@ def sharded_train(arch, kname, layers, dev, sh):
     return rec
 
 
+def route_calls_differ(want, got):
+    """Tokens a MoE route call of one path sent to another set of experts
+    than the same call of the other path (recording_routes' records)."""
+    return [int((w[2].sort(-1).values != g[2].sort(-1).values).any(-1).sum())
+            for w, g in zip(want, got)]
+
+
+def sharded_train_moe(arch, kname, layers, dev, sh):
+    """SHARDED_MOE: one microbatch's loss and every gradient, then one
+    AdamW step (ZeRO-1 moments), through the sharded path (the MoE routing
+    and dispatch in each rank's local region) against the unsharded
+    kernel path on the same seeded weights, bit for bit, else the worst
+    leaf held to phase 5c's qwen3-0.6b gate; the moments in ARCH_RUN's
+    dtype (bf16 for the MoE archs); the unsharded path first,
+    its gradients, parameters and moments copied to the host; each path's
+    routes recorded (a token routed otherwise is counted and printed);
+    launches counted in each run; the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.dryrun import ARCH_RUN
+    from repro_torch.models import lm
+    from repro_torch.models.config import MIXER_ATTN
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import TrainConfig, make_train_step
+    cfg = zoo_config(arch, layers)
+    n_attn = sum(cfg.pattern[i % len(cfg.pattern)].mixer == MIXER_ATTN
+                 for i in range(cfg.n_layers))
+    want = {kname: 2 * n_attn, "ssd_chunk_scan": 0}
+    tol = TRAIN_GRAD_REL_L2["qwen3-0.6b"]
+    run = ARCH_RUN[arch]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = train_batch(cfg, dev, *SHARDED_BATCH)
+    acfg = adamw.AdamWConfig(**TRAIN_ADAM, moment_dtype=run["adam"])
+    tcfg = TrainConfig(adam=acfg, microbatches=1)
+
+    def seeded():
+        return lm.LM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+
+    def counted(fn):
+        reset_counts()
+        out, sec = timed(fn)
+        counts = read_counts()
+        for k, n in want.items():
+            if counts[k] != n:
+                fail(f"[sharded] {arch}: {k} launched {counts[k]} times, expected {n}")
+        return out, sec
+
+    # the unsharded kernel path, its results to the host
+    plain = seeded()
+    names = [n for n, _ in plain.named_parameters()]
+    with recording_routes([]) as routes_u:
+        (loss_u, _, grads_u), sec_u = counted(lambda: train_grads(plain, batch))
+    host_grads = {n: g.cpu() for n, g in zip(names, grads_u)}
+    del grads_u
+    opt_u = adamw.init(acfg, plain)
+    stats_u, wall_u = counted(lambda: make_train_step(cfg, tcfg, device=dev)(plain, opt_u,
+                                                                             batch))
+    host = {"params": {n: p.detach().cpu() for n, p in plain.named_parameters()},
+            "mu": {n: t.cpu() for n, t in opt_u.mu.items()},
+            "nu": {n: t.cpu() for n, t in opt_u.nu.items()}}
+    gnorm_u = stats_u["grad_norm"].cpu()
+    del plain, opt_u, stats_u
+    peak_u = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the sharded path on the same seeded weights (its moments made before
+    # the placed copies replace the weights, which then go)
+    placed = seeded()
+    specs = S.param_specs(cfg, sh, placed, fsdp=run["fsdp"])
+    shapes = {k: v.detach() for k, v in placed.named_parameters()}
+    S.distribute_model(placed, sh, specs)
+    opt_s = S.distribute_opt_state(adamw.init(acfg, shapes), sh,
+                                   adamw.zero1_state_specs(acfg, specs, shapes, sh))
+    del shapes
+    bspecs = S.batch_specs(cfg, sh, batch)
+    placed_batch = {k: sh.distribute(v, bspecs[k]) for k, v in batch.items()}
+
+    def sharded_grads():
+        loss, _ = lm.loss_fn(placed, placed_batch, sh)
+        return loss.detach(), torch.autograd.grad(loss, list(placed.parameters()))
+    with recording_routes([]) as routes_s:
+        (loss_s, grads_s), sec_s = counted(sharded_grads)
+    n_calls = len(routes_u) // 2          # the forward's calls (remat repeats them)
+    flips = route_calls_differ(routes_u[:n_calls], routes_s[:n_calls])
+    del routes_u[:], routes_s[:]
+    lu, ls = float(loss_u), float(tensor_of(loss_s))
+    loss_equal = bit_equal(tensor_of(loss_s), loss_u)
+    loss_rel = abs(ls - lu) / abs(lu)
+    if not loss_rel <= TRAIN_LOSS_REL:
+        fail(f"[sharded] {arch}: loss {ls} sharded, {lu} unsharded ({loss_rel} apart)")
+    g_equal, g_worst, g_e = compare_trees(arch, "gradients", host_grads,
+                                          dict(zip(names, grads_s)), tol)
+    placements = {n: str(p.placements) for n, p in placed.named_parameters()}
+    del grads_s, host_grads
+    stats_s, wall_s = counted(lambda: make_train_step(cfg, tcfg, sh, device=dev)(
+        placed, opt_s, batch))
+    p_equal, p_worst, p_e = compare_trees(arch, "parameters after a step", host["params"],
+                                          dict(placed.named_parameters()), tol)
+    m_equal, m_worst, m_e = compare_trees(arch, "first moments after a step", host["mu"],
+                                          opt_s.mu, tol)
+    v_equal, v_worst, v_e = compare_trees(arch, "second moments after a step", host["nu"],
+                                          opt_s.nu, tol)
+    gnorm_equal = bit_equal(tensor_of(stats_s["grad_norm"]), gnorm_u)
+    peak = dict(unsharded=peak_u, sharded=torch.cuda.max_memory_allocated())
+    n = len(names)
+    rec = dict(layers=cfg.n_layers, launches=want[kname], loss_unsharded=lu, loss_sharded=ls,
+               loss_bit_equal=loss_equal, loss_rel=loss_rel, route_flips=flips,
+               grads_bit_equal=g_equal, grads=n, grad_worst=g_worst, grad_worst_rel_l2=g_e,
+               params_bit_equal=p_equal, param_worst=p_worst, param_worst_rel_l2=p_e,
+               mu_bit_equal=m_equal, mu_worst=m_worst, nu_bit_equal=v_equal, nu_worst=v_worst,
+               moment_worst_rel_l2=max(m_e, v_e), grad_norm_bit_equal=gnorm_equal,
+               microbatch_s=dict(unsharded=sec_u, sharded=sec_s),
+               first_step_s=dict(unsharded=wall_u, sharded=wall_s), peak_bytes=peak,
+               params=sum(host["params"][k].numel() for k in names),
+               placements={k: v for k, v in placements.items() if ".ffn." in k})
+    log(f"[sharded] {arch} ({cfg.n_layers} of {get_config(arch).n_layers} layers, "
+        f"{rec['params'] / 1e9:.3f} G parameters, B={SHARDED_BATCH[0]} x "
+        f"{SHARDED_BATCH[1]}, fsdp {run['fsdp']}, sequence parallel {run['sp']}) on the "
+        f"1 x 1 mesh: loss {ls:.6f} sharded, {lu:.6f} unsharded "
+        f"({'bit-equal' if loss_equal else f'{loss_rel:.2e} apart'}); MoE tokens routed "
+        f"otherwise {flips}; gradients bit-equal {g_equal}/{n}"
+        + (f" (worst {g_worst} {g_e:.2e})" if g_worst else "")
+        + f"; after one AdamW step parameters {p_equal}/{n}, mu {m_equal}/{n}, nu "
+        f"{v_equal}/{n} bit-equal" + (f" (worst {p_worst or m_worst or v_worst}, "
+                                      f"{max(p_e, m_e, v_e):.2e})"
+                                      if (p_worst or m_worst or v_worst) else "")
+        + f", grad norm {'bit-equal' if gnorm_equal else 'differs'}; {kname} "
+        f"{want[kname]} launches a microbatch on each path; forward + backward "
+        f"{sec_u:.3f} s unsharded, {sec_s:.3f} s sharded; a step {wall_u:.3f} / "
+        f"{wall_s:.3f} s (first calls); peak {peak['unsharded'] / 2**30:.2f} GiB "
+        f"unsharded, {peak['sharded'] / 2**30:.2f} GiB sharded")
+    del placed, opt_s, host
+    torch.cuda.empty_cache()
+    return rec
+
+
 def sharded_compression(dev):
     """compressed_psum_mean over the one-rank group on qwen3-0.6b's
     flattened f32 gradient, on the card and on a CPU copy (a one-rank gloo
@@ -3783,15 +3948,20 @@ def phase_sharded(dev):
 
     import torch.distributed as dist
 
+    from repro_torch.launch.dryrun import ARCH_RUN
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding import Shardings
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as d:
         dist.init_process_group("nccl", store=dist.FileStore(f"{d}/store", 1), rank=0,
                                 world_size=1)
         try:
-            sh = Shardings(make_host_mesh("cuda"))
+            mesh = make_host_mesh("cuda")
+            sh = Shardings(mesh)
             results = {arch: sharded_train(arch, kname, layers, dev, sh)
                        for arch, kname, layers in SHARDED_MODELS}
+            arch, kname, layers = SHARDED_MOE
+            results[arch] = sharded_train_moe(
+                arch, kname, layers, dev, Shardings(mesh, seq_shard=ARCH_RUN[arch]["sp"]))
             results["compression"] = sharded_compression(dev)
         finally:
             dist.destroy_process_group()
@@ -3809,14 +3979,15 @@ sys.path.insert(0, "src")
 import torch
 torch.set_num_threads(1)
 from repro_torch.launch import dryrun
-out = [dryrun.run_cell(arch, shape, multi_pod=mp, device="cpu", verbose=False)
-       for arch, shape, mp in json.loads(sys.argv[1])]
+out = [dryrun.run_cell(arch, shape, multi_pod=mp, device="cpu", verbose=False,
+                      run_overrides=ov)
+       for arch, shape, mp, ov in json.loads(sys.argv[1])]
 print(json.dumps(out))
 """
 
 
 def start_dryrun():
-    cells = [(arch, shape, mp) for arch, shape, mp, _ in DRYRUN_CELLS]
+    cells = [(arch, shape, mp, ov) for arch, shape, mp, ov, _ in DRYRUN_CELLS]
     return subprocess.Popen([sys.executable, "-c", DRYRUN_CHILD, json.dumps(cells)],
                             cwd=ROOT, stdout=subprocess.PIPE, text=True)
 
@@ -3831,12 +4002,12 @@ def phase_dryrun(child, started):
         fail(f"the dry run's process exited {child.returncode}")
     results = json.loads(out)
     wall = time.perf_counter() - started
-    for (arch, shape, mp, pinned), res in zip(DRYRUN_CELLS, results):
+    for (arch, shape, mp, ov, pinned), res in zip(DRYRUN_CELLS, results):
         if not res["ok"] or res["state_bytes_per_device"] != pinned:
             fail(f"[dryrun] {arch} x {shape} x {res['mesh']}: ok {res['ok']}, state bytes "
                  f"{res['state_bytes_per_device']}, pinned {pinned}")
         coll = res["collectives"]
-        log(f"[dryrun] {arch} x {shape} x {res['mesh']}: state "
+        log(f"[dryrun] {arch} x {shape} x {res['mesh']}{f' {ov}' if ov else ''}: state "
             f"{res['state_bytes_per_device'] / 2**30:.4f} GiB/device (pinned), "
             f"{res['flops']:.4e} FLOPs/device, fake step {res['step_s']:.1f} s; collectives "
             + ", ".join(f"{k} {coll[k] / 2**20:.1f} MiB x{coll['counts'][k]}"
@@ -4265,7 +4436,8 @@ def run(name, smi_line, bridge_cpu, dryrun_child):
                 "launches_train_path": f"train {TRAIN_BATCH[0]} x {TRAIN_BATCH[1]} tokens "
                                        f"in {TRAIN_BATCH[2]} microbatches, remat",
                 "launches_sharded": {a: sharded[a]["launches"]
-                                     for a, kn, _ in SHARDED_MODELS if kn == k}}
+                                     for a, kn, _ in (*SHARDED_MODELS, SHARDED_MOE)
+                                     if kn == k}}
                if k in ("flash_attention", "ssd_chunk_scan") else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":

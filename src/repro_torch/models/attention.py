@@ -15,8 +15,8 @@ from torch import nn
 
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import layers as L
-from repro_torch.sharding import (P, divisible_split, replicate_dim, replicate_like,
-                                  split_heads)
+from repro_torch.sharding import (P, divisible_split, merge_heads, replicate_dim,
+                                  replicate_like, split_heads)
 
 NEG_INF = -1e30
 
@@ -121,8 +121,7 @@ def attn_apply(p, cfg, x, positions, sh=None, *, cross_feed=None, backend: str =
         q, k, v = attn_qkv(p, cfg, x, x, positions, sh)
         out = gqa(q, k, v, causal=True, window=cfg.sliding_window, backend=backend,
                   score_dtype=score_dtype(cfg), sh=sh)
-    out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
-    return out @ p.wo, k, v
+    return merge_heads(out) @ p.wo, k, v
 
 
 def decode_attention(q1, k_cache, v_cache, cache_len, *, window: int = 0):

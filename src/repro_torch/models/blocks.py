@@ -74,10 +74,13 @@ def ffn_apply(layer, cfg, x, sh=None):
     if layer.spec.ffn == FFN_NONE:
         return x, None
     h2 = L.rmsnorm(x, layer.ln2, cfg.rms_eps)
+    if sh is not None:
+        h2 = sh.whole_seq(h2)
     if layer.spec.ffn == FFN_MOE:
         out, aux = MOE.moe_apply(layer.ffn, cfg, h2, sh)
-        return x + out, aux
-    return x + L.swiglu(layer.ffn, h2, sh), None
+    else:
+        out, aux = L.swiglu(layer.ffn, h2, sh), None
+    return x + (out if sh is None else sh.whole_seq(out)), aux
 
 
 def layer_apply(layer, cfg, x, positions, sh=None, cross_feed=None, backend: str = "kernel"):
@@ -86,6 +89,8 @@ def layer_apply(layer, cfg, x, positions, sh=None, cross_feed=None, backend: str
     stream is constrained after the mixer and after the FFN."""
     p = layer.mixer
     h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
+    if sh is not None:
+        h = sh.whole_seq(h)
     if layer.spec.mixer == MIXER_CROSS:
         mix = A.attn_apply(p, cfg, h, None, sh, cross_feed=cross_feed, backend=backend)[0]
     elif layer.spec.mixer == MIXER_ATTN:
@@ -94,6 +99,8 @@ def layer_apply(layer, cfg, x, positions, sh=None, cross_feed=None, backend: str
                else A.attn_apply(p, cfg, h, positions, sh, backend=backend)[0])
     else:
         mix = M.mamba_apply(p, cfg, h, sh, backend=backend)
+    if sh is not None:
+        mix = sh.whole_seq(mix)
     x = x + mix
     if sh is not None:
         x = sh.constrain_act(x)

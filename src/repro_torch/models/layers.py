@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.sharding import replicate_like, sharded_dim
+from repro_torch.sharding import held, replicate_like, sharded_dim
 
 PARAM_DTYPE = torch.bfloat16
 
@@ -68,7 +68,7 @@ def silu(x):
 
 def swiglu(p, x, sh=None):
     """``p`` holds ``gate``, ``up`` [d_model, d_ff] and ``down`` [d_ff, d_model]."""
-    h = silu(x @ p.gate) * (x @ p.up)
+    h = silu(held(x @ p.gate)) * held(x @ p.up)
     if sh is not None:
         h = sh.constrain_ffn(h)
     return h @ p.down

@@ -40,7 +40,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models.blocks import Layer
 from repro_torch.models.config import (FFN_MOE, FFN_NONE, MIXER_CROSS, MIXER_MAMBA,
                                        ModelConfig)
-from repro_torch.sharding import P, is_dtensor, local_apply, replicate_like
+from repro_torch.sharding import P, is_dtensor, local_apply, put_rows_, replicate_like
 
 
 class LM(nn.Module):
@@ -160,6 +160,8 @@ def prefill_layer(model: LM, layer, x, positions, max_len: int, cross=None, sh=N
     cfg = model.cfg
     p = layer.mixer
     h = L.rmsnorm(x, layer.ln, cfg.rms_eps)
+    if sh is not None:
+        h = sh.whole_seq(h)
     if layer.spec.mixer == MIXER_MAMBA:
         mix, cache = M.mamba_apply(p, cfg, h, sh, return_state=True, backend=model.backend)
     elif layer.spec.mixer == MIXER_CROSS:
@@ -265,13 +267,11 @@ def decode_step(model: LM, batch, caches, cache_len, sh=None):
     """One new token (a batch dict of ``tokens [B, 1]`` or ``embeds [B, 1,
     d]``, or tokens alone) against the caches; ``cache_len [B]`` is the
     prefix length including this token, whose K/V (MLA: latent) go to row
-    ``cache_len - 1``.  Returns (logits ``[B, 1, Vpad]``, caches).  Under
-    ``sh`` with DTensor caches, a new K/V row is written by ``where`` into
-    a new cache tensor (``write_row``), which the returned list holds."""
+    ``cache_len - 1``, in place (``sharding.put_rows_``: a DTensor cache on
+    each rank's shard).  Returns (logits ``[B, 1, Vpad]``, caches)."""
     cfg = model.cfg
     x = model.frontend(as_batch(batch), sh)
     positions = (cache_len - 1)[:, None]
-    rows = torch.arange(x.shape[0], device=x.device)
     at = (cache_len - 1).long()
     for i, layer in enumerate(model.layers):
         p = layer.mixer
@@ -294,13 +294,7 @@ def decode_step(model: LM, batch, caches, cache_len, sh=None):
                                  cache_len)
         else:
             q, k, v = A.attn_qkv(p, cfg, h, h, positions, sh)
-            kc, vc = caches[i]["k"], caches[i]["v"]
-            if is_dtensor(kc):
-                kc, vc = write_row(kc, k, at), write_row(vc, v, at)
-                caches[i] = {"k": kc, "v": vc}
-            else:
-                kc[rows, at] = k[:, 0].to(kc.dtype)
-                vc[rows, at] = v[:, 0].to(vc.dtype)
+            kc, vc = put_rows_(caches[i]["k"], k[:, 0], at), put_rows_(caches[i]["v"], v[:, 0], at)
             out = A.decode_attention(q, kc, vc, cache_len, window=cfg.sliding_window)
             out = out.reshape(*x.shape[:-1], cfg.n_heads * cfg.head_dim_)
             if sh is not None:
@@ -315,13 +309,3 @@ def decode_step(model: LM, batch, caches, cache_len, sh=None):
                      else L.swiglu(layer.ffn, h2, sh))
     x = L.rmsnorm(x, model.final_norm, cfg.rms_eps)
     return head(model, x, sh), caches
-
-
-def write_row(cache, new, at):
-    """``cache [B, S, ...]`` with row ``at[b]`` of sequence ``b`` replaced
-    by ``new[b, 0]``: a new tensor (elementwise, so a DTensor cache keeps
-    its placement and no shard moves)."""
-    pos = replicate_like(at, torch.arange(cache.shape[1], device=at.device))
-    hit = (pos[None, :] == at[:, None]).reshape(*at.shape, cache.shape[1],
-                                                *([1] * (cache.dim() - 2)))
-    return torch.where(hit, new.to(cache.dtype), cache)

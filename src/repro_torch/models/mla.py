@@ -17,7 +17,7 @@ from torch import nn
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.sharding import split_heads
+from repro_torch.sharding import held, merge_heads, put_rows_, replicate_like, split_heads
 
 NEG_INF = -1e30
 
@@ -54,7 +54,7 @@ class MLA(nn.Module):
 def mla_latents(p, cfg, x, positions):
     """Compressed latents: c_kv ``[B, S, R]``, k_rope ``[B, S, 1, Dr]`` (RoPE'd)."""
     m = cfg.mla
-    c_kv = L.rmsnorm(x @ p.wdkv, p.kv_ln, cfg.rms_eps)
+    c_kv = L.rmsnorm(held(x @ p.wdkv), p.kv_ln, cfg.rms_eps)
     k_rope = (x @ p.wkr).reshape(*x.shape[:-1], 1, m.qk_rope_dim)
     cos, sin = L.rope_freqs(m.qk_rope_dim, cfg.rope_theta, positions)
     return c_kv, L.apply_rope(k_rope, cos, sin)
@@ -63,7 +63,7 @@ def mla_latents(p, cfg, x, positions):
 def mla_queries(p, cfg, x, positions):
     """q_nope ``[B, S, H, Dn]``, q_rope ``[B, S, H, Dr]``."""
     m = cfg.mla
-    q = L.rmsnorm(x @ p.wdq, p.q_ln, cfg.rms_eps) @ p.wuq
+    q = L.rmsnorm(held(x @ p.wdq), p.q_ln, cfg.rms_eps) @ p.wuq
     q = split_heads(q, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     cos, sin = L.rope_freqs(m.qk_rope_dim, cfg.rope_theta, positions)
@@ -86,8 +86,7 @@ def mla_apply(p, cfg, x, positions, sh=None, backend: str = "kernel"):
         q, k, v = sh.constrain_heads(q), sh.constrain_heads(k), sh.constrain_heads(v)
     out = A.gqa(q, k, v, causal=True, backend=backend, score_dtype=A.score_dtype(cfg),
                 sh=sh)
-    out = out.reshape(*x.shape[:-1], h * m.v_head_dim)
-    return out @ p.wo, c_kv, k_rope
+    return merge_heads(out) @ p.wo, c_kv, k_rope
 
 
 def mla_decode(p, cfg, x1, positions, ckv_cache, krope_cache, cache_len):
@@ -97,16 +96,14 @@ def mla_decode(p, cfg, x1, positions, ckv_cache, krope_cache, cache_len):
     f32; cache_len int ``[B]`` includes this token.  Returns ``[B, 1, d]``."""
     m = cfg.mla
     h = cfg.n_heads
-    b = x1.shape[0]
     q_nope, q_rope = mla_queries(p, cfg, x1, positions)      # [B,1,H,*]
     c_kv, k_rope = mla_latents(p, cfg, x1, positions)        # [B,1,R],[B,1,1,Dr]
-    rows = torch.arange(b, device=x1.device)
     at = (cache_len - 1).long()
-    ckv_cache[rows, at] = c_kv[:, 0].to(ckv_cache.dtype)
-    krope_cache[rows, at] = k_rope[:, 0, 0].to(krope_cache.dtype)
+    put_rows_(ckv_cache, c_kv[:, 0], at)
+    put_rows_(krope_cache, k_rope[:, 0, 0], at)
 
     # absorb W_uk into the query: q_lat [B, H, R]
-    wukv = p.wukv.reshape(m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim)
+    wukv = split_heads(p.wukv, h, m.qk_nope_dim + m.v_head_dim)
     w_uk = wukv[..., :m.qk_nope_dim].float()                 # [R, H, Dn]
     w_uv = wukv[..., m.qk_nope_dim:].float()                 # [R, H, Dv]
     ckv = ckv_cache.float()
@@ -115,10 +112,9 @@ def mla_decode(p, cfg, x1, positions, ckv_cache, krope_cache, cache_len):
     scores = scores + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
                                    krope_cache.float())
     scores = scores * (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    pos = torch.arange(ckv.shape[1], device=x1.device)[None, None, :]
+    pos = replicate_like(cache_len, torch.arange(ckv.shape[1], device=x1.device))[None, None, :]
     scores = torch.where(pos < cache_len[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     lat = torch.einsum("bhs,bsr->bhr", probs, ckv)
     out = torch.einsum("bhr,rhd->bhd", lat, w_uv)
-    out = out.reshape(b, 1, h * m.v_head_dim).to(x1.dtype)
-    return out @ p.wo
+    return merge_heads(out)[:, None].to(x1.dtype) @ p.wo

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
-from repro_torch.sharding import P
+from repro_torch.sharding import P, is_dtensor, local_apply
 
 
 def experts_init(generator, e, d_in, d_out, device, scale):
@@ -53,18 +53,36 @@ class MoE(nn.Module):
 def route(p, cfg, x2):
     """The router on tokens ``[..., d]``: (probs f32 ``[..., E]``, the top-k
     gate values renormalized over the k choices, their expert ids), the
-    choices in descending probability, as ``lax.top_k`` orders them."""
+    choices in descending probability, as ``lax.top_k`` orders them.
+    ``p`` holds ``router``: the module, or ``Local`` in a rank's region."""
     probs = torch.softmax(x2.float() @ p.router, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), gate_idx
 
 
-def aux_loss(probs, gate_idx, e):
-    """Switch-style load balance: ``E * sum_e(fraction routed to e * mean
-    probability of e)``, over every token."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class Local:
+    """A MoE module's router as a rank holds it inside a local region:
+    ``route`` reads ``router`` (the local tensor); ``module`` is the
+    module it belongs to."""
+    module: nn.Module
+    router: torch.Tensor
+
+
+def load_means(probs, gate_idx, e, n):
+    """The load-balance loss's two means over ``n`` tokens, of these
+    tokens' shares: (fraction routed to each expert, mean probability of
+    each expert), each ``[E]`` f32, the sums over these tokens divided by
+    ``n``.  Summed over the ranks' token shards they are the means over
+    every token."""
     onehot = F.one_hot(gate_idx.long(), e).float()
-    me = onehot.sum(dim=-2).reshape(-1, e).mean(dim=0)
-    pe = probs.reshape(-1, e).mean(dim=0)
+    return (onehot.sum(dim=-2).reshape(-1, e).sum(dim=0) / n,
+            probs.reshape(-1, e).sum(dim=0) / n)
+
+
+def aux_loss(me, pe, e):
+    """Switch-style load balance: ``E * sum_e(fraction routed to e * mean
+    probability of e)``."""
     return e * (me * pe).sum()
 
 
@@ -82,18 +100,24 @@ def expert_spec(cfg, sh, e, *rest):
     return P(espec, *rest)
 
 
-def moe_apply(p, cfg, x, sh=None):
-    """x ``[B, S, d]`` -> (``[B, S, d]``, aux loss f32).  Capacity per batch
-    row, ``max(1, ceil(int(cf * S * k) / E))``; the buffer position of a
-    (token, choice) is its rank in a cumsum over tokens, then choices."""
-    if cfg.moe_sorted:
-        return moe_apply_sorted(p, cfg, x, sh)
-    if cfg.moe_local_chunks > 1 and x.shape[1] % cfg.moe_local_chunks == 0:
-        return moe_apply_local(p, cfg, x, sh)
+def _sharded(sh, x) -> bool:
+    return sh is not None and sh.enabled and is_dtensor(x)
+
+
+def _capacity(cfg, n) -> int:
+    """Slots an expert for ``n`` tokens: ``max(1, ceil(int(cf * n * k) / E))``."""
+    return max(1, -(-int(cfg.capacity_factor * n * cfg.top_k) // cfg.n_experts))
+
+
+def dispatch(p, cfg, x, n):
+    """Route tokens ``x [B, S, d]`` (whole rows: capacity is per row) and
+    gather them into expert buffers: (xe ``[E, B, C, d]``, the combine
+    weights ``[B, S, E, C]``, ``load_means`` over ``n`` tokens).  The
+    buffer position of a (token, choice) is its rank in a cumsum over
+    tokens, then choices; the one-hots are bf16 under ``moe_bf16``."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    cap = max(1, -(-int(cfg.capacity_factor * s * k) // e))
-
+    cap = _capacity(cfg, s)
     probs, gate_vals, gate_idx = route(p, cfg, x)             # [B, S, E], [B, S, K] x2
     onehot = F.one_hot(gate_idx.long(), e).float()            # [B, S, K, E]
     flat = onehot.reshape(b, s * k, e)
@@ -101,65 +125,132 @@ def moe_apply(p, cfg, x, sh=None):
     keep = (pos < cap) * onehot                               # drop overflow
     pos_cap = torch.clamp(pos, max=cap - 1).long()
 
-    # dispatch / combine [B, S, E, C]; the one-hots in bf16 under moe_bf16
     ddt = torch.bfloat16 if cfg.moe_bf16 else torch.float32
     oh_cap = F.one_hot(pos_cap, cap).to(ddt)                  # [B, S, K, E, C]
     disp = (keep.to(ddt)[..., None] * oh_cap).sum(dim=2)
     comb = ((keep * gate_vals[..., None]).to(ddt)[..., None] * oh_cap).sum(dim=2)
+    xe = torch.einsum("bsec,bsd->ebcd", disp, x.to(ddt)).to(x.dtype)
+    return (xe, comb, *load_means(probs, gate_idx, e, n))
 
-    xe = torch.einsum("bsec,bsd->ebcd", disp, x.to(ddt)).to(x.dtype)   # [E, B, C, d]
-    if sh is not None and sh.enabled:
-        xe = sh.constrain(xe, expert_spec(cfg, sh, e, sh.batch, None, None))
+
+def combine(comb, ye, dtype):
+    """The experts' outputs ``ye [E, B, C, d]`` back to tokens ``[B, S, d]``."""
+    return torch.einsum("bsec,ebcd->bsd", comb, ye.to(comb.dtype)).float().to(dtype)
+
+
+def moe_apply(p, cfg, x, sh=None):
+    """x ``[B, S, d]`` -> (``[B, S, d]``, aux loss f32).  Capacity per batch
+    row, ``max(1, ceil(int(cf * S * k) / E))`` (``dispatch``).
+
+    Under ``sh`` with a DTensor x, the routing and the dispatch run on each
+    rank's batch rows, every row whole (the sequence gathered under
+    sequence parallelism; ``Shardings.local``), so a row drops the tokens
+    it drops unsharded; the router's gradient is each rank's share, summed
+    over the data axes, and the load means are partial sums over them.
+    The expert buffers enter the experts with the JAX package's spec
+    (``expert_spec``) and the products run on the placed weights."""
+    if cfg.moe_sorted:
+        return moe_apply_sorted(p, cfg, x, sh)
+    if cfg.moe_local_chunks > 1 and x.shape[1] % cfg.moe_local_chunks == 0:
+        return moe_apply_local(p, cfg, x, sh)
+    b, s, d = x.shape
+    e = cfg.n_experts
+    if not _sharded(sh, x):
+        xe, comb, me, pe = dispatch(p, cfg, x, b * s)
+        return combine(comb, _experts(p, xe), x.dtype), aux_loss(me, pe, e)
+    ba = sh.batch_of(x)
+    rows = P(ba, None, None)
+    xe, comb, me, pe = sh.local(
+        lambda x, w: dispatch(Local(p, w), cfg, x, b * s),
+        (P(None, ba, None, None), P(ba, None, None, None), P(), P()),
+        (rows, P()), x, p.router, summed={1: ba}, partial={2: ba, 3: ba})
+    xe = sh.constrain(xe, expert_spec(cfg, sh, e, ba, None, None))
     ye = _experts(p, xe)
-    y = torch.einsum("bsec,ebcd->bsd", comb, ye.to(ddt)).float()
-    return y.to(x.dtype), aux_loss(probs, gate_idx, e)
+    y = sh.local(lambda c, y: combine(c, y, x.dtype), rows,
+                 (P(ba, None, None, None), P(None, ba, None, None)), comb, ye)
+    return y, aux_loss(me, pe, e)
 
 
 def moe_apply_local(p, cfg, x, sh=None):
     """Local-capacity routing: the sequence folded into
-    ``moe_local_chunks`` routing groups, each with its own capacity."""
+    ``moe_local_chunks`` routing groups, each with its own capacity (under
+    ``sh``, each rank folds its own rows, the sequence gathered)."""
     b, s, d = x.shape
     n = cfg.moe_local_chunks
     sub = dataclasses.replace(cfg, moe_local_chunks=0)
-    y, aux = moe_apply(p, sub, x.reshape(b * n, s // n, d), sh)
-    return y.reshape(b, s, d), aux
+    if _sharded(sh, x):
+        x = sh.constrain(x, P(sh.batch_of(x), None, None))
+    y, aux = moe_apply(p, sub, local_apply(lambda t: t.reshape(-1, s // n, d), x,
+                                           (b * n, s // n, d)), sh)
+    return local_apply(lambda t: t.reshape(-1, s, d), y, (b, s, d)), aux
+
+
+def sorted_dispatch(p, cfg, xf):
+    """Sort-based routing of tokens ``xf [T, d]``, capacity global over the
+    T tokens: (xe ``[E, C, d]``, the plan ``(keep, buf, order, gate values
+    in sorted order)``, ``load_means``).  (token, choice) pairs are sorted
+    stably by expert; a pair's slot is its rank within its expert."""
+    t, d = xf.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(cfg, t)
+    probs, gate_vals, gate_idx = route(p, cfg, xf)            # [T, E], [T, K] x2
+    exp_flat = gate_idx.reshape(t * k)
+    tok_flat = torch.arange(t, device=xf.device).repeat_interleave(k)
+    order = torch.sort(exp_flat, stable=True).indices
+    exp_s = exp_flat[order]
+    first = torch.searchsorted(exp_s, exp_s, side="left")
+    rank = torch.arange(t * k, device=xf.device) - first      # position within expert
+    keep = rank < cap
+    buf = torch.where(keep, exp_s * cap + rank, e * cap)
+    xe = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    xe[buf] = xf[tok_flat[order]]           # overflow rows all land on the spare row
+    plan = (keep, buf, order, gate_vals.reshape(t * k)[order])
+    return (xe[:e * cap].reshape(e, cap, d), plan, *load_means(probs, gate_idx, e, t))
+
+
+def sorted_combine(ye, keep, buf, order, gates, k):
+    """The experts' outputs ``ye [E, C, d]`` back to tokens ``[T, d]`` f32:
+    each token's k contributions summed in a fixed order (choice 0
+    first), with no atomic adds, so a run is repeatable on the card."""
+    e, cap, d = ye.shape
+    ye = ye.reshape(e * cap, d)
+    contrib = torch.where(keep[:, None], ye[torch.clamp(buf, max=e * cap - 1)],
+                          torch.zeros((), dtype=ye.dtype, device=ye.device))
+    contrib = contrib.float() * gates[:, None]
+    unsorted = torch.empty_like(contrib)
+    unsorted[order] = contrib                                 # back to (token, choice)
+    unsorted = unsorted.reshape(-1, k, d)
+    y = unsorted[:, 0]
+    for j in range(1, k):
+        y = y + unsorted[:, j]
+    return y
 
 
 def moe_apply_sorted(p, cfg, x, sh=None):
     """Sort-based dispatch: (token, choice) pairs sorted stably by expert,
     gathered into ``[E, C, d]`` buffers, capacity global over the batch.
-    Each token's k contributions are summed in a fixed order (choice 0
-    first), with no atomic adds, so a run is repeatable on the card."""
+
+    Under ``sh`` with a DTensor x, capacity stays global over the whole
+    batch, as the JAX package computes it: the tokens are gathered to
+    every rank, each rank routes all of them (``Shardings.local``, the
+    same drops as unsharded), the buffers enter the experts with
+    ``expert_spec``, and the combine runs on every rank."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    cap = max(1, -(-int(cfg.capacity_factor * t * k) // e))
+    if not _sharded(sh, x):
+        xe, plan, me, pe = sorted_dispatch(p, cfg, x.reshape(b * s, d))
+        y = sorted_combine(_experts(p, xe), *plan, k)
+        return y.reshape(b, s, d).to(x.dtype), aux_loss(me, pe, e)
+    whole = P(None, None, None)
+    xe, keep, buf, order, gates, me, pe = sh.local(
+        lambda x, w: _flat_plan(sorted_dispatch(Local(p, w), cfg, x.reshape(b * s, d))),
+        (whole, P(None), P(None), P(None), P(None), P(), P()), (whole, P()), x, p.router)
+    ye = _experts(p, sh.constrain(xe, expert_spec(cfg, sh, e, None, None)))
+    y = sh.local(lambda *a: sorted_combine(*a, k).reshape(b, s, d).to(x.dtype), whole,
+                 (whole, P(None), P(None), P(None), P(None)), ye, keep, buf, order, gates)
+    return y, aux_loss(me, pe, e)
 
-    xf = x.reshape(t, d)
-    probs, gate_vals, gate_idx = route(p, cfg, xf)            # [T, E], [T, K] x2
-    exp_flat = gate_idx.reshape(t * k)
-    tok_flat = torch.arange(t, device=x.device).repeat_interleave(k)
-    order = torch.sort(exp_flat, stable=True).indices
-    exp_s = exp_flat[order]
-    first = torch.searchsorted(exp_s, exp_s, side="left")
-    rank = torch.arange(t * k, device=x.device) - first       # position within expert
-    keep = rank < cap
-    buf = torch.where(keep, exp_s * cap + rank, e * cap)
 
-    xe = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    xe[buf] = xf[tok_flat[order]]           # overflow rows all land on the spare row
-    xe = xe[:e * cap].reshape(e, cap, d)
-    if sh is not None and sh.enabled:
-        xe = sh.constrain(xe, expert_spec(cfg, sh, e, None, None))
-    ye = _experts(p, xe).reshape(e * cap, d)
-
-    contrib = torch.where(keep[:, None], ye[torch.clamp(buf, max=e * cap - 1)],
-                          torch.zeros((), dtype=ye.dtype, device=x.device))
-    contrib = contrib.float() * gate_vals.reshape(t * k)[order][:, None]
-    unsorted = torch.empty_like(contrib)
-    unsorted[order] = contrib                                 # back to (token, choice)
-    unsorted = unsorted.reshape(t, k, d)
-    y = unsorted[:, 0]
-    for j in range(1, k):
-        y = y + unsorted[:, j]
-    return y.reshape(b, s, d).to(x.dtype), aux_loss(probs, gate_idx, e)
+def _flat_plan(out):
+    xe, plan, me, pe = out
+    return (xe, *plan, me, pe)

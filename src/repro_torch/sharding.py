@@ -127,6 +127,73 @@ def split_heads(x, n: int, d: int):
     return divisible_split(x, -1, n).reshape(*x.shape[:-1], n, d)
 
 
+def put_rows_(cache, new, at):
+    """``cache [B, S, ...]`` with row ``at[b]`` of sequence ``b`` set to
+    ``new [B, ...]``, in place; returns ``cache``.  A DTensor cache takes
+    the write on each rank's shard: ``new`` and ``at`` are placed as its
+    batch and trailing dims first, and a rank whose shard of the sequence
+    does not hold a row leaves it (no shard moves)."""
+    if not is_dtensor(cache):
+        cache[torch.arange(cache.shape[0], device=cache.device), at] = new.to(cache.dtype)
+        return cache
+    mesh, pls = cache.device_mesh, cache.placements
+    lead = lambda pl: pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()  # noqa: E731
+    new = replicate_like(cache, new).redistribute(mesh, [
+        Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim >= 2 else lead(pl)
+        for pl in pls]).to_local()
+    at = replicate_like(cache, at).redistribute(mesh, [lead(pl) for pl in pls]).to_local()
+    loc = cache.to_local()
+    off, span = 0, cache.shape[1]           # this shard's first row of the sequence
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            span //= mesh.size(i)
+            off += mesh.get_coordinate()[i] * span
+    pos = torch.arange(off, off + loc.shape[1], device=loc.device)
+    hit = (pos[None, :] == at[:, None]).reshape(*at.shape, loc.shape[1],
+                                                *([1] * (loc.dim() - 2)))
+    loc.copy_(torch.where(hit, new.to(loc.dtype)[:, None], loc))
+    return cache
+
+
+class _Held(torch.autograd.Function):
+    """The identity, whose backward places the gradient as the forward
+    placed its input (a partial sum's gradient replicated)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if pl.is_partial() else pl for pl in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def held(x):
+    """``x``, whose gradient comes back placed as ``x`` is (a DTensor; else
+    ``x`` itself).  For a product's output whose gradient DTensor's own
+    choices would place otherwise: after a norm over its sharded last dim
+    (MLA's latents), or under a replicated microbatch with FSDP weights
+    (the FFN), the gradient can land on the sequence, a strided shard once
+    the product's backward flattens it."""
+    return _Held.apply(x) if is_dtensor(x) and x.requires_grad else x
+
+
+def merge_heads(x):
+    """``x [..., H, D]`` viewed as ``[..., H * D]``.  A DTensor whose heads
+    are not split (the divisibility fallback) merges on each rank's shard:
+    its backward then gathers the gradient's ``H * D`` (split by a
+    row-parallel weight) before it splits it into heads again, where a
+    view would split an uneven shard."""
+    shape = (*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if not is_dtensor(x) or sharded_dim(x, -2) or sharded_dim(x, -1):
+        return x.reshape(shape)
+    return local_apply(lambda t: t.reshape(*t.shape[:-2], shape[-1]), x, shape)
+
+
 class Shardings:
     """Mesh-aware spec factory with divisibility fallback.
 
@@ -218,12 +285,29 @@ class Shardings:
             return x
         return x.redistribute(self.mesh, pl)
 
+    def batch_of(self, x):
+        """The batch axes for ``x``'s leading dim, or None where they do not
+        divide it (a microbatch smaller than the data axes: replicated)."""
+        return self.maybe(self.batch, x.shape[0], "batch")
+
     def constrain_act(self, x):
         """``[B, S, D]`` residual-stream activations."""
         if not self.enabled:
             return x
         s = self.seq if (self.seq and x.shape[1] % self.axis_size(self.seq) == 0) else None
-        return self.constrain(x, P(self.batch, s, None))
+        return self.constrain(x, P(self.batch_of(x), s, None))
+
+    def whole_seq(self, x):
+        """``[B, S, D]`` with its sequence whole under sequence parallelism:
+        the normed residual entering a mixer or an FFN (GSPMD gathers it
+        before a column-parallel weight) and the block's output before the
+        residual add (reduced whole, so the backward hands the products a
+        gradient whose sequence is whole too).  No product then flattens
+        a sequence-sharded activation: a strided shard, which DTensor
+        sizes on the host.  The identity without sequence parallelism."""
+        if not self.seq or not is_dtensor(x):
+            return x
+        return self.constrain(x, P(self.batch_of(x), None, None))
 
     def constrain_dec(self, x):
         """Decode-path activation entering a weight matmul."""
@@ -231,7 +315,7 @@ class Shardings:
             return x
         if self.decode_replicate:
             return self.constrain(x, P(*([None] * x.ndim)))
-        return self.constrain(x, P(self.batch, *([None] * (x.ndim - 1))))
+        return self.constrain(x, P(self.batch_of(x), *([None] * (x.ndim - 1))))
 
     def constrain_heads(self, x):
         """``[B, S, H, Dh]``."""
@@ -242,7 +326,7 @@ class Shardings:
             # at the cache instead
             return x
         h = self.maybe(self.model, x.shape[2], "attn heads")
-        return self.constrain(x, P(self.batch, None, h, None))
+        return self.constrain(x, P(self.batch_of(x), None, h, None))
 
     def constrain_ffn(self, h):
         """``[B, S, F]`` (or ``[..., F]``) ffn hidden."""
@@ -253,7 +337,7 @@ class Shardings:
             f = self.maybe(comb, h.shape[-1], "ffn hidden (combined)")
             return self.constrain(h, P(*([None] * (h.ndim - 1)), f))
         f = self.maybe(self.model, h.shape[-1], "ffn hidden")
-        spec = [self.batch] + [None] * (h.ndim - 2) + [f]
+        spec = [self.batch_of(h)] + [None] * (h.ndim - 2) + [f]
         return self.constrain(h, P(*spec))
 
     def constrain_logits(self, x):
@@ -264,11 +348,11 @@ class Shardings:
             v = self.maybe(comb, x.shape[-1], "vocab (combined)")
             return self.constrain(x, P(None, None, v))
         v = self.maybe(self.model, x.shape[-1], "vocab")
-        return self.constrain(x, P(self.batch, None, v))
+        return self.constrain(x, P(self.batch_of(x), None, v))
 
     # ---------------- local regions ----------------
 
-    def local(self, fn, out_specs, in_specs, *args, summed=None):
+    def local(self, fn, out_specs, in_specs, *args, summed=None, partial=None):
         """Run ``fn`` on each rank's shards (``local_map``): every DTensor
         argument is redistributed to its entry of ``in_specs`` (``None``
         for a non-tensor argument) and passed as its local tensor, and the
@@ -278,20 +362,23 @@ class Shardings:
         for.  ``summed`` maps an argument's index to the mesh axes it is
         replicated over while the others are sharded there: each rank then
         holds a part of its gradient (a weight's share of its batch shard,
-        B/C's of its heads), summed over those axes.  With no DTensor
-        argument, ``fn(*args)``."""
+        B/C's of its heads), summed over those axes.  ``partial`` maps an
+        output's index to the mesh axes over which each rank's result is a
+        share of a sum (``Partial``: the MoE load means of each rank's
+        tokens).  With no DTensor argument, ``fn(*args)``."""
         if not self.enabled or not any(is_dtensor(a) for a in args):
             return fn(*args)
-        # local_map reads a tuple as one entry an output: a placement list is a list
-        pl = lambda s: None if s is None else list(self.placements(s))  # noqa: E731
-        outs = (tuple(pl(s) for s in out_specs) if isinstance(out_specs, tuple)
-                and not isinstance(out_specs, P) else pl(out_specs))
+        def pl(s, axes=None):
+            # one placement list a tensor (local_map reads a tuple as one
+            # entry an output), Partial over ``axes``
+            return None if s is None else [Partial() if n in spec_axes(axes) else q
+                                           for n, q in zip(self.names, self.placements(s))]
+        partial = partial or {}
+        outs = (tuple(pl(s, partial.get(i)) for i, s in enumerate(out_specs))
+                if isinstance(out_specs, tuple) and not isinstance(out_specs, P)
+                else pl(out_specs, partial.get(0)))
         ins = tuple(pl(s) for s in in_specs)
-        grads = None
-        if summed:
-            grads = tuple(None if x is None else
-                          [Partial() if self.names[j] in spec_axes(summed.get(i)) else q
-                           for j, q in enumerate(x)] for i, x in enumerate(ins))
+        grads = tuple(pl(s, summed.get(i)) for i, s in enumerate(in_specs)) if summed else None
         return local_map(fn, out_placements=outs, in_placements=ins,
                          in_grad_placements=grads, device_mesh=self.mesh,
                          redistribute_inputs=True)(*args)

@@ -25,6 +25,7 @@ from repro.models import lm as jlm  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.sharding import Shardings as JShardings  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs.shapes import applicable_shapes  # noqa: E402
 from repro_torch.launch import dryrun as TD  # noqa: E402
 from repro_torch.launch.mesh import fake_world, make_production_mesh  # noqa: E402
 from repro_torch.sharding import P, Shardings  # noqa: E402
@@ -97,6 +98,39 @@ def test_run_cell_reduced_serving(shape):
         "qwen3-0.6b", shape, TD.PRODUCTION_MESHES[False], reduced=True)
 
 
+# the reduced grid's heaviest archs (Mamba-2 layers: many small operations
+# a layer), run by tests/test_torch_dryrun_b.py so that --dist loadfile
+# spreads the grid over two workers
+GRID_B = ("mamba2-780m", "jamba-1.5-large-398b")
+
+
+def grid(archs):
+    """(arch, shape) of every applicable shape of ``archs``' reduced configs."""
+    return [(a, sh.name) for a in archs for sh in applicable_shapes(get_config(a, reduced=True))]
+
+
+def check_cell(arch, shape):
+    """``run_cell(reduced=True)`` of one cell on the 16x16 mesh runs its
+    fake step (a train cell at one microbatch: the same operations a
+    microbatch, fewer of them), and reports the specs' state bytes."""
+    train = TD.SHAPES[shape].kind == "train"
+    res = TD.run_cell(arch, shape, reduced=True, device="cpu", verbose=False,
+                      run_overrides={"micro": 1} if train else None)
+    assert res["ok"] and res["mesh"] == "16x16" and res["flops"] > 0
+    assert res["state_bytes_per_device"] == TD.state_bytes(
+        arch, shape, TD.PRODUCTION_MESHES[False], reduced=True)
+    if train:       # the data-parallel gradient reductions happen
+        assert res["collectives"]["counts"]["reduce-scatter"] > 0
+
+
+@pytest.mark.parametrize("arch,shape", grid(a for a in ARCH_IDS if a not in GRID_B))
+def test_run_cell_reduced_every_cell(arch, shape):
+    """Every arch x applicable shape on 16x16 (the MoE routing and
+    dispatch, sequence parallelism and MLA's decode on DTensor caches
+    included), but ``GRID_B``'s (``tests/test_torch_dryrun_b.py``)."""
+    check_cell(arch, shape)
+
+
 def test_step_counter_counts_local_work():
     """One sharded product and one gather on a fake (16, 16) world: the
     FLOPs of the local product only (not DTensor's shape propagation on
@@ -117,22 +151,41 @@ def test_step_counter_counts_local_work():
     assert sum(count.counts.values()) == 1
 
 
+def jax_state_bytes(arch, shape_name, fm):
+    """The JAX package's state bytes a device of a full-width cell: the
+    parameters, plus the ZeRO-1 AdamW state of a train cell or the caches
+    of a decode cell (``repro.launch.dryrun``'s ``state_bytes_per_device``)."""
+    from repro.configs import shapes as jshapes
+    if TD.SHAPES[shape_name].kind == "train":
+        return jax_train_state_bytes(arch, fm, reduced=False)
+    per_device_bytes = jax_per_device_bytes()
+    cfg = jget_config(arch)
+    sh = JShardings(fm, seq_shard=TD.ARCH_RUN[arch]["sp"])
+    sds = jax.eval_shape(lambda: jlm.init_params(cfg, jax.random.key(0)))
+    total = per_device_bytes(sds, JS.param_specs(cfg, sh, sds, fsdp=TD.ARCH_RUN[arch]["fsdp"]),
+                             fm)
+    if TD.SHAPES[shape_name].kind == "decode":
+        caches = jshapes.input_specs(cfg, jshapes.SHAPES[shape_name])["caches"]
+        total += per_device_bytes(caches, JS.cache_specs(cfg, sh, caches), fm)
+    return total
+
+
 def test_phase8_pinned_state_bytes():
     """``chip_smoke.DRYRUN_CELLS``' pinned state bytes: the port's analytic
-    bytes, and the JAX package's for the train cells (mamba2-780m on
-    16x16 differs by ``tests/test_torch_sharding.py``'s STACKED_ZERO1:
-    ZeRO-1 on the JAX package's layer stacks)."""
+    bytes, and the JAX package's for every cell (mamba2-780m on 16x16
+    differs by ``tests/test_torch_sharding.py``'s STACKED_ZERO1: ZeRO-1 on
+    the JAX package's layer stacks)."""
     cs = chip_smoke()
     stacked = {("mamba2-780m", "train_4k", "16x16"): 348840}
-    assert len(cs.DRYRUN_CELLS) == 7
-    for arch, shape, multi_pod, pinned in cs.DRYRUN_CELLS:
+    assert len(cs.DRYRUN_CELLS) == 10
+    for arch, shape, multi_pod, overrides, pinned in cs.DRYRUN_CELLS:
         mesh = TD.PRODUCTION_MESHES[multi_pod]
-        assert TD.state_bytes(arch, shape, mesh) == pinned, (arch, shape, multi_pod)
-        if shape == "train_4k":
-            fm = FakeMesh(mesh.axis_names, mesh.axis_sizes)
-            name = "2x16x16" if multi_pod else "16x16"
-            assert pinned == jax_train_state_bytes(arch, fm, reduced=False) + stacked.get(
-                (arch, shape, name), 0)
+        assert TD.state_bytes(arch, shape, mesh, run_overrides=overrides) == pinned, (
+            arch, shape, multi_pod)
+        fm = FakeMesh(mesh.axis_names, mesh.axis_sizes)
+        name = "2x16x16" if multi_pod else "16x16"
+        assert pinned == jax_state_bytes(arch, shape, fm) + stacked.get(
+            (arch, shape, name), 0), (arch, shape, name)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -25,9 +25,13 @@ on the CPU, against the JAX package:
   learning rate 2 f32 ULPs.
 
 The world is one ``torch.multiprocessing.spawn`` of 4 processes (a
-``FileStore`` under the test's temporary directory, one thread each) that
-runs every case; meanwhile the parent computes the JAX package's and the
-port's unsharded results, then compares.
+``FileStore`` under the test's temporary directory, one thread each,
+``faulthandler`` on: a rank that crashes prints every thread's stack)
+that runs every case, after the parent has computed the JAX package's and
+the port's unsharded results: the parent waits while the world runs, so
+the file's five processes never compete for the cores that the other
+test workers leave (a rank of this world once died of SIGSEGV under the
+whole suite's load, and no run reproduced it: ``CHANGES.md``).
 """
 
 import importlib.util
@@ -94,12 +98,16 @@ def _world(rank, d):
     """One rank: the compression rows, then every (arch, fsdp) case on the
     (2, 2) mesh; rank 0 writes the full tensors, every rank its own
     compression results."""
+    import faulthandler
+
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.launch import specs as TS
     from repro_torch.sharding import Shardings
 
+    faulthandler.enable(all_threads=True)
     torch.set_num_threads(1)
+    torch.set_num_interop_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
                             world_size=WORLD)
     try:
@@ -239,16 +247,13 @@ def world(tmp_path_factory):
     np.savez(os.path.join(d, "rows.npz"), g=g, e=e)
     J = jax_side()
     refs = {arch: inputs(J, arch) for arch in {a for a, _ in CASES}}
-    for arch, ref in refs.items():
-        torch.save({k: ref[k] for k in ("params", "opt", "batch")}, _case_file(d, arch))
-    # the world runs while this process computes the references
-    ctx = torch.multiprocessing.spawn(_world, args=(d,), nprocs=WORLD, join=False)
     ports = {}
     for arch, ref in refs.items():
+        torch.save({k: ref[k] for k in ("params", "opt", "batch")}, _case_file(d, arch))
         reference(J, ref)
         ports[arch] = unsharded(ref)
-    while not ctx.join():
-        pass
+    # the world runs alone: this process waits (module docstring)
+    torch.multiprocessing.spawn(_world, args=(d,), nprocs=WORLD)
     comp = [torch.load(os.path.join(d, f"compress{r}.pt")) for r in range(WORLD)]
     steps = torch.load(os.path.join(d, "steps.pt"), weights_only=False)
     return refs, ports, steps, (g, e), comp
