@@ -34,7 +34,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                cross-attention's non-causal Sk > Sq on both kernels, a
                bf16 value head dim off 8 refused; MLA at minicpm3-4b's
                full width and cross-attention at llama-3.2-vision-90b's
-               timed beside their bounds and SDPA) and ssd_chunk_scan
+               timed beside their bounds and SDPA; the tensor-core
+               kernel's bf16-score variant, cfg.attn_bf16, on every bf16
+               case against the plain version's bf16 scores within 2e-2,
+               its launches counted, timed at qwen3-0.6b's shape beside the
+               f32-score kernel, SDPA and the bound) and ssd_chunk_scan
                within 2e-4 (B/C in
                group form; bf16 on the tensor-core kernel, f32 on the
                SIMT kernel, the launch counted on the dtype's kernel, a
@@ -61,10 +65,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                one fused launch a tick each; launch counts reset just before
                each run and read just after; the final states equal to the
                runs through the split control, arrivals and sends phases,
-               the plain departures phase, the plain versions on the card
-               and the CPU, field by field; the summaries equal to the JAX
-               reference's; ticks/s in turns (fused, plain departures,
-               plain; TURNS runs a way) on perm_1024n_3t and alltoall_3t
+               the plain departures phase and the CPU port (run in a
+               process of its own from the end of the build, with phase
+               4c's), field by field, and to the plain versions on the card
+               over the first MAIN_PLAIN_TICKS ticks; the summaries equal
+               to the JAX reference's; ticks/s in turns (fused, plain departures;
+               TURNS runs a way; the plain versions timed on their one
+               equality run) on perm_1024n_3t and alltoall_3t
   4b. red_mark — the first 300 ticks of perm_1024n_3t on the card, the
                red_mark kernel beside every tick's departures: its marks
                equal to the flip departures applies (fabric.red_marks on
@@ -84,7 +91,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                launch where the run has them), launch counts reset just before
                and read just after; the summary equal to the JAX
                reference's; the final state equal to the plain-on-card run
-               and to the CPU port's, each over the prefix of ticks
+               and to the CPU port's (its process started with phase 4's),
+               each over the prefix of ticks
                COMPARISON_RUNS states
   4d. experiment API — api.run of perm_1024n_3t and perm_512n_3t on the
                card (rows equal to the JAX reference's pinned rows,
@@ -115,8 +123,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                api.run's, the base point's seed-0 row to the pinned JAX
                row; lanes a second of the 4- and 16-lane studies through
                the lane loop and one after another, in turns (median of
-               5); the device's idle share of a 16-lane batched tick
+               3); the device's idle share of a 16-lane batched tick
                under torch.profiler; the 16-lane study's peak memory
+  4g. mesh — phase 4e's 16-lane perm_1024n_3t study over meshes of the
+               one card repeated, [cuda:0] * 2 and * 3 (16 lanes padded
+               to 18): one lane loop a shard, each on a host thread and a
+               CUDA stream of its own (counts reset just before, read just
+               after); every lane's final state bit-equal to 4e's
+               one-device batch, each fused kernel launched the sum of the
+               shards' batched ticks; lanes a second beside the one-device
+               batch (median of 3, in turns); over distinct cards where
+               there are two or more, else one line saying so
   4f. bridge — collectives/bridge.py's estimate of a 4 MiB all-to-all and
                an 8 MiB all-reduce on 32 nodes at 4:1 oversubscription
                under smartt, swift and eqds on the card: every field equal
@@ -124,7 +141,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                start) and to the JAX package's pinned values
   5. serving — qwen3-0.6b (28 layers) and mamba2-780m (48 layers) at full
                width from a seeded init on the card, each serving two
-               requests (B=4 x 512 prompt tokens and B=2 x 300, 32 new
+               requests (B=4 x 512 prompt tokens and B=2 x 300, 16 new
                tokens) through serve.generate; launch counts reset just
                before each generate and read just after (flash_attention
                28 per qwen3 prefill, ssd_chunk_scan 48 per mamba2
@@ -135,14 +152,17 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                and tokens against the same model served through the
                plain versions on the card; time to first token, decode
                tokens/s, peak memory and the device's idle share while
-               decoding
+               decoding; then qwen3-0.6b's first request's prefill once
+               with attn_bf16 (the flash kernel's bf16-score variant, one
+               launch a layer): logits against the plain path's within
+               5e-2, TTFT beside f32 scores
   5b. zoo — the other eight architectures at full width from a seeded
                init, one at a time (qwen2-0.5b, phi3-mini-3.8b, minicpm3-4b
                and musicgen-large whole; llama-3.2-vision-90b 5 layers,
                dbrx-132b and mixtral-8x22b 2, jamba-1.5-large-398b pattern
                positions 0-4: what one card holds), each serving B=4 x 512
                prompt tokens (musicgen: frame embeddings; llama-vision: a
-               [4, 4096, 8192] cross feed) and 16 new tokens, through
+               [4, 4096, 8192] cross feed) and 8 new tokens, through
                serve.generate or prefill + decode_step; launch counts
                reset just before and read just after (flash_attention once
                an attention, cross or MLA layer and ssd_chunk_scan once a
@@ -169,7 +189,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
                microbatch's forward and backward, peak memory, the
                device's busy share of a step (torch.profiler) and the
                plain versions' step time in turns.  Then the restart:
-               qwen3-0.6b through train.loop for 2 steps and a checkpoint,
+               qwen3-0.6b at full width cut to RESTART_LAYERS layers
+               through train.loop for 2 steps and a checkpoint,
                resumed to 4, against 4 uninterrupted steps, under
                torch.use_deterministic_algorithms(True, warn_only=True):
                losses, final parameters and moments equal bit for bit
@@ -245,6 +266,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
@@ -402,10 +424,10 @@ RECOVERY = dict(rto_backoff_max=2, evict_on_timeout=True)   # benchmarks/failove
 TICK = ("departures", "control", "arrivals", "sends")
 SMARTT_TICK = TICK + ("control:smartt",)
 COMPARISON_RUNS = (
-    ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"), TICK, None, 150),
-    ("perm_1024n_3t/mprdma", "perm_1024n_3t", dict(algo="mprdma"), TICK, None, 150),
+    ("perm_1024n_3t/swift", "perm_1024n_3t", dict(algo="swift"), TICK, 150, 150),
+    ("perm_1024n_3t/mprdma", "perm_1024n_3t", dict(algo="mprdma"), TICK, 150, 150),
     ("perm_1024n_3t/eqds", "perm_1024n_3t", dict(algo="eqds"),
-     TICK + ("rr_pick",), None, 150),
+     TICK + ("rr_pick",), 150, 150),
     ("incast_256x1_3t/eqds", "incast_256x1_3t", dict(algo="eqds"),
      TICK + ("rr_pick",), 300, 300),
     ("corefail_128n_3t", "corefail_128n_3t", {}, SMARTT_TICK, 540, 540),
@@ -440,8 +462,12 @@ SPLIT_KERNELS = {"split-control": {"control": ("cc_update", "ring_drain"),
                  "split-arrivals": {"arrivals": ("enqueue_rank",)},
                  "split-sends": {"sends": ("rr_pick",)},
                  "plain-departures": {"departures": ()}}
-TURNS = 5                 # runs a way, in turns: fused, plain departures, plain
-TURN_WAYS = ("kernel", "plain-departures", "plain")
+# runs a way, in turns: fused, plain departures; the plain versions are
+# timed on their one equality run (few turns keep the script inside its
+# time limit on a slower host)
+TURNS = 3
+MAIN_PLAIN_TICKS = 300    # the plain versions on the card: a prefix of each main run
+TURN_WAYS = ("kernel", "plain-departures")
 TURN_RUNS = ("perm_1024n_3t", "alltoall_3t")
 # phase 3's fused control kernel against control_ref: seeded operands
 # ((NF, N, W, MAXW, R), seed, flags): one flow, a ragged ring (W = 1024,
@@ -527,7 +553,7 @@ LANES_POINTS = tuple({"start_cwnd_mult": a, "kmin_frac": k, "fd": f}
 LANES_SEEDS = (0, 1)
 LANES_BASE = {"start_cwnd_mult": 1.25, "kmin_frac": 0.2, "fd": 0.8}
 EQDS_POINTS = ({}, {"credit_window_mult": 1.5})      # the 4-lane eqds study
-LANE_TURNS = 5            # timed turns: batched and one after another
+LANE_TURNS = 3            # timed turns: batched and one after another
 # the batched kernels' check: four lanes of perm_1024n_3t under their own
 # constants, driven to their own ticks; the last is not live
 CHECK_POINTS = ({"kmin_frac": 0.3, "fd": 0.6}, {"start_cwnd_mult": 1.0},
@@ -535,6 +561,8 @@ CHECK_POINTS = ({"kmin_frac": 0.3, "fd": 0.6}, {"start_cwnd_mult": 1.0},
 CHECK_TICKS = (40, 120, 200, 60)
 CHECK_STEPS = 5
 LANE_PROFILE_TICKS = 100
+MESH_SIZES = (2, 3)       # phase 4g: 4e's 16-lane study over [cuda:0] * k
+MESH_TURNS = 3
 # phase 8: the dry run's cells (arch, shape, multi-pod, ARCH_RUN overrides,
 # the analytic state bytes a device, pinned by tests/test_torch_dryrun.py
 # against the port's launch.dryrun.state_bytes and the JAX package's
@@ -1618,6 +1646,62 @@ def run_path(name, device, backend, max_ticks=None, tag=None, **overrides):
     return sim, st, summ, launches, wall
 
 
+# The CPU port's runs that phases 4 and 4c hold the card's states to: (tag,
+# scenario, config overrides, ticks; None: to completion).  They run in a
+# process of their own from the end of the build, beside the card's phases.
+CPU_RUNS = tuple((name, name, {}, None) for name, _ in MAIN_RUNS) + tuple(
+    (key, name, ov, cpu_prefix) for key, name, ov, _, _, cpu_prefix in COMPARISON_RUNS)
+CPU_CHILD = """
+import sys
+sys.path.insert(0, ".")
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+chip_smoke.cpu_runs(sys.argv[1])
+"""
+
+
+def cpu_runs(out):
+    """Run CPU_RUNS through the CPU port (the plain versions) and save each
+    run's final state (its leaves by name), wall time and ticks to ``out``."""
+    res = {}
+    for tag, name, ov, ticks in CPU_RUNS:
+        _, st, summ, _, wall = run_path(name, "cpu", "kernel", max_ticks=ticks, tag=tag, **ov)
+        res[tag] = dict(state=dict(leaves(st)), wall=wall, ticks=summ["ticks"])
+    torch.save(res, out)
+
+
+class CpuRuns:
+    """CPU_RUNS in a child process (cpu_runs); ``get(tag)`` waits for it
+    the first time and then returns that run's record."""
+
+    def __init__(self, directory):
+        self.path = Path(directory) / "cpu_runs.pt"
+        self.child = subprocess.Popen([sys.executable, "-c", CPU_CHILD, str(self.path)],
+                                      cwd=ROOT, stdout=subprocess.PIPE, text=True)
+        self.started = time.perf_counter()
+        self.runs = None
+
+    def get(self, tag):
+        if self.runs is None:
+            t0 = time.perf_counter()
+            out, _ = self.child.communicate(timeout=1200)
+            for line in out.splitlines():
+                log(f"[cpu] {line}")
+            if self.child.returncode != 0:
+                fail(f"the CPU port's runs exited {self.child.returncode}")
+            self.runs = torch.load(self.path)
+            log(f"[cpu] {len(self.runs)} CPU runs in their own process, done "
+                f"{time.perf_counter() - self.started:.1f} s after it started "
+                f"(waited {time.perf_counter() - t0:.1f} s)")
+        return self.runs[tag]
+
+
+def cpu_differ(st, cpu):
+    """Leaves of ``st`` that differ from a CPU run's saved leaves."""
+    return [n for n, a in leaves(st) if not bit_equal(a, cpu["state"][n])]
+
+
 def way_kernels(on_path, way, sim):
     """The kernels a run of ``way`` launches where the fused path launches
     ``on_path`` (SPLIT_KERNELS; the split sends phase launches rr_pick only
@@ -1646,13 +1730,13 @@ def quartiles(xs):
     return dict(q1=float(q[0]), median=float(q[1]), q3=float(q[2]), n=len(xs))
 
 
-def phase_main_path(finals):
+def phase_main_path(finals, cpu):
     """The main path's runs (MAIN_RUNS) through the fused departures,
     arrivals, control and sends launches: launches, the JAX reference's
     summary, the final state against the runs through each split design,
-    the plain departures, the plain versions on the card and the CPU; then
-    ticks/s in turns (TURN_WAYS) on TURN_RUNS.  Each run's (sim, final
-    state) goes into ``finals`` for phase 4d."""
+    the plain departures, the plain versions on the card and the CPU
+    (``cpu``: CpuRuns); then ticks/s in turns (TURN_WAYS) on TURN_RUNS.
+    Each run's (sim, final state) goes into ``finals`` for phase 4d."""
     results = {}
     for name, on_path in MAIN_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel")
@@ -1666,26 +1750,39 @@ def phase_main_path(finals):
         by_way = {"kernel": launches}
         walls = {"kernel": wall}
         others = []
-        for way in ("split-control", "split-arrivals", "split-sends", "plain-departures",
-                    "plain"):
+        for way in ("split-control", "split-arrivals", "split-sends", "plain-departures"):
             _, st_w, _, by_way[way], walls[way] = run_path(name, "cuda", way)
-            expect_launches(f"{name} {way}", by_way[way], way_kernels(on_path, way, sim)
-                            if way != "plain" else (), steps)
+            expect_launches(f"{name} {way}", by_way[way], way_kernels(on_path, way, sim),
+                            steps)
             others.append((st_w, f"{way} on the card"))
-        _, st_c, _, _, walls["cpu"] = run_path(name, "cpu", "kernel")
-        for other, label in others + [(st_c, "CPU")]:
+        for other, label in others:
             bad = states_differ(st_k, other)
             if bad:
                 fail(f"{name}: final state differs from the {label} run in {bad}")
+        # the plain versions on the card over a prefix (the CPU run, the same
+        # plain versions, goes the whole way)
+        ticks = {w: summ["ticks"] for w in walls}
+        ticks["plain"] = min(MAIN_PLAIN_TICKS, summ["ticks"])
+        st_kp = st_k if ticks["plain"] == summ["ticks"] else run_path(
+            name, "cuda", "kernel", max_ticks=ticks["plain"],
+            tag=f"{name}[:{ticks['plain']}]")[1]
+        _, st_p, _, by_way["plain"], walls["plain"] = run_path(
+            name, "cuda", "plain", max_ticks=ticks["plain"])
+        expect_launches(f"{name} plain", by_way["plain"], (), steps)
+        bad = states_differ(st_kp, st_p)
+        if bad:
+            fail(f"{name}: state at tick {ticks['plain']} differs from the plain on the card "
+                 f"run in {bad}")
         for n, a in leaves(st_k):
             if a.is_floating_point() and not bool(torch.isfinite(a).all()):
                 fail(f"{name}: non-finite values in {n}")
         log(f"[main] {name}: final state bit-equal to the split-control, split-arrivals, "
-            f"split-sends, plain-departures, plain-on-card and CPU runs "
-            f"({len(list(leaves(st_k)))} leaves); summary "
-            f"equals the JAX reference")
+            f"split-sends and plain-departures runs, and to the plain-on-card run over "
+            f"its first {ticks['plain']} ticks ({len(list(leaves(st_k)))} leaves); "
+            f"summary equals the JAX reference")
         results[name] = dict(launches=launches, launches_by_way=by_way, steps=steps,
                              ticks=summ["ticks"], wall=wall, walls=walls,
+                             ticks_by_way=ticks,
                              turns={w: [summ["ticks"] / walls[w]] for w in TURN_WAYS})
         finals[name] = (sim, st_k)
     for name in TURN_RUNS:
@@ -1698,6 +1795,14 @@ def phase_main_path(finals):
         log(f"[main] {name} ticks/s in turns ({TURNS} a way; q1 / median / q3): " + ", ".join(
             f"{way} {q['q1']:.2f} / {q['median']:.2f} / {q['q3']:.2f}"
             for way, q in r["ticks_per_s"].items()))
+    # the CPU port's runs last: their process runs beside this phase
+    for name, r in results.items():
+        on_cpu = cpu.get(name)
+        r["walls"]["cpu"], r["ticks_by_way"]["cpu"] = on_cpu["wall"], on_cpu["ticks"]
+        bad = cpu_differ(finals[name][1], on_cpu)
+        if bad:
+            fail(f"{name}: final state differs from the CPU run in {bad}")
+        log(f"[main] {name}: final state bit-equal to the CPU port's")
     return results
 
 
@@ -1772,12 +1877,12 @@ def phase_red_mark(dev):
 # ----------------------------------------------------- 4c. comparison runs
 
 
-def phase_comparison(smartt_ticks_per_s, finals):
+def phase_comparison(smartt_ticks_per_s, finals, cpu):
     """The paper's comparison paths (COMPARISON_RUNS), each whole through
     the kernels on the card (the control phase through the fused launch),
     held to the JAX reference's summary and, over the stated prefixes, to
-    the plain-on-card run and the CPU port.  Each run's (sim, final state)
-    goes into ``finals`` for phase 4d."""
+    the plain-on-card run and the CPU port (``cpu``: CpuRuns).  Each run's
+    (sim, final state) goes into ``finals`` for phase 4d."""
     results = {}
     for key, name, ov, on_path, prefix, cpu_prefix in COMPARISON_RUNS:
         sim, st_k, summ, launches, wall = run_path(name, "cuda", "kernel", tag=key, **ov)
@@ -1815,15 +1920,16 @@ def phase_comparison(smartt_ticks_per_s, finals):
             name, "cuda", "plain", max_ticks=prefix, tag=key, **ov)
         if any(launches_p.values()):
             fail(f"{key}: the plain backend launched kernels {launches_p}")
-        _, st_c, _, _, wall_c = run_path(name, "cpu", "kernel", max_ticks=cpu_prefix,
-                                         tag=key, **ov)
-        for other, p, label in ((st_p, prefix, "plain on the card"),
-                                (st_c, cpu_prefix, "CPU")):
-            bad = [n for (n, a), (_, b) in zip(leaves(kern[p]), leaves(other))
-                   if not bit_equal(a, b)]
-            if bad:
-                fail(f"{key}: state at tick {int(other.now)} differs from the {label} "
-                     f"run in {bad}")
+        bad = states_differ(kern[prefix], st_p)
+        if bad:
+            fail(f"{key}: state at tick {int(st_p.now)} differs from the plain on the card "
+                 f"run in {bad}")
+        on_cpu = cpu.get(key)
+        wall_c = on_cpu["wall"]
+        bad = cpu_differ(kern[cpu_prefix], on_cpu)
+        if bad:
+            fail(f"{key}: state at tick {int(on_cpu['state']['now'])} differs from the CPU "
+                 f"run in {bad}")
         plain_ticks = summ_p["ticks"]
         rate = summ["ticks"] / wall
         log(f"[compare] {key}: summary equals the JAX reference; final state "
@@ -1999,7 +2105,8 @@ def lane_study(what, name, points, seeds, on_path, pin=None, **ov):
     after): launches of each kernel of ``on_path`` = the batched ticks, every
     lane's row and final state equal to the standalone ``api.run`` of its
     (point, seed), its executed ticks to that run's; ``pin``: (point, the
-    JAX reference's row of its seed-0 lane).  Returns the plan and a record."""
+    JAX reference's row of its seed-0 lane).  Returns the plan, a record and
+    the study's result."""
     from repro_torch.netsim import api, cache
     plan = api.study(name, points=points, seeds=seeds, **ov)
     torch.cuda.synchronize()
@@ -2043,7 +2150,7 @@ def lane_study(what, name, points, seeds, on_path, pin=None, **ov):
         f"; {lanes['batch_ticks']} batched ticks, launches a batched tick "
         f"{rec['launches_per_batch_tick']}; each lane's executed ticks {lanes['steps']} = "
         f"its standalone run's; wall {res.wall_s:.3f} s")
-    return plan, rec
+    return plan, rec, res
 
 
 def lanes_timing(plans):
@@ -2093,7 +2200,7 @@ def lanes_profile(plan):
     cb, ax = plan.consts_b, plan.axes
     st = shard._run_lanes(plan.sim, cb, ax, st, 20)              # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         st = shard._run_lanes(plan.sim, cb, ax, st, 20 + LANE_PROFILE_TICKS)
         torch.cuda.synchronize()
@@ -2204,20 +2311,96 @@ def phase_lanes(checked):
     checks): the 16-lane perm_1024n_3t study and the
     4-lane eqds study against their standalone runs; lanes a second through
     the lane loop and one after another, in turns; the idle share of a
-    batched tick; the 16-lane study's peak device memory."""
+    batched tick; the 16-lane study's peak device memory.  Returns the
+    record, the 16-lane plan and its final states (phase 4g's gate)."""
     rec = {"kernels": checked}
-    plan16, rec["study16"] = lane_study(
+    plan16, rec["study16"], res16 = lane_study(
         f"study {STUDY_SCENARIO} x16", STUDY_SCENARIO, LANES_POINTS, LANES_SEEDS,
         SMARTT_TICK, pin=(LANES_BASE, REFERENCE_ROWS[STUDY_SCENARIO]))
     log(f"[lanes] torch.cuda.max_memory_allocated() of the 16-lane study: "
         f"{rec['study16']['max_memory_allocated_bytes']} bytes "
         f"({rec['study16']['mem_before_bytes']} allocated before it)")
-    _, rec["eqds4"] = lane_study(f"study {STUDY_SCENARIO} eqds x4", STUDY_SCENARIO,
+    _, rec["eqds4"], _ = lane_study(f"study {STUDY_SCENARIO} eqds x4", STUDY_SCENARIO,
                                  EQDS_POINTS, STUDY_SEEDS, TICK + ("rr_pick",), algo="eqds")
     from repro_torch.netsim import api
     plan4 = api.study(STUDY_SCENARIO, points=STUDY_POINTS, seeds=STUDY_SEEDS)
     rec["timing"] = lanes_timing({"study4": plan4, "study16": plan16})
     rec["profile"] = lanes_profile(plan16)
+    return rec, plan16, res16.states
+
+
+def mesh_run(what, plan, mesh, want, want_steps):
+    """``plan.run_states(mesh=)`` (counts set to 0 just before, read just
+    after): every lane's final state bit-equal to ``want`` (the one-device
+    batch's), each lane's executed ticks to ``want_steps``, each fused
+    kernel launched once a batched tick of each shard (their sum).
+    Returns the lane counts and the run's wall time."""
+    from repro_torch.netsim import state
+    torch.cuda.synchronize()
+    reset_counts()                                               # just before
+    t0 = time.perf_counter()
+    got = plan.run_states(mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()                                     # just after
+    lanes = dict(plan.sim.stats["lanes"])
+    if sum(lanes["shard_ticks"]) != lanes["batch_ticks"] or \
+            len(lanes["shard_ticks"]) != len(mesh):
+        fail(f"{what}: shard ticks {lanes['shard_ticks']}, batched ticks "
+             f"{lanes['batch_ticks']}, mesh of {len(mesh)}")
+    expect_launches(what, launches, SMARTT_TICK, lanes["batch_ticks"])
+    if lanes["steps"] != want_steps:
+        fail(f"{what}: lanes' executed ticks {lanes['steps']}, the one-device batch's "
+             f"{want_steps}")
+    bad = [i for i, (a, b) in enumerate(zip(state.tree_leaves(got), state.tree_leaves(want)))
+           if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes()]
+    if bad or len(state.tree_leaves(got)) != len(state.tree_leaves(want)):
+        fail(f"{what}: final state differs from the one-device batch in leaves {bad}")
+    return lanes, wall
+
+
+def phase_mesh(plan, want, lanes16):
+    """Phase 4g: phase 4e's 16-lane study over meshes of the card repeated
+    (MESH_SIZES: [cuda:0] * 2 and * 3, the second padding 16 lanes to 18),
+    one lane loop a shard on a thread and stream of its own; every lane's
+    final state bit-equal to 4e's one-device batch, launches equal to the
+    sum of the shards' batched ticks (checked on the first turn); lanes a
+    second, median of MESH_TURNS in turns with the one-device batch; the
+    same over distinct cards where there are two or more."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    meshes = {f"[{dev}] * {k}": [dev] * k for k in MESH_SIZES}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        meshes[f"{n_cards} cards"] = [torch.device("cuda", i) for i in range(n_cards)]
+    else:
+        log(f"[mesh] only one card ({n_cards}): lanes over distinct cards not run")
+    rec = {"one_card_repeated": n_cards < 2}
+    walls = {label: [] for label in ("one device", *meshes)}
+    for turn in range(MESH_TURNS):
+        for label in walls:
+            mesh = meshes.get(label)
+            if turn or mesh is None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan.run_states(mesh=mesh)
+                torch.cuda.synchronize()
+                walls[label].append(time.perf_counter() - t0)
+                continue
+            lanes, wall = mesh_run(f"mesh {label}", plan, mesh, want, lanes16["lane_steps"])
+            walls[label].append(wall)
+            rec[label] = dict(shard_ticks=lanes["shard_ticks"],
+                              batch_ticks=lanes["batch_ticks"], lanes=plan.n_lanes,
+                              padded=-plan.n_lanes % len(mesh))
+            log(f"[mesh] {STUDY_SCENARIO} x{plan.n_lanes} over {label}: every lane's final "
+                f"state bit-equal to phase 4e's one-device batch, each lane's executed "
+                f"ticks too; shards' batched ticks {lanes['shard_ticks']} (one-device "
+                f"batch {lanes16['batch_ticks']}), each fused kernel launched their sum "
+                f"{lanes['batch_ticks']} times; {rec[label]['padded']} pad lanes")
+    rate = {label: plan.n_lanes / float(np.median(w)) for label, w in walls.items()}
+    for label, w in walls.items():
+        rec.setdefault(label, {}).update(walls=w, lanes_per_s=rate[label])
+    log(f"[mesh] lanes a second, median of {MESH_TURNS} in turns: " + ", ".join(
+        f"{label} {r:.3f}" for label, r in rate.items()))
     return rec
 
 
@@ -2244,6 +2427,9 @@ FLASH_CASES = (
     (1, 2, 2, 90, 200, 48, False, 40, torch.float32),
 )
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the tensor-core kernel's bf16-score variant (cfg.attn_bf16) against the
+# plain version's bf16 scores, on every bf16 row of FLASH_CASES and DV_CASES
+FLASH_BF16S_TOL = 2e-2
 # flash_attention with a value head dim of its own, and cross-attention's
 # non-causal Sk != Sq: (b, hq, hkv, sq, sk, d, dv, causal, dtype).  The
 # first two are timed: MLA at minicpm3-4b's full width (q/k 96 = 64 nope +
@@ -2321,9 +2507,12 @@ def serve_kernel_checks(dev):
         return q, k, v
 
     errs = {}
+    bf16s_errs = []
     for case in FLASH_CASES:
         b, hq, hkv, sq, sk, d, causal, win, dt = case
         q, k, v = flash_inputs(b, hq, hkv, sq, sk, d, dt)
+        if dt == torch.bfloat16:
+            bf16s_errs.append(flash_bf16s_check(case, q, k, v, causal, win))
         kind = "tc" if dt == torch.bfloat16 else "simt"
         before = (FK.flash_attention.launches_tc, FK.flash_attention.launches_simt)
         out = FK.flash_attention(q, k, v, causal=causal, window=win)
@@ -2372,7 +2561,24 @@ def serve_kernel_checks(dev):
                **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
                        bf16_flops=4 * d * attn_pairs(s, s, True, 0) * b * hq))
     records["flash_attention"] = rec
-    rec.update(flash_dv_checks(dev, g))
+    dv_rec, dv_bf16s_errs = flash_dv_checks(dev, g)
+    rec.update(dv_rec)
+    bf16s_errs += dv_bf16s_errs
+    rec["bf16s_max_abs_err"] = max(bf16s_errs)
+    rec["bf16s_cases"] = len(bf16s_errs)
+    rec.update({f"bf16s_{k_}": v_ for k_, v_ in timings(
+        lambda: FK.flash_attention(q, k, v, causal=True, score_dtype=torch.bfloat16),
+        lambda: FR.flash_attention_ref(q, k, v, causal=True, score_dtype=torch.bfloat16),
+        iters=20, plain_per_graph=2).items()})
+    rec.update(bf16s_library_ms=rec["library_ms"], bf16s_bound_ms=rec["bound_ms"],
+               bf16s_bound_by=rec["bound_by"])
+    log(f"[kernels] flash_attention  bf16 scores (attn_bf16, flash_attn_tc.cu's variant) "
+        f"on {len(bf16s_errs)} bf16 cases: max abs err {rec['bf16s_max_abs_err']} against "
+        f"the plain version's bf16 scores (tolerance {FLASH_BF16S_TOL}); at {rec['shape']}: "
+        f"device time {rec['bf16s_ms'] * 1e3:.1f} us beside the f32-score kernel's "
+        f"{rec['ms'] * 1e3:.1f} us, plain {rec['bf16s_plain_ms'] * 1e3:.1f} us, library "
+        f"(SDPA) {rec['library_ms'] * 1e3:.1f} us, bound {rec['bound_ms'] * 1e3:.2f} us by "
+        f"{rec['bound_by']}")
 
     errs = {}
     for case in SSD_CASES:
@@ -2462,12 +2668,37 @@ def serve_kernel_checks(dev):
     return records
 
 
+def flash_bf16s_check(case, q, k, v, causal, window) -> float:
+    """The tensor-core kernel's bf16-score variant on one bf16 case: one
+    launch (counted as tc and as bf16s), held to ``flash_attention_ref(
+    score_dtype=bf16)`` within FLASH_BF16S_TOL.  Returns its max abs error."""
+    from repro_torch.kernels.flash_attn import kernel as FK, ref as FR
+    fa = FK.flash_attention
+    before = (fa.launches_tc, fa.launches_bf16s)
+    out = FK.flash_attention(q, k, v, causal=causal, window=window,
+                             score_dtype=torch.bfloat16)
+    if (fa.launches_tc - before[0], fa.launches_bf16s - before[1]) != (1, 1):
+        fail(f"flash_attention {case[:-1]} bf16 scores: launches (tc, bf16s) moved by "
+             f"{(fa.launches_tc - before[0], fa.launches_bf16s - before[1])}, expected one "
+             f"of each")
+    ref = FR.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 score_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    err = max_abs_err(out, ref)
+    if out.shape != ref.shape or not err <= FLASH_BF16S_TOL:
+        fail(f"flash_attention {case[:-1]} bf16 scores: max abs error {err} against the "
+             f"plain version's bf16 scores (tolerance {FLASH_BF16S_TOL}), shapes "
+             f"{tuple(out.shape)} {tuple(ref.shape)}")
+    return err
+
+
 def flash_dv_checks(dev, g):
     """flash_attention with v's own head dim (MLA) and non-causal Sk > Sq
-    (cross-attention) against the plain version on both kernels; a bf16
-    Dv that is not a multiple of 8 refused with no launch; the MLA and
-    cross shapes timed beside their bounds and SDPA.  Returns the timed
-    cases' numbers as ``mla_*`` and ``cross_*`` keys."""
+    (cross-attention) against the plain version on both kernels (the bf16
+    cases with bf16 scores too); a bf16 Dv that is not a multiple of 8
+    refused with no launch; the MLA and cross shapes timed beside their
+    bounds and SDPA.  Returns the timed cases' numbers as ``mla_*`` and
+    ``cross_*`` keys, and the bf16-score cases' errors."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import kernel as FK, ref as FR
@@ -2482,10 +2713,12 @@ def flash_dv_checks(dev, g):
         kv = torch.randn((b, sk, hkv, 64 + dv), generator=g, device=dev).to(dt)
         return q, k, kv[..., 64:].transpose(1, 2)
 
-    out_rec, errs = {}, {}
+    out_rec, errs, bf16s_errs = {}, {}, []
     for case in DV_CASES:
         b, hq, hkv, sq, sk, d, dv, causal, dt = case
         q, k, v = inputs(b, hq, hkv, sq, sk, d, dv, dt)
+        if dt == torch.bfloat16:
+            bf16s_errs.append(flash_bf16s_check(case, q, k, v, causal, 0))
         kind = "tc" if dt == torch.bfloat16 else "simt"
         n0 = getattr(FK.flash_attention, f"launches_{kind}")
         out = FK.flash_attention(q, k, v, causal=causal)
@@ -2533,7 +2766,7 @@ def flash_dv_checks(dev, g):
             f"{t['ms'] * 1e3:.1f} us, plain {t['plain_ms'] * 1e3:.1f} us, library (SDPA) "
             f"{sdpa * 1e3:.1f} us, bound {bnd['bound_ms'] * 1e3:.2f} us by {bnd['bound_by']} "
             f"({bnd['bytes']} B, {bnd['bf16_flops']:.4g} bf16 FLOP)")
-    return out_rec
+    return out_rec, bf16s_errs
 
 
 def ssd_inputs(g, dev, bh, bg, L, P, N, dt):
@@ -2548,8 +2781,9 @@ def ssd_inputs(g, dev, bh, bg, L, P, N, dt):
 # --------------------------------------------------------- 5. serving
 
 SERVE_MODELS = (("qwen3-0.6b", "flash_attention"), ("mamba2-780m", "ssd_chunk_scan"))
-SERVE_REQUESTS = ((4, 512, 32), (2, 300, 32))    # (batch, prompt tokens, new tokens)
-TTFT_REPEATS = 21
+SERVE_REQUESTS = ((4, 512, 16), (2, 300, 16))    # (batch, prompt tokens, new tokens)
+TTFT_REPEATS = 7
+TTFT_BF16S_REPEATS = 7          # attn_bf16's prefill, in turns with f32 scores
 # Kernel against plain on the card, same weights.  The kernels sum in
 # another order than the plain versions, so now and then a bf16 activation
 # rounds the other way (one bf16 ULP, 2^-8 relative).
@@ -2764,7 +2998,8 @@ def reset_counts():
 def read_counts():
     """Launches by kernel; the fused control kernel's with SMaRTT's update
     inside ("control:smartt"); flash_attention's and ssd_chunk_scan's by
-    variant ("tc" bf16, "simt" f32)."""
+    variant ("tc" bf16, "simt" f32), and flash_attention's with bf16
+    scores ("bf16s", tensor-core ones)."""
     from repro_torch.kernels.control import kernel as XK
     from repro_torch.kernels.flash_attn import kernel as FK
     from repro_torch.kernels.ssd_scan import kernel as SK
@@ -2772,6 +3007,7 @@ def read_counts():
     return {**{k: fn.launches for k, fn in all_counters().items()},
             "control:smartt": XK.control.launches_smartt,
             "flash_attention:tc": fa.launches_tc, "flash_attention:simt": fa.launches_simt,
+            "flash_attention:bf16s": fa.launches_bf16s,
             "ssd_chunk_scan:tc": ss.launches_tc, "ssd_chunk_scan:simt": ss.launches_simt}
 
 
@@ -2784,7 +3020,7 @@ def prefill_busy_ms(model, prompt, max_len):
     from repro_torch.models import lm
     lm.prefill(model, prompt, max_len)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         lm.prefill(model, prompt, max_len)
         torch.cuda.synchronize()
@@ -2804,7 +3040,7 @@ def decode_idle_share(model, prompt, max_len, steps=8):
     logits, caches, cl = lm.prefill(model, prompt, max_len)
     tok = logits[:, -1, :vocab].argmax(-1, keepdim=True).to(torch.int32)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             cl = cl + 1
@@ -2948,6 +3184,55 @@ def serve_request(model, kname, b, s, new, dev):
                 rows_identical=same), prompt, max_len
 
 
+def serve_bf16_scores(model, dev):
+    """The first request's prefill with ``cfg.attn_bf16`` (the flash kernel's
+    bf16-score variant): one launch a layer, counted as bf16 scores; its
+    logits held to the plain path's (bf16 scores too) within SERVE_MAX_TOL;
+    TTFT, the median of TTFT_BF16S_REPEATS in turns with f32 scores."""
+    from repro_torch.models import lm
+    cfg = model.cfg
+    b, s, new = SERVE_REQUESTS[0]
+    tag = f"{cfg.name} attn_bf16 B={b} S={s}"
+    max_len = s + new + 1
+    prompt = torch.randint(0, cfg.vocab, (b, s), device=dev, dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(1000 * b + s))
+    bf16 = dataclasses.replace(cfg, attn_bf16=True)
+    try:
+        model.cfg, model.backend = bf16, "kernel"
+        reset_counts()
+        lk = lm.prefill(model, prompt, max_len)[0]
+        launches = read_counts()                               # just after
+        want = {k: 0 for k in launches}
+        want["flash_attention"] = want["flash_attention:tc"] = \
+            want["flash_attention:bf16s"] = cfg.n_layers
+        if launches != want:
+            fail(f"{tag}: the prefill launched {launches}, expected {want}")
+        model.backend = "plain"
+        lp = lm.prefill(model, prompt, max_len)[0]
+        if not bool(torch.isfinite(lk).all()):
+            fail(f"{tag}: prefill logits not finite")
+        errs = {"logits.max": rel_err(lp, lk), "logits.l2": rel_l2(lp, lk)}
+        if not errs["logits.max"] <= SERVE_MAX_TOL:
+            fail(f"{tag}: prefill logits through the kernel differ from the plain path's "
+                 f"{errs} (tolerance {SERVE_MAX_TOL})")
+        model.backend = "kernel"
+        ts = {"bf16": [], "f32": []}
+        for _ in range(TTFT_BF16S_REPEATS):
+            for w, c in (("bf16", bf16), ("f32", cfg)):
+                model.cfg = c
+                ts[w].append(timed(lambda: lm.prefill(model, prompt, max_len)[0]
+                                   [:, -1, :cfg.vocab].argmax(-1))[1])
+    finally:
+        model.cfg, model.backend = cfg, "kernel"
+    ttft = {w: sorted(v)[len(v) // 2] * 1e3 for w, v in ts.items()}
+    log(f"[serve] {tag}: prefill through flash_attn_tc.cu's bf16-score variant "
+        f"({launches['flash_attention:bf16s']} launches), logits against the plain "
+        f"path's bf16 scores {errs}; TTFT {ttft['bf16']:.2f} ms, f32 scores "
+        f"{ttft['f32']:.2f} ms (median of {TTFT_BF16S_REPEATS}, in turns)")
+    return dict(launches=launches["flash_attention:bf16s"], errors=errs,
+                ttft_ms=ttft["bf16"], ttft_f32_scores_ms=ttft["f32"])
+
+
 def phase_serving(dev):
     from repro_torch.configs import get_config
     from repro_torch.models import lm
@@ -2974,6 +3259,9 @@ def phase_serving(dev):
                 for e in prof["top"]:
                     log(f"[serve]   {e['us_per_step']:9.1f} us/step  x{e['per_step']:6.1f}  "
                         f"{e['name'][:90]}")
+        if kname == "flash_attention":
+            results[f"{arch} attn_bf16 B={SERVE_REQUESTS[0][0]} S={SERVE_REQUESTS[0][1]}"] = \
+                serve_bf16_scores(model, dev)
         del model
         torch.cuda.empty_cache()
     return results
@@ -2990,8 +3278,8 @@ def phase_serving(dev):
 ZOO = (("qwen2-0.5b", None), ("phi3-mini-3.8b", None), ("minicpm3-4b", None),
        ("musicgen-large", None), ("llama-3.2-vision-90b", 5), ("dbrx-132b", 2),
        ("mixtral-8x22b", 2), ("jamba-1.5-large-398b", 5))
-ZOO_REQUEST = (4, 512, 16)      # (batch, prompt tokens or frames, new tokens)
-ZOO_TTFT_REPEATS = 5
+ZOO_REQUEST = (4, 512, 8)       # (batch, prompt tokens or frames, new tokens)
+ZOO_TTFT_REPEATS = 3
 
 
 def zoo_config(arch, layers):
@@ -3237,7 +3525,7 @@ GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TRAIN_MODELS = (("qwen3-0.6b", "flash_attention"), ("mamba2-780m", "ssd_chunk_scan"))
 TRAIN_KERNEL = dict(TRAIN_MODELS)
 TRAIN_BATCH = (8, 1024, 2)      # global batch, sequence, microbatches: 8192 tokens a step
-TRAIN_STEPS = 8
+TRAIN_STEPS = 4
 TRAIN_ADAM = dict(lr=3e-4, warmup_steps=2)
 TRAIN_PLAIN_TURNS = 1           # steps a backend, in turns (kernels, plain), for the plain step time
 # kernels against plain at full width, one 4 x 1024 microbatch from the
@@ -3257,6 +3545,7 @@ TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = {"qwen3-0.6b": 5e-2, "mamba2-780m": 0.15}
 TRAIN_FLOOR_FACTOR = 3.0
 RESTART = (4, 2)                # steps, the checkpoint's step
+RESTART_LAYERS = 4              # qwen3-0.6b's depth in the restart (the checkpoint's size)
 
 
 def grad_rel(want, got) -> float:
@@ -3385,7 +3674,7 @@ def step_busy(step, model, opt, batch):
     (its kernels' sum) and the busy share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(model, opt, batch)
         torch.cuda.synchronize()
@@ -3555,12 +3844,11 @@ def train_restart(dev, directory):
     bit.  ``warn_only``: an operation with no deterministic version warns
     (cuBLAS among them, whose workspace setting the script leaves as it
     is: one stream), and the bit-for-bit gate is the test."""
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.optim import adamw
     from repro_torch.train.loop import LoopConfig, train
     from repro_torch.train.step import TrainConfig
-    cfg = get_config("qwen3-0.6b")
+    cfg = zoo_config("qwen3-0.6b", RESTART_LAYERS)
     gb, seq, micro = TRAIN_BATCH
     tcfg = TrainConfig(adam=adamw.AdamWConfig(**TRAIN_ADAM), microbatches=micro)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=gb, seed=2)
@@ -3588,7 +3876,8 @@ def train_restart(dev, directory):
         fail(f"restart: {len(differ)} leaves differ from the uninterrupted run's "
              f"(first: {differ[:3]}); steps {int(o2.step)}, {int(o3.step)}")
     nbytes = sum(f.stat().st_size for f in Path(directory).rglob("*") if f.is_file())
-    log(f"[train] restart: qwen3-0.6b {at} steps and a checkpoint ({nbytes / 1e9:.2f} GB) "
+    log(f"[train] restart: qwen3-0.6b ({cfg.n_layers} layers) {at} steps and a checkpoint "
+        f"({nbytes / 1e9:.2f} GB) "
         f"in {s1:.1f} s, resumed to step {steps} in {s2:.1f} s, uninterrupted {steps} steps "
         f"in {s3:.1f} s; losses {whole} equal, parameters and moments equal bit for bit "
         f"(deterministic algorithms on)")
@@ -4025,10 +4314,23 @@ def dev_us(e):
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
 
+class DeviceEvent(NamedTuple):
+    key: str                    # the kernel's (copy's, fill's) name
+    count: int
+    device_time_total: float    # us
+
+
 def device_events(prof):
-    """The device's own events (kernels, copies, fills); CPU operators also
-    carry the device time of what they launched, so they are left out."""
-    return [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    """The device's own events (kernels, copies, fills) by name, summed from
+    the profiler's raw records: the same counts and times as its
+    key_averages(), whose per-operator event tree takes seconds for every
+    ten thousand kernels."""
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA":
+            n, us = agg.get(e.name(), (0, 0.0))
+            agg[e.name()] = (n + 1, us + e.duration_ns() / 1e3)
+    return [DeviceEvent(k, n, us) for k, (n, us) in agg.items()]
 
 
 def profile_way(backend):
@@ -4046,7 +4348,7 @@ def profile_way(backend):
 
     from repro_torch.kernels.lanes import Tick
     from repro_torch.netsim import scenarios, state
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CUDA]
     sc = scenarios.scenario("perm_1024n_3t", **WAYS[backend])
     sim = sc.build(device="cuda")
     c1 = sim.lanes_of(None, 1)                  # the run as a batch of one lane
@@ -4290,27 +4592,34 @@ def phase_bridge(bridge_cpu):
 
 
 def main():
+    import tempfile
     name, smi_line = phase_device()
     bridge_cpu = start_bridge_cpu()
     dryrun_child = None
-    try:
-        if "--kernels-only" not in sys.argv[1:]:
-            dryrun_child = (start_dryrun(), time.perf_counter())
-        run(name, smi_line, bridge_cpu, dryrun_child)
-    finally:
-        for child in (bridge_cpu, dryrun_child and dryrun_child[0]):
-            if child is not None:
-                if child.poll() is None:
-                    child.kill()
-                child.wait()
+    later = []                  # children run() starts (the CPU runs)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as scratch:
+        try:
+            if "--kernels-only" not in sys.argv[1:]:
+                dryrun_child = (start_dryrun(), time.perf_counter())
+            run(name, smi_line, bridge_cpu, dryrun_child, scratch, later)
+        finally:
+            for child in (bridge_cpu, dryrun_child and dryrun_child[0], *later):
+                if child is not None:
+                    if child.poll() is None:
+                        child.kill()
+                    child.wait()
 
 
-def run(name, smi_line, bridge_cpu, dryrun_child):
+def run(name, smi_line, bridge_cpu, dryrun_child, scratch, later):
     # f32 products and convolutions in full f32 (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     phase_build()
+    cpu = None
+    if "--kernels-only" not in sys.argv[1:]:
+        cpu = CpuRuns(scratch)
+        later.append(cpu.child)
     from repro_torch.netsim import scenarios
     dev = torch.device("cuda")
     perm = scenarios.scenario("perm_1024n_3t").build(device=dev)
@@ -4346,7 +4655,7 @@ def run(name, smi_line, bridge_cpu, dryrun_child):
         return out
 
     finals = {}
-    paths = timed_phase("main", phase_main_path, finals)
+    paths = timed_phase("main", phase_main_path, finals, cpu)
     ways = ("kernel", "split-arrivals", "split-control", "split-sends", "plain-departures")
     log(f"[kernels] launches ({'; '.join(ways)}): " + ", ".join(
         f"{k}: " + ", ".join(f"{n} " + "; ".join(
@@ -4354,9 +4663,12 @@ def run(name, smi_line, bridge_cpu, dryrun_child):
             for n in ("perm_1024n_3t", "alltoall_3t")) for k in counters()))
     red = timed_phase("red_mark", phase_red_mark, dev)
     smartt_rate = paths["perm_1024n_3t"]["ticks"] / paths["perm_1024n_3t"]["wall"]
-    comparison = timed_phase("comparison", phase_comparison, smartt_rate, finals)
+    comparison = timed_phase("comparison", phase_comparison, smartt_rate, finals, cpu)
     experiment_api = timed_phase("api", phase_api, paths, finals)
-    lanes_rec = timed_phase("lanes", phase_lanes, lanes_checked)
+    lanes_rec, plan16, states16 = timed_phase("lanes", phase_lanes, lanes_checked)
+    lanes_rec["mesh"] = timed_phase("mesh", phase_mesh, plan16, states16,
+                                    lanes_rec["study16"])
+    del plan16, states16
     bridge = timed_phase("bridge", phase_bridge, bridge_cpu)
     with torch.no_grad():
         serving = timed_phase("serving", phase_serving, dev)
@@ -4427,7 +4739,7 @@ def run(name, smi_line, bridge_cpu, dryrun_child):
                 "plain_phase_ms", "phase_call_ms", "split_phase_call_ms",
                 "plain_phase_call_ms", "phase_launches", "split_phase_launches",
                 "plain_phase_launches")
-               or k_.startswith(("a2a_", "mla_", "cross_"))},
+               or k_.startswith(("a2a_", "mla_", "cross_", "bf16s_"))},
             **({"launches_zoo": {a: r["launches"].get(k, 0) for a, r in zoo.items()}}
                if k in ("flash_attention", "ssd_chunk_scan") else {}),
             **({"launches_train_step": {a: r["steps"]["launches_per_step"]
@@ -4441,7 +4753,8 @@ def run(name, smi_line, bridge_cpu, dryrun_child):
                if k in ("flash_attention", "ssd_chunk_scan") else {})))
     e2e = {k: dict(ticks=v["ticks"], executed=v["steps"],
                    **{f"{w.replace('-', '_') + '_' if w != 'kernel' else ''}ticks_per_s":
-                      v["ticks"] / wall for w, wall in v["walls"].items()},
+                      v["ticks_by_way"][w] / wall for w, wall in v["walls"].items()},
+                   plain_over_ticks=v["ticks_by_way"]["plain"],
                    **({"turns": v["ticks_per_s"]} if "ticks_per_s" in v else {}))
            for k, v in paths.items()}
     for k, v in comparison.items():

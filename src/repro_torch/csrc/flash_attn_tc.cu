@@ -42,6 +42,16 @@
 // difference from the plain version besides the order of the sums); the
 // row sums l are taken in f32 from the unrounded P.  O stays f32 in
 // registers and is divided by max(l, 1e-30) and rounded once to bf16.
+//
+// bf16 scores (the template's BF16S, repro_flash_attention_tc_bf16s): the
+// variant of the plain version's score_dtype=bf16 (cfg.attn_bf16, the JAX
+// package's blocked_attention(score_dtype=bf16)).  Each score is scaled
+// in the natural domain (S * D^-0.5), masked (-1e30), rounded to bf16,
+// and only then moved to the log2 domain (* log2(e)), so the running max
+// is taken from the rounded scores; each probability is rounded to bf16
+// before it enters both the row sum and P·V.  The running max starts at
+// -1e30 in the natural domain, as there: a row with no unmasked key then
+// ends at 0 (bf16(-1e30) lies below -1e30), as in the plain version.
 #include "common.cuh"
 #include "tc.cuh"
 
@@ -104,7 +114,11 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long lo
     }
 }
 
-template <int DPAD>
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int DPAD, bool BF16S>
 __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
     constexpr int LD = DPAD + PAD, TILE = BQ * LD;
     constexpr int KS = DPAD / 16;    // k-steps of Q K^T
@@ -153,6 +167,9 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
     cp_async_commit();
 
     const float sl2 = a.scale * LOG2E;
+    // BF16S: a masked score, rounded, in the log2 domain; the running max's start
+    const float neg_s = BF16S ? round_bf16(NEG_BIG) * LOG2E : NEG_BIG;
+    const float m_start = BF16S ? NEG_BIG * LOG2E : NEG_BIG;
     const int r0 = warp * 16 + g;                // this thread's rows: r0 and r0 + 8
     const int qp0 = qbase + q0 + r0, qp1 = qp0 + 8;
     // each lane's ldmatrix row address (bytes), before the tile's offsets
@@ -165,7 +182,7 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
     for (int n = 0; n < ND; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-    float m0 = NEG_BIG, m1 = NEG_BIG, l0 = 0.f, l1 = 0.f;   // l: this thread's share
+    float m0 = m_start, m1 = m_start, l0 = 0.f, l1 = 0.f;   // l: this thread's share
 
     for (int t = t_begin; t < t_end; ++t) {
         const uint32_t st = ((t - t_begin) & 1) * TB;   // this stage's offset
@@ -211,7 +228,8 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
 #pragma unroll
             for (int n = 0; n < NN; ++n)
 #pragma unroll
-                for (int e = 0; e < 4; ++e) s[n][e] *= sl2;
+                for (int e = 0; e < 4; ++e)
+                    s[n][e] = BF16S ? round_bf16(s[n][e] * a.scale) * LOG2E : s[n][e] * sl2;
         } else {
             auto score = [&](float x, int kk, int qp) {
                 if (kk >= nk) return -CUDART_INF_F;
@@ -219,7 +237,8 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
                 bool ok = true;
                 if (a.causal) ok = kp <= qp;
                 if (a.window > 0) ok = ok && kp > qp - a.window;
-                return ok ? x * sl2 : NEG_BIG;
+                if (!BF16S) return ok ? x * sl2 : NEG_BIG;
+                return ok ? round_bf16(x * a.scale) * LOG2E : neg_s;
             };
 #pragma unroll
             for (int n = 0; n < NN; ++n) {
@@ -259,8 +278,14 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
         uint32_t pf[NN / 2][4];
 #pragma unroll
         for (int n = 0; n < NN; ++n) {
-            const float p0 = exp2f(s[n][0] - mn0), p1 = exp2f(s[n][1] - mn0);
-            const float p2 = exp2f(s[n][2] - mn1), p3 = exp2f(s[n][3] - mn1);
+            float p0 = exp2f(s[n][0] - mn0), p1 = exp2f(s[n][1] - mn0);
+            float p2 = exp2f(s[n][2] - mn1), p3 = exp2f(s[n][3] - mn1);
+            if (BF16S) {
+                p0 = round_bf16(p0);
+                p1 = round_bf16(p1);
+                p2 = round_bf16(p2);
+                p3 = round_bf16(p3);
+            }
             l0 += p0 + p1;
             l1 += p2 + p3;
             pf[n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
@@ -308,15 +333,26 @@ __global__ void __launch_bounds__(NT, 2) flash_attn_tc_kernel(FlashArgs a) {
     }
 }
 
-template <int DPAD>
+template <int DPAD, bool BF16S>
 int launch(const FlashArgs& a, cudaStream_t stream) {
     constexpr size_t smem = smem_bytes<DPAD>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_tc_kernel<DPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(flash_attn_tc_kernel<DPAD, BF16S>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)a.b * a.hq * ((a.sq + BQ - 1) / BQ);
-    if (blocks > 0) flash_attn_tc_kernel<DPAD><<<(unsigned)blocks, NT, smem, stream>>>(a);
+    if (blocks > 0)
+        flash_attn_tc_kernel<DPAD, BF16S><<<(unsigned)blocks, NT, smem, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <bool BF16S>
+int launch_tc(const FlashArgs& a, void* stream) {
+    if (a.dtype != 1 || a.d < 8 || a.d > 128 || a.d % 8 || a.dv < 8 || a.dv > a.d ||
+        a.dv % 8 || a.hkv < 1 || a.hq % a.hkv)
+        return (int)cudaErrorInvalidValue;
+    return a.d <= 64 ? launch<64, BF16S>(a, (cudaStream_t)stream)
+                     : launch<128, BF16S>(a, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -324,9 +360,10 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 // bf16 only; D a multiple of 8 up to 128, Dv a multiple of 8 up to D;
 // every row 16-byte aligned (the wrapper checks the pointers and strides).
 REPRO_EXPORT int repro_flash_attention_tc(FlashArgs a, void* stream) {
-    if (a.dtype != 1 || a.d < 8 || a.d > 128 || a.d % 8 || a.dv < 8 || a.dv > a.d ||
-        a.dv % 8 || a.hkv < 1 || a.hq % a.hkv)
-        return (int)cudaErrorInvalidValue;
-    return a.d <= 64 ? launch<64>(a, (cudaStream_t)stream)
-                     : launch<128>(a, (cudaStream_t)stream);
+    return launch_tc<false>(a, stream);
+}
+
+// The same with bf16 scores and probabilities (BF16S above).
+REPRO_EXPORT int repro_flash_attention_tc_bf16s(FlashArgs a, void* stream) {
+    return launch_tc<true>(a, stream);
 }

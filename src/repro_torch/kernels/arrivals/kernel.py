@@ -15,7 +15,8 @@ as it was.
 The argument block (every pointer but ``fault_active``, made each tick,
 plus a scratch row a lane for the tick's totals; ``[L, ...]`` operands,
 a constant shared by all lanes passed once with lane stride 0) is built
-once per run: when the wrapper first sees a run's buffers, after
+once per run and thread (``lanes.thread_cache``: each shard of a
+batch keeps its own): when the wrapper first sees a run's buffers, after
 checking every operand.  On later ticks it checks that the operands are
 the same tensors (the block holds them, so their storage cannot be
 reused) and allocates nothing.  ``arrivals_at`` runs one single-lane
@@ -121,26 +122,24 @@ class _Block:
                 and all(a is b for a, b in zip(self.operands, _stable(o) + (gbin,))))
 
 
-_block: list = [None]
-
-
 def arrivals(k: lanes.Tick, trim_delay: int, fl: R.Flags, o: R.Operands, gbin) -> None:
     """Launch the fused kernel on a lane batch of CUDA tensors; same
     contract as ``ref.arrivals_lanes_ref`` (``o`` updated in place).
     ``gbin`` is each lane's goodput bin width, i32 ``[L]`` (``fl.goodput_bin``
     is not read); ``o.fault_active`` is bool ``[L]`` with ``fl.faulty``."""
     n = k.n
-    blk = _block[0]
+    slot = lanes.thread_cache(__name__)
+    blk = slot.get("block")
     if blk is None or not blk.serves(n, trim_delay, fl, o, gbin):
-        _block[0] = None                 # let the last run's buffers go first
-        blk = _block[0] = _Block(n, trim_delay, fl, o, gbin)
+        slot["block"] = None             # let the last run's buffers go first
+        blk = slot["block"] = _Block(n, trim_delay, fl, o, gbin)
     active = (build.require(o.fault_active, "fault_active", torch.bool, (n,), blk.dev)
               if fl.faulty else None)
     now = build.require(k.now, "now", torch.int32, (n,), blk.dev)
     live = build.require(k.live, "live", torch.bool, (n,), blk.dev)
     build.check(_fn()(ctypes.byref(blk.args), now, live, active, n, build.stream(blk.dev)),
                 "arrivals")
-    arrivals.launches += 1
+    build.count(arrivals, launches=1)
 
 
 arrivals.launches = 0

@@ -231,10 +231,6 @@ def arrivals_ref(t: int, s: Slots, fl: Flags, o: Operands, *, enqueue=None) -> N
         o.n_drop.add_(_isum(rej))
 
 
-_VIEWS: dict = {}
-_HOST: list = [None, None]
-
-
 def slots(t: int, l: int, r: int, ret: int, trim_delay: int) -> Slots:
     """The ring slots of tick ``t``."""
     return Slots(wire=t % l, ack=(t + ret) % r, trim=(t + trim_delay) % r)
@@ -246,14 +242,15 @@ def arrivals_lanes_ref(k: lanes.Tick, trim_delay: int, fl: Flags, o: Operands, g
     live lane at its own tick (``k.now_h``), with that tick's slots and
     the lane's goodput bin width ``gbin`` (i32 ``[L]``, read on the host
     once per tensor)."""
-    if _HOST[0] is not gbin:
-        _HOST[:] = [gbin, gbin.tolist()]
+    host = lanes.thread_cache(__name__ + ".gbin")
+    if host.get("of") is not gbin:
+        host.update(of=gbin, bins=gbin.tolist())
     l, r = o.infl.shape[-3], o.ack_ring.shape[-3]
-    views = lanes.lane_views(_VIEWS, o, k.n)
+    views = lanes.lane_views(lanes.thread_cache(__name__), o, k.n)
     for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):
         if go:
             arrivals_ref(t, slots(t, l, r, fl.ret, trim_delay),
-                         fl._replace(goodput_bin=_HOST[1][i]), views[i], enqueue=enqueue)
+                         fl._replace(goodput_bin=host["bins"][i]), views[i], enqueue=enqueue)
 
 
 def arrivals_by_owner(t: int, s: Slots, fl: Flags, o: Operands) -> None:

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -118,6 +119,18 @@ def library() -> ctypes.CDLL:
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_COUNTS = threading.Lock()
+
+
+def count(fn, **by) -> None:
+    """Add ``by`` to a wrapper's launch counters (``fn.launches=1``, ...)
+    under one lock: the shards of a lane batch launch from threads of
+    their own, and ``+=`` on an attribute is no atomic update."""
+    with _COUNTS:
+        for name, n in by.items():
+            setattr(fn, name, getattr(fn, name) + n)
 
 
 def check(rc: int, what: str) -> None:

@@ -14,7 +14,8 @@ The argument block (every pointer, ``done`` and ``bitmap`` among them,
 which the arrivals phase updates in place; SMaRTT's 13 scalar parameters
 as one ``[13]`` row and the per-flow ones as one ``[3, NF]`` plane, each
 passed once with lane stride 0 unless a study sweeps them, then one a
-lane; the event buffer, ``[L, 11, NF]``) is built once per run: when the
+lane; the event buffer, ``[L, 11, NF]``) is built once per run and thread
+(``lanes.thread_cache``: each shard of a batch keeps its own): when the
 wrapper first sees a run's buffers, after checking every operand.  On
 later ticks it checks that the operands are the same tensors (the block
 holds them, so their storage cannot be reused) and allocates nothing.
@@ -155,25 +156,22 @@ class _Block:
             a is b for a, b in zip(self.operands, _stable(fl, o)))
 
 
-_block: list = [None]
-
-
 def control(k: lanes.Tick, fl: R.Flags, o: R.Operands):
     """Launch the fused kernel on a lane batch of CUDA tensors; same
     contract as ``ref.control_lanes_ref`` (``o`` updated in place, the
     event returned: ``[L, NF]`` views of the run's one buffer, overwritten
     by the next tick; a lane that is not live keeps its last rows)."""
     n = k.n
-    blk = _block[0]
+    slot = lanes.thread_cache(__name__)
+    blk = slot.get("block")
     if blk is None or not blk.serves(n, fl, o):
-        _block[0] = None                 # let the last run's buffers go first
-        blk = _block[0] = _Block(n, fl, o)
+        slot["block"] = None             # let the last run's buffers go first
+        blk = slot["block"] = _Block(n, fl, o)
     now = build.require(k.now, "now", torch.int32, (n,), blk.dev)
     live = build.require(k.live, "live", torch.bool, (n,), blk.dev)
     build.check(_fn()(ctypes.byref(blk.args), now, live, int(fl.smartt), n,
                       build.stream(blk.dev)), "control")
-    control.launches += 1
-    control.launches_smartt += int(fl.smartt)
+    build.count(control, launches=1, launches_smartt=int(fl.smartt))
     return blk.ev
 
 

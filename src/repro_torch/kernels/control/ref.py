@@ -202,14 +202,11 @@ def control_ref(t: int, fl: Flags, o: Operands) -> CCEvent:
     return view
 
 
-_VIEWS: dict = {}
-
-
 def control_lanes_ref(k: lanes.Tick, fl: Flags, o: Operands) -> CCEvent:
     """The phase on a lane batch: :func:`control_ref` on each live lane at
     its own tick (``k.now_h``), in place; returns the event, ``[L, NF]``
     views of one buffer (zeros for a lane that is not live)."""
-    views = lanes.lane_views(_VIEWS, o, k.n)
+    views = lanes.lane_views(lanes.thread_cache(__name__), o, k.n)
     buf = torch.zeros((k.n, K, o.done.shape[-1]), dtype=I32, device=o.done.device)
     out = events(buf)
     for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):

@@ -12,7 +12,8 @@ not live is left as it was.
 
 The argument block holds every operand, ``[L, ...]`` each (a constant
 shared by all lanes as an ``expand``-ed view, passed once with lane
-stride 0), and is built once per run, when the wrapper first sees a
+stride 0), and is built once per run and thread (``lanes.thread_cache``:
+each shard of a batch keeps its own), when the wrapper first sees a
 run's buffers, after checking every operand; on later ticks the wrapper
 checks that the operands are the same tensors (the block holds them, so
 their storage cannot be reused).  No phase replaces any of them within a
@@ -109,22 +110,20 @@ class _Block:
                 and all(a is b for a, b in zip(self.operands, o)))
 
 
-_block: list = [None]
-
-
 def departures(k: lanes.Tick, lat: R.Lat, fl: R.Flags, o: R.Operands) -> None:
     """Launch the fused kernel on a lane batch of CUDA tensors; same
     contract as ``ref.departures_lanes_ref`` (``o`` updated in place)."""
     n = k.n
-    blk = _block[0]
+    slot = lanes.thread_cache(__name__)
+    blk = slot.get("block")
     if blk is None or not blk.serves(n, lat, fl, o):
-        _block[0] = None                 # let the last run's buffers go first
-        blk = _block[0] = _Block(n, lat, fl, o)
+        slot["block"] = None             # let the last run's buffers go first
+        blk = slot["block"] = _Block(n, lat, fl, o)
     now = build.require(k.now, "now", torch.int32, (n,), blk.dev)
     live = build.require(k.live, "live", torch.bool, (n,), blk.dev)
     build.check(_fn()(ctypes.byref(blk.args), now, live, n, build.stream(blk.dev)),
                 "departures")
-    departures.launches += 1
+    build.count(departures, launches=1)
 
 
 departures.launches = 0

@@ -165,13 +165,10 @@ def departures_ref(t: int, lat: Lat, fl: Flags, o: Operands) -> None:
     o.q_size[:NQ] -= active.to(I32)
 
 
-_VIEWS: dict = {}
-
-
 def departures_lanes_ref(k: lanes.Tick, lat: Lat, fl: Flags, o: Operands) -> None:
     """The phase on a lane batch, in place: :func:`departures_ref` on each
     live lane at its own tick (``k.now_h``)."""
-    views = lanes.lane_views(_VIEWS, o, k.n)
+    views = lanes.lane_views(lanes.thread_cache(__name__), o, k.n)
     for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):
         if go:
             departures_ref(t, lat, fl, views[i])

@@ -61,7 +61,7 @@ def rr_pick(elig, rr, *, kmax: int):
     fn = _fn("repro_rr_pick", [_P] * 4 + [_I] * 3 + [_P])
     build.check(fn(p_elig, p_rr, _P(has.data_ptr()), _P(sel.data_ptr()),
                    n, k, int(kmax), build.stream(dev)), "rr_pick")
-    rr_pick.launches += 1
+    build.count(rr_pick, launches=1)
     return has, sel
 
 

@@ -7,6 +7,11 @@ head dims (q/k's and v's) that are multiples of 8 and rows that are
 16-byte aligned; bf16 operands it does not take raise ``ValueError``.
 V may have a head dim ``Dv <= D`` of its own (MLA), as the JAX package's
 ``blocked_attention`` takes; the output then has ``Dv`` columns.
+``score_dtype=torch.bfloat16`` (``cfg.attn_bf16``) launches the
+tensor-core kernel's bf16-score variant (``repro_flash_attention_tc_bf16s``:
+the scores and probabilities rounded to bf16 as the plain version's
+``score_dtype`` rounds them); the SIMT kernel keeps f32 scores, so f32
+operands with bf16 scores raise ``ValueError``.
 
 The wrapper checks every operand (device, dtype, shape, a unit innermost
 stride: the kernels take the other strides, so ``gqa``'s ``[B, S, H, D]``
@@ -14,8 +19,9 @@ stride: the kernels take the other strides, so ``gqa``'s ``[B, S, H, D]``
 output as a ``[B, Hq, Sq, Dv]`` view of ``[B, Sq, Hq, Dv]`` storage (so the
 caller's transpose back is free), launches on PyTorch's current stream,
 raises if the launch failed, and counts its launches in
-``flash_attention.launches``, and by kernel in ``launches_tc`` and
-``launches_simt``.
+``flash_attention.launches``, by kernel in ``launches_tc`` and
+``launches_simt``, and those with bf16 scores (tensor-core ones) in
+``launches_bf16s``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ D_MAX = 128
 TC_ALIGN = 8            # elements: 16 bytes of bf16, one cp.async chunk
 VARIANTS = ("tc", "simt")
 _LL = ctypes.c_longlong
-_LAUNCHERS = {"tc": "repro_flash_attention_tc", "simt": "repro_flash_attention"}
+_LAUNCHERS = {"tc": "repro_flash_attention_tc", "simt": "repro_flash_attention",
+              "tc_bf16s": "repro_flash_attention_tc_bf16s"}
 
 
 class _Args(ctypes.Structure):
@@ -84,14 +91,15 @@ _by_dtype = variant     # flash_attention's keyword of the same name shadows it
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    variant: str | None = None):
+                    variant: str | None = None, score_dtype=torch.float32):
     """Launch a kernel on CUDA tensors; q ``[B, Hq, Sq, D]``, k ``[B, Hkv,
     Sk, D]``, v ``[B, Hkv, Sk, Dv]``, f32 or bf16, ``Dv <= D <= 128``,
     ``Hq % Hkv == 0``; returns ``[B, Hq, Sq, Dv]``.
 
     ``variant`` (``"tc"`` or ``"simt"``) names the kernel; left ``None``,
     the dtype decides (:func:`variant`).  Only the card's checks name it,
-    to time the SIMT kernel on bf16 beside the tensor-core one."""
+    to time the SIMT kernel on bf16 beside the tensor-core one.
+    ``score_dtype`` f32 or bf16; bf16 takes the tensor-core kernel only."""
     dev = q.device
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k: expected [B, H, S, D], got {tuple(q.shape)}, "
@@ -112,6 +120,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if variant == "tc":
         _check_tc(q, k, v)
     kind = variant or _by_dtype(q, k, v)
+    if score_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"score_dtype {score_dtype}: expected torch.float32 or "
+                        f"torch.bfloat16")
+    bf16s = score_dtype == torch.bfloat16
+    if bf16s and kind != "tc":
+        raise ValueError(f"bf16 scores (attn_bf16) on {q.dtype} operands: only the "
+                         f"tensor-core kernel (bf16 operands) has a bf16-score variant; "
+                         f"the SIMT kernel keeps f32 scores")
     build.on_card(dev, "flash_attention")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=dev).transpose(1, 2)
     strides = {f"{n}_s{a}": t.stride(i) for n, t in zip("qkvo", (q, k, v, out))
@@ -120,17 +136,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                  **strides, b=b, hq=hq, hkv=hkv, sq=sq, sk=sk, d=d, dv=dv,
                  causal=int(bool(causal)), window=int(window),
                  dtype=DTYPES[q.dtype], scale=d ** -0.5)
-    build.check(_fn(kind)(args, build.stream(dev)), f"flash_attention ({kind})")
-    flash_attention.launches += 1
-    setattr(flash_attention, f"launches_{kind}",
-            getattr(flash_attention, f"launches_{kind}") + 1)
+    launcher = "tc_bf16s" if bf16s else kind
+    build.check(_fn(launcher)(args, build.stream(dev)), f"flash_attention ({launcher})")
+    build.count(flash_attention, launches=1, **{f"launches_{kind}": 1},
+                launches_bf16s=int(bf16s))
     return out
 
 
 def reset_launches() -> None:
-    """Set the total and both per-kernel counts to 0."""
+    """Set the total, both per-kernel counts and the bf16-score count to 0."""
     flash_attention.launches = flash_attention.launches_tc = \
-        flash_attention.launches_simt = 0
+        flash_attention.launches_simt = flash_attention.launches_bf16s = 0
 
 
 reset_launches()

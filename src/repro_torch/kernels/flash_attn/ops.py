@@ -37,10 +37,11 @@ class FlashAttention(torch.autograd.Function):
     the caller's views (``gqa``'s transposes, MLA's slice of v)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, score_dtype=torch.float32):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return K.flash_attention(q, k, v, causal=causal, window=window)
+        return K.flash_attention(q, k, v, causal=causal, window=window,
+                                 score_dtype=score_dtype)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -51,23 +52,22 @@ class FlashAttention(torch.autograd.Function):
             out = R.attention_ref(*ins, causal=ctx.causal, window=ctx.window)
             wrt = [t for t in ins if t.requires_grad]
             got = iter(torch.autograd.grad(out, wrt, grad_out.float()))
-        return (*(next(got) if n else None for n in need), None, None)
+        return (*(next(got) if n else None for n in need), None, None, None)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     backend: str = "kernel", score_dtype=torch.float32):
     """q ``[B, Hq, Sq, D]``, k ``[B, Hkv, Sk, D]``, v ``[B, Hkv, Sk, Dv]``
     (any strides with a unit innermost one) -> ``[B, Hq, Sq, Dv]`` in
-    ``q.dtype``.  ``score_dtype`` other than f32 (``cfg.attn_bf16``) is
-    taken by the plain version only: a CUDA operand with the ``"kernel"``
-    backend raises ``ValueError``."""
+    ``q.dtype``.  ``score_dtype=torch.bfloat16`` (``cfg.attn_bf16``) rounds
+    the scores and probabilities to bf16: on the card, the tensor-core
+    kernel's bf16-score variant (bf16 operands; f32 ones raise
+    ``ValueError``), whose backward is the same dense f32 recompute as for
+    f32 scores; ``"dense"`` keeps f32 scores."""
     if backend not in BACKENDS:
         raise KeyError(f"unknown attention backend {backend!r}; have {BACKENDS}")
     if build.use_kernel(backend, q):
-        if score_dtype != torch.float32:
-            raise ValueError(f"score_dtype {score_dtype} (attn_bf16): the flash_attention "
-                             f"kernels keep f32 scores; use backend='plain'")
-        return FlashAttention.apply(q, k, v, causal, window)
+        return FlashAttention.apply(q, k, v, causal, window, score_dtype)
     if backend == "dense":
         return R.attention_ref(q, k, v, causal=causal, window=window).to(q.dtype)
     return R.flash_attention_ref(q, k, v, causal=causal, window=window,

@@ -91,7 +91,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     ``score_dtype=torch.bfloat16`` rounds each tile's scores and
     probabilities to bf16, the softmax statistics staying f32, as the JAX
     package's ``blocked_attention(score_dtype=)`` does (``cfg.attn_bf16``);
-    no kernel takes it."""
+    the tensor-core kernel's bf16-score variant does the same."""
     b, hq, sq, d = q.shape
     sk, dv = k.shape[2], v.shape[-1]
     k, v = _kv_heads(q, k, v)

@@ -14,11 +14,18 @@ copies, which the run loop keeps in step (it reads the gate once a tick
 and the leap once a superstep) and which the plain versions read.  A lane
 that is not live is a bitwise no-op: its kernels return at once and its
 plain versions skip it.
+
+A batch may also be split into shards, each run by a thread of its own
+(``netsim/shard.py``).  What a wrapper keeps from one launch to the next
+(its argument block, a plain version's lane views) is kept per thread
+(:func:`thread_cache`), so that each shard keeps its own and two shards
+never swap it under each other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -42,6 +49,20 @@ class Tick(NamedTuple):
     def all_live(self) -> bool:
         """Every lane live: the tick's masks are the identity, and skipped."""
         return all(self.live_h)
+
+
+class _PerThread(threading.local):
+    def __init__(self):
+        self.caches = {}
+
+
+_PER_THREAD = _PerThread()
+
+
+def thread_cache(name: str) -> dict:
+    """The calling thread's cache ``name`` (a dict, made empty on first
+    use).  A thread's caches go with it."""
+    return _PER_THREAD.caches.setdefault(name, {})
 
 
 _AT: dict = {}

@@ -11,8 +11,9 @@ from the tick; a lane that is not live is left as it was.
 
 Two argument blocks.  The run's block holds the constants and the
 buffers the phase owns or only reads, which no other phase replaces
-(``PER_TICK`` names the rest): it is built once per run, when the wrapper
-first sees a run's buffers, after checking every operand.  On later ticks
+(``PER_TICK`` names the rest): it is built once per run and thread
+(``lanes.thread_cache``: each shard of a batch keeps its own), when the
+wrapper first sees a run's buffers, after checking every operand.  On later ticks
 the wrapper checks that those operands are the same tensors (the block
 holds them, so their storage cannot be reused).  The tick's block holds
 the operands that earlier phases replace each tick: the load balancer's
@@ -138,24 +139,22 @@ class _Block:
             self.tick.ls[i] = 0 if n == 1 else shape[0] * x.element_size()
 
 
-_block: list = [None]
-
-
 def sends(k: lanes.Tick, lat_send: int, fl: R.Flags, o: R.Operands) -> None:
     """Launch the fused kernel on a lane batch of CUDA tensors; same
     contract as ``ref.sends_lanes_ref`` (``o`` updated in place)."""
     n = k.n
-    blk = _block[0]
+    slot = lanes.thread_cache(__name__)
+    blk = slot.get("block")
     if blk is None or not blk.serves(n, lat_send, fl, o):
-        _block[0] = None                 # let the last run's buffers go first
-        blk = _block[0] = _Block(n, lat_send, fl, o)
+        slot["block"] = None             # let the last run's buffers go first
+        blk = slot["block"] = _Block(n, lat_send, fl, o)
     else:
         blk.check_tick(o)
     now = build.require(k.now, "now", torch.int32, (n,), blk.dev)
     live = build.require(k.live, "live", torch.bool, (n,), blk.dev)
     build.check(_fn()(ctypes.byref(blk.args), ctypes.byref(blk.tick), now, live, n,
                       build.stream(blk.dev)), "sends")
-    sends.launches += 1
+    build.count(sends, launches=1)
 
 
 sends.launches = 0

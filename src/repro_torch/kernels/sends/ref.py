@@ -261,15 +261,12 @@ def sends_ref(t: int, wire: int, fl: Flags, o: Operands, *, arb=None) -> None:
         o.pace_accum.copy_(pace - spend)
 
 
-_VIEWS: dict = {}
-
-
 def sends_lanes_ref(k: lanes.Tick, lat_send: int, fl: Flags, o: Operands, *,
                     arb=None) -> None:
     """The phase on a lane batch, in place: :func:`sends_ref` on each live
     lane at its own tick (``k.now_h``) and wire slot ``(t + lat_send) % L``."""
     l = o.infl.shape[-3]
-    views = lanes.lane_views(_VIEWS, o, k.n)
+    views = lanes.lane_views(lanes.thread_cache(__name__), o, k.n)
     for i, (t, go) in enumerate(zip(k.now_h, k.live_h)):
         if go:
             sends_ref(t, (t + lat_send) % l, fl, views[i], arb=arb)

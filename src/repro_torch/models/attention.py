@@ -69,7 +69,7 @@ def attn_qkv(p, cfg, x, kv_src, positions, sh=None):
 
 def score_dtype(cfg):
     """The dtype of the attention scores: bf16 under ``cfg.attn_bf16``
-    (which only the plain version takes), else f32."""
+    (on the card, the flash kernel's bf16-score variant), else f32."""
     return torch.bfloat16 if cfg.attn_bf16 else torch.float32
 
 

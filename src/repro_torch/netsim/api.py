@@ -23,8 +23,9 @@ one lane only and raises at plan time.
 
 ``Study.run`` keeps the reference's ``cache=`` (``netsim/cache.py``, the
 lanes content-addressed) and ``chunk_lanes=`` (flush each finished chunk
-to the cache, so a killed grid resumes).  ``mesh=`` over more than one
-card is not ported and raises.
+to the cache, so a killed grid resumes), and ``mesh=``: the lanes spread
+over several devices, one lane loop a shard (``netsim/shard.py``), each
+lane bit-equal to the one-device batch.
 
 Every metric is numpy arithmetic on host copies of the final state, as
 in the reference: no divide of a tensor appears in a result.
@@ -686,8 +687,10 @@ class Study:
             cache=None, chunk_lanes: int | None = None) -> StudyResult:
         """Execute the grid and pull typed per-lane results.
 
-        ``mesh``         the devices of ``shard.lane_mesh()``: one device
-                         runs the batch there; more raise (not ported).
+        ``mesh``         the devices of ``shard.lane_mesh()``: more than
+                         one spreads the lanes over them, one lane loop
+                         a shard (``shard.run_lanes``); with ``cache`` or
+                         ``chunk_lanes``, each chunk is spread so.
         ``cache``        reuse finished lanes by content address —
                          ``True`` (default dir), a path, or a
                          :class:`cache.ResultCache`; only missing lanes

@@ -51,7 +51,8 @@ as in the reference, and each lane equals its standalone run.
 
 ``Sim.run`` is the batch of one lane; ``Sim.run_batch`` (the seed-only
 study) and the experiment API's studies (``netsim/api.py``) run their
-lanes as one batch through ``shard.run_lanes``.  ``Sim.run_trace`` is the
+lanes as one batch through ``shard.run_lanes``, or over a mesh of
+devices, one loop a shard.  ``Sim.run_trace`` is the
 reference's traced scan on one lane: every tick from ``init()``, no exit
 gate and no leap, each tick's outputs written into preallocated tensors
 on the device.  ``Sim.step``, ``Sim.horizon`` and ``Sim.phases`` take a
@@ -106,7 +107,8 @@ class Sim:
                             #   and "leaps" (supersteps that leapt ahead) of
                             #   its lane 0, and "lanes": the batch's (steps,
                             #   leaps, ticks a lane; "batch_ticks", the
-                            #   batched ticks, one launch of each kernel each)
+                            #   batched ticks, one launch of each kernel each;
+                            #   "shard_ticks", each shard's over a mesh)
     cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
@@ -183,8 +185,8 @@ class Sim:
         standalone ``run(seed=s)``, run as one batch
         (``shard.run_lanes``); the final states copied to the host, stacked
         along a leading ``[len(seeds)]`` axis (the reference's batched state
-        after ``jax.device_get``).  A ``mesh`` over more than one card
-        raises (``MESH_TODO``)."""
+        after ``jax.device_get``).  ``mesh``: the devices to spread the
+        lanes over (``shard.run_lanes``)."""
         from repro_torch.netsim import shard
 
         seeds = [int(s) for s in seeds]
@@ -195,13 +197,6 @@ class Sim:
                                         mesh=mesh))
 
 
-# Spreading lanes over several cards (the reference's ``shard.py`` beyond
-# one device) is not ported: a ``mesh=`` over more cards raises rather
-# than running on one card.
-MESH_TODO = ("mesh= over more than one device (lanes over several cards, the "
-             "reference's netsim/shard.py shard_map path) is not ported yet: "
-             "ROADMAP.md Queue 1 item 4")
-
 # The earlier designs' backends, kept to time the fused phases against
 # them on one lane, run no lane batch.
 LANE_TODO = ("{key}={value!r} (an earlier design's backend) runs one lane; a "
@@ -210,7 +205,7 @@ LANE_TODO = ("{key}={value!r} (an earlier design's backend) runs one lane; a "
 
 def check_lane_backends(cfg: SimConfig) -> None:
     """Raise ``NotImplementedError`` where ``cfg`` names an earlier design's
-    backend, which runs no batch of several lanes."""
+    backend, which runs no batch of several lanes, nor a mesh."""
     for key, value in (("departures_backend", "plain"), ("fabric_backend", "split"),
                        ("sender_backend", "split"), ("transport_backend", "split")):
         if getattr(cfg, key) == value:

@@ -166,10 +166,12 @@ def test_op_stats_counts_and_records_in_place_ops():
 
 def test_launch_counts_cover_every_counting_wrapper():
     # every wrapper of a kernels/*/kernel.py that counts its launches
-    # (`<wrapper>.launches += 1`) is read
+    # (`<wrapper>.launches += 1`, or `build.count(<wrapper>, launches=1)`,
+    # the form safe under threads) is read
     src = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
     counted = {m for f in src.glob("*/kernel.py")
-               for m in re.findall(r"^\s+(\w+)\.launches \+= 1", f.read_text(), re.M)}
+               for m in re.findall(r"^\s+(?:build\.count\()?(\w+)(?:\.launches \+= 1|, launches=1)",
+                                   f.read_text(), re.M)}
     assert {f.__name__ for f in audit.launch_wrappers()} == counted
     assert {"departures", "arrivals", "control", "sends", "rr_pick"} <= counted
     from repro_torch.kernels.sends import kernel as sends

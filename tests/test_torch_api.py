@@ -7,7 +7,7 @@ point-major tidy rows; ``best`` ranking unfinished lanes strictly last.
 The reference's one-compile assertions (``trace_guard``) are held in
 ``test_torch_analysis.py``: one lane loop a study, one ``init_state``
 call a batch.  Also the ``trim_seen`` guard of
-``RunResult.from_state`` on both sides of 2**24, and ``mesh=`` refused.
+``RunResult.from_state`` on both sides of 2**24.
 The study's rows against the JAX package's are in
 ``test_torch_api_rows.py`` (one file each keeps both under a minute)."""
 
@@ -186,16 +186,6 @@ def test_static_keys_name_every_other_config_field():
     assert not api.STATIC_KEYS & api.CFG_KEYS
     assert api.STATIC_KEYS - japi.STATIC_KEYS == {"departures_backend", "sender_backend"}
     assert api.CFG_KEYS == japi.CFG_KEYS and api.CC_PARAM_KEYS == japi.CC_PARAM_KEYS
-
-
-def test_mesh_is_refused():
-    """Lanes over several cards are not ported: ``mesh=`` raises and names
-    the roadmap item, it never runs on one device instead."""
-    plan = api.study(_scenario(), device=CPU)
-    for call in (lambda: plan.run(mesh=object()), lambda: plan.run_states(mesh=object()),
-                 lambda: plan.sim.run_batch([0], 10, mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            call()
 
 
 def test_study_validates_workload_up_front():

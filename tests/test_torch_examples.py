@@ -1,7 +1,9 @@
 """The port's example twins: ``examples/torch_quickstart.py --quick`` runs
 to its end on the CPU (``--device cpu``) and prints the table of all four
 algorithms; ``examples/torch_train_lm.py`` trains a small model on the CPU
-and resumes from its checkpoint; without ``--device`` they, and
+and resumes from its checkpoint; ``examples/torch_serve_decode.py``
+serves the reduced qwen3-0.6b (B = 4, a 24-token prompt, 16 new tokens)
+on the CPU; without ``--device`` they, and
 ``examples/torch_collective_estimate.py``, ask for the card, so on a
 machine without one they stop with the port's error instead of falling
 back to the CPU."""
@@ -67,3 +69,19 @@ def test_torch_train_lm_asks_for_the_card_by_default(tmp_path):
     out = _run("--steps", "1", "--ckpt-dir", str(tmp_path / "ck"), script="torch_train_lm.py")
     assert out.returncode != 0
     assert "needs a CUDA card" in out.stderr
+
+
+def test_torch_serve_decode_runs_on_the_cpu():
+    out = _run("--device", "cpu", script="torch_serve_decode.py")
+    assert out.returncode == 0, out.stderr
+    assert "batch 4, prompt 24, 16 new tokens on cpu" in out.stdout
+    ids = out.stdout.split("(first request): [")[1].split("]")[0].split(",")
+    assert len(ids) == 16
+
+
+def test_torch_serve_decode_asks_for_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default run succeeds")
+    out = _run(script="torch_serve_decode.py")
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr

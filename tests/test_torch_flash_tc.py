@@ -14,7 +14,15 @@ The bf16 kernel (``csrc/flash_attn_tc.cu``) runs only on a card.  Here:
   error it costs is known before any card run.  It is held, within the
   bf16 tolerance 2e-2 (one bf16 rounding of the output and of P),
   against the plain version ``flash_attention_ref`` and against the JAX
-  package's f32 oracle, fed the same numpy inputs.
+  package's f32 oracle, fed the same numpy inputs;
+- ``tc_rehearsal(score_bf16=True)`` repeats the kernel's bf16-score
+  variant (``cfg.attn_bf16``: each score scaled, masked and rounded to
+  bf16 in the natural domain before the log2 domain, the running max
+  from the rounded scores, each probability rounded before the row sum
+  and ``P·V``), held within 2e-2 to ``flash_attention_ref(score_dtype=
+  bf16)`` and to the JAX package's ``blocked_attention(score_dtype=bf16)``;
+  f32 operands with bf16 scores raise ``ValueError`` (the SIMT kernel
+  keeps f32 scores).
 """
 
 import dataclasses
@@ -27,6 +35,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attn.ref import attention_ref as jattention_ref  # noqa: E402
+from repro.models.attention import blocked_attention  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attn import kernel as FK  # noqa: E402
@@ -36,30 +45,38 @@ FLASH_BF16_TOL = 2e-2
 LOG2E = 1.4426950408889634
 
 
-def tc_rehearsal(q, k, v, *, causal=True, window=0):
+def tc_rehearsal(q, k, v, *, causal=True, window=0, score_bf16=False):
     """The tensor-core kernel's rounding in plain torch (its tiles, its
-    masks, its order of rounding); returns bf16 ``[B, Hq, Sq, D]``."""
+    masks, its order of rounding); returns bf16 ``[B, Hq, Sq, D]``.
+    ``score_bf16``: its bf16-score variant's."""
     b, hq, sq, d = q.shape
     sk = k.shape[2]
     k, v = FR._kv_heads(q, k, v)
     qf, kf, vf = q.float(), k.float(), v.float()
-    sl2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(LOG2E)
+    scale, l2 = torch.tensor(d ** -0.5, dtype=torch.float32), torch.tensor(LOG2E)
+    sl2 = scale * l2
+    start = torch.tensor(FR.NEG_INF, dtype=torch.float32) * (l2 if score_bf16 else 1)
     out = torch.empty((b, hq, sq, d), dtype=q.dtype)
     for q0 in range(0, sq, FR.BLOCK_Q):
         rows = min(FR.BLOCK_Q, sq - q0)
         qpos = torch.arange(q0, q0 + rows)[:, None] + (sk - sq)
-        m = torch.full((b, hq, rows, 1), FR.NEG_INF)
+        m = torch.full((b, hq, rows, 1), float(start))
         l = torch.zeros((b, hq, rows, 1))
         acc = torch.zeros((b, hq, rows, d))
         for t in FR.key_tiles(q0, rows, sq, sk, causal, window):
             k0 = t * FR.BLOCK_K
             kt, vt = kf[:, :, k0:k0 + FR.BLOCK_K], vf[:, :, k0:k0 + FR.BLOCK_K]
             kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
-            s = torch.where(FR._mask(qpos, kpos, causal, window),
-                            (qf[:, :, q0:q0 + rows] @ kt.transpose(-1, -2)) * sl2,
-                            FR.NEG_INF)
+            raw = qf[:, :, q0:q0 + rows] @ kt.transpose(-1, -2)
+            mask = FR._mask(qpos, kpos, causal, window)
+            if score_bf16:
+                s = torch.where(mask, raw * scale, FR.NEG_INF).to(torch.bfloat16).float() * l2
+            else:
+                s = torch.where(mask, raw * sl2, FR.NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp2(s - m_new)
+            if score_bf16:
+                p = p.to(torch.bfloat16).float()
             alpha = torch.exp2(m - m_new)
             l = alpha * l + p.sum(dim=-1, keepdim=True)
             acc = alpha * acc + p.to(torch.bfloat16).float() @ vt
@@ -108,6 +125,38 @@ def test_tc_rounding_rehearsal_within_bf16_tolerance(case):
     oracle = jattention_ref(as_j(nq), jnp.repeat(as_j(nk), rep, axis=1),
                             jnp.repeat(as_j(nv), rep, axis=1), causal=causal, window=win)
     assert _err(got, torch.from_numpy(np.array(oracle, np.float32))) <= FLASH_BF16_TOL
+
+
+@pytest.mark.parametrize("case", REHEARSAL_CASES)
+def test_tc_bf16_scores_rehearsal_within_bf16_tolerance(case):
+    b, hq, hkv, sq, sk, d, causal, win = case
+    (nq, nk, nv), (q, k, v) = _inputs(b, hq, hkv, sq, sk, d)
+    got = tc_rehearsal(q, k, v, causal=causal, window=win, score_bf16=True)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+    plain = FR.flash_attention_ref(q, k, v, causal=causal, window=win,
+                                   score_dtype=torch.bfloat16)
+    assert _err(got, plain) <= FLASH_BF16_TOL
+    rep = hq // hkv
+    as_j = lambda a: jnp.asarray(a, jnp.bfloat16)
+    want = blocked_attention(as_j(nq), jnp.repeat(as_j(nk), rep, axis=1),
+                             jnp.repeat(as_j(nv), rep, axis=1), causal=causal, window=win,
+                             q_chunk=FR.BLOCK_Q, k_chunk=FR.BLOCK_K,
+                             score_dtype=jnp.bfloat16)
+    assert _err(got, torch.from_numpy(np.array(want, np.float32))) <= FLASH_BF16_TOL
+
+
+def test_bf16_scores_take_the_tc_kernel_only():
+    """f32 operands with bf16 scores raise ``ValueError`` (the SIMT kernel
+    keeps f32 scores), as does naming the SIMT kernel; bf16 operands pass
+    every check and reach the card's."""
+    _, (q, k, v) = _inputs(1, 2, 2, 64, 64, 64)
+    for args, kind in (((q.float(), k.float(), v.float()), None), ((q, k, v), "simt")):
+        with pytest.raises(ValueError, match="bf16-score variant"):
+            FK.flash_attention(*args, variant=kind, score_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        FK.flash_attention(q, k, v, score_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="score_dtype"):
+        FK.flash_attention(q, k, v, score_dtype=torch.float16)
 
 
 def test_variant_follows_the_dtype():

@@ -646,3 +646,24 @@ def test_study_lanes_on_the_card_equal_their_runs(cuda, name, points, algo):
         alone = tstate.to_numpy(sim.run(sc.max_ticks, seed=seed))
         for a, b in zip(tstate.tree_leaves(alone), tstate.tree_leaves(tstate.lane(got, lane))):
             assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("k,algo", [(2, "smartt"), (3, "smartt"), (2, "eqds")],
+                         ids=["x2", "x3-padded", "x2-eqds"])
+def test_study_over_the_card_repeated_equals_one_batch(cuda, k, algo):
+    """A study over a mesh of the card repeated, ``[cuda] * k`` (one lane
+    loop a shard, each on a thread and stream of its own): every lane's
+    final state equal to the one-device batch's, bit for bit; each fused
+    kernel launched the sum of the shards' batched ticks."""
+    from repro_torch.netsim import api
+    plan = api.study("perm_128n_3t", points=({}, {"start_cwnd_mult": 1.0, "kmin_frac": 0.3}),
+                     seeds=(0, 1), algo=algo, device=cuda)
+    want = plan.run_states()
+    fns = (PK.departures, XK.control, AK.arrivals, SK.sends)
+    n0 = [f.launches for f in fns]
+    got = plan.run_states(mesh=[torch.device("cuda", 0)] * k)
+    lanes = plan.sim.stats["lanes"]
+    assert len(lanes["shard_ticks"]) == k and sum(lanes["shard_ticks"]) == lanes["batch_ticks"]
+    assert [f.launches - n for f, n in zip(fns, n0)] == [lanes["batch_ticks"]] * 4
+    for a, b in zip(tstate.tree_leaves(got), tstate.tree_leaves(want)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()

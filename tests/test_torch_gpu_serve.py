@@ -132,16 +132,28 @@ def test_flash_attention_value_head_dim_and_cross(cuda, case):
 
 def test_flash_attention_tc_refuses_a_value_head_dim_off_8(cuda):
     """A bf16 value head dim that is not a multiple of 8 raises ValueError
-    and launches nothing; the kernel path refuses bf16 scores."""
+    and launches nothing; the kernel path takes bf16 scores through the
+    tensor-core kernel's bf16-score variant, held to the plain version's
+    bf16 scores (one launch, counted), and refuses them on f32 operands."""
     from repro_torch.kernels.flash_attn import ops as FO
     q = torch.zeros((1, 2, 64, 96), dtype=torch.bfloat16, device=cuda)
     v = torch.zeros((1, 2, 64, 60), dtype=torch.bfloat16, device=cuda)
     n0 = FK.flash_attention.launches
     with pytest.raises(ValueError, match="value head dim 60"):
         FK.flash_attention(q, q, v)
-    with pytest.raises(ValueError, match="score_dtype"):
-        FO.flash_attention(q, q, q, score_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16-score variant"):
+        FO.flash_attention(q.float(), q.float(), q.float(), score_dtype=torch.bfloat16)
     assert FK.flash_attention.launches == n0
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((2, 300, h, 128), generator=g, device=cuda)
+               .to(torch.bfloat16).transpose(1, 2) for h in (8, 4, 4))
+    b0 = FK.flash_attention.launches_bf16s
+    out = FO.flash_attention(q, k, v, causal=True, score_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches_bf16s == b0 + 1
+    ref = FR.flash_attention_ref(q, k, v, causal=True, score_dtype=torch.bfloat16)
+    assert _err(out, ref) <= FLASH_BF16_TOL
+    assert not torch.equal(out, FK.flash_attention(q, k, v, causal=True))
 
 
 def test_flash_attention_simt_variant_on_bf16(cuda):

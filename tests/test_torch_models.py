@@ -211,8 +211,8 @@ def test_flash_plain_dv_and_cross_match_blocked_attention(case, dt):
 
 def test_flash_plain_bf16_scores_match_blocked_attention():
     """``attn_bf16``: the plain version rounds scores and probabilities to
-    bf16 as ``blocked_attention(score_dtype=bf16)`` does; the kernel path
-    refuses it on a card (no config sets it)."""
+    bf16 as ``blocked_attention(score_dtype=bf16)`` does (on a card the
+    tensor-core kernel's bf16-score variant does the same)."""
     rng = np.random.default_rng(4)
     q, k, v = (rng.standard_normal((1, 2, 64, 16)).astype(np.float32) for _ in range(3))
     want = jattn.blocked_attention(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
@@ -343,6 +343,27 @@ def test_attention_layer_matches_reference():
         want = jattn.decode_attention(jq1, jkc, jvc, jnp.asarray(clen), window=win)
         got = tattn.decode_attention(tq1, tkc, tvc, torch.from_numpy(clen), window=win)
         assert got.dtype == torch.bfloat16 and _rel(want, got) < LAYER_REL_TOL
+
+
+@pytest.mark.parametrize("S", [24, 70])
+def test_attention_layer_with_bf16_scores_matches_reference(S):
+    """``cfg.attn_bf16``: layer 0 of the reduced qwen3-0.6b through the
+    port's ``attn_apply`` on the kernel backend (on the CPU, the plain
+    version with bf16 scores) against the JAX ``attn_apply`` with
+    ``attn_bf16=True`` on the same input (70: two query tiles here, one
+    chunk there); the f32-score layer differs from it."""
+    cfg, jcfg, params, model = _model_pair("qwen3-0.6b")
+    cfg, jcfg = (dataclasses.replace(c, attn_bf16=True) for c in (cfg, jcfg))
+    p, tp = _layer0(params)["mixer"], model.layers[0].mixer
+    jx, tx = _act(np.random.default_rng(6), (2, S, cfg.d_model))
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
+    want = jattn.attn_apply(p, jcfg, jx, jnp.asarray(pos), None)
+    got, _, _ = tattn.attn_apply(tp, cfg, tx, torch.from_numpy(pos.copy()), backend="kernel")
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    assert _rel(want, got) < LAYER_REL_TOL
+    f32, _, _ = tattn.attn_apply(tp, dataclasses.replace(cfg, attn_bf16=False), tx,
+                                 torch.from_numpy(pos.copy()), backend="kernel")
+    assert not torch.equal(f32, got)
 
 
 @pytest.mark.parametrize("S", [16, 21])

@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.netsim import api, engine, shard, state  # noqa: E402
+from repro_torch.netsim import api, shard, state  # noqa: E402
 from test_torch_engine import one_torch_thread  # noqa: E402,F401 (autouse)
 
 POINTS = ({}, {"start_cwnd_mult": 0.5})
@@ -71,18 +71,6 @@ def test_run_lanes_one_device_mesh_matches_no_mesh():
                                             mesh=mesh))
     _assert_state_equal(plain, meshed)
     _assert_state_equal(st.run_states(mesh=mesh), plain)
-
-
-def test_larger_mesh_raises():
-    """Lanes over several cards are not ported: a mesh of two devices
-    raises and names the roadmap item."""
-    st = _study()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        shard.run_lanes(st.sim, st.consts_b, st.axes, st.init(), 10,
-                        mesh=shard.lane_mesh(["cpu", "cpu"]))
-    with pytest.raises(NotImplementedError, match="several cards"):
-        st.run(mesh=[torch.device("cpu")] * 2)
-    assert "several cards" in engine.MESH_TODO
 
 
 def test_axes_leaves_align_with_the_constants():
