@@ -1,0 +1,8 @@
+"""The fused sends launch's share of its roofline over the traced study
+(``portbench/roofline/sends.py``), percent."""
+
+from portbench.roofline import kernel_share
+
+
+def read(run):
+    return kernel_share(run, "sends")
