@@ -544,7 +544,7 @@ STUDY_SCENARIO = "perm_1024n_3t"
 STUDY_POINTS = ({"start_cwnd_mult": 1.0}, {"start_cwnd_mult": 1.25})
 STUDY_SEEDS = (0, 1)
 TRACE_TICKS = 300
-PROFILE_TICKS = 400       # phase 6's synchronized per-phase timing
+PROFILE_TICKS = 400       # phase 6's host time a phase (tick.<phase> spans)
 # phase 4e: lanes on the card.  The 16-lane study sweeps an axis that each
 # reaches another place: the initial state, departures.cu's RED
 # thresholds, control.cu's SMaRTT update
@@ -4339,13 +4339,14 @@ def profile_way(backend):
     "split-sends": that phase as the earlier design, its kernel with PyTorch
     glue; on this run's one flow a sender the split sends phase launches no
     kernel at all; "plain-departures": the departures phase in PyTorch):
-    each phase's wall time
-    with a synchronize after it over the first PROFILE_TICKS ticks (the
-    queues load and trims start within them; this scenario never leaps),
+    the host's time issuing each phase, its ``tick.<phase>`` spans over the
+    first PROFILE_TICKS ticks (the queues load and trims start within them;
+    this scenario never leaps; the tick's exit test is its one host read),
     then a torch.profiler window of 100 ticks for the device's busy share
     and its kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.analysis.trace_guard import recording
     from repro_torch.kernels.lanes import Tick
     from repro_torch.netsim import scenarios, state
     acts = [ProfilerActivity.CUDA]
@@ -4354,22 +4355,19 @@ def profile_way(backend):
     c1 = sim.lanes_of(None, 1)                  # the run as a batch of one lane
     live = torch.ones((1,), dtype=torch.bool, device="cuda")
     st = state.init_lanes(sim.dims, sim.consts, None, [0])
-    per = {name: 0.0 for name, _ in sim.lane_phases}
     t = 0
     torch.cuda.synchronize()
-    while t < PROFILE_TICKS and not bool(st.done.all()):
-        k = Tick(st.now, live, (t,), (True,))
-        for name, phase in sim.lane_phases:
-            t0 = time.perf_counter()
-            st = phase(c1, st, k)
-            torch.cuda.synchronize()
-            per[name] += time.perf_counter() - t0
-        st = st._replace(now=st.now + live)
-        t += 1
-    per_tick = {k: v / t * 1e3 for k, v in per.items()}
+    with recording() as rec:
+        while t < PROFILE_TICKS and not bool(st.done.all()):
+            st = sim.tick(c1, st, Tick(st.now, live, (t,), (True,)))
+            t += 1
+    per = {name: 0 for name, _ in sim.lane_phases}
+    for sp in rec.spans:
+        per[sp.name.removeprefix("tick.")] += sp.end - sp.start
+    per_tick = {k: v / t / 1e6 for k, v in per.items()}
     total = sum(per_tick.values())
-    log(f"[profile] perm_1024n_3t {backend}: phases over {t} ticks (synchronized after "
-        f"each phase): " + ", ".join(
+    log(f"[profile] perm_1024n_3t {backend}: host time a phase over {t} ticks (its "
+        f"tick.<phase> spans, no synchronize): " + ", ".join(
             f"{k} {v:.3f} ms/tick ({100 * v / total:.1f}%)" for k, v in per_tick.items()))
 
     st = state.init_lanes(sim.dims, sim.consts, None, [0])
@@ -4397,11 +4395,9 @@ def profile_way(backend):
     for e in top:
         log(f"[profile]   {dev_us(e) / ticks:9.3f} us/tick  x{e.count / ticks:5.2f}  "
             f"{e.key[:90]}")
-    return dict(phase_ms_per_tick=per_tick,
-                departures_share=per_tick["departures"] / total,
-                control_share=per_tick["control"] / total,
-                arrivals_share=per_tick["arrivals"] / total,
-                sends_share=per_tick["sends"] / total,
+    return dict(phase_host_ms_per_tick=per_tick,
+                **{f"{k}_host_share": per_tick[k] / total
+                   for k in ("departures", "control", "arrivals", "sends")},
                 wall_ms_per_tick=wall / ticks * 1e3,
                 device_busy_ms_per_tick=busy / ticks * 1e3,
                 idle_share=1 - busy / wall if busy else None,
@@ -4770,11 +4766,11 @@ def run(name, smi_line, bridge_cpu, dryrun_child, scratch, later):
                               ("sends", "split-sends", "split_")):
         rec = records[phase]
         log(f"[profile] perm_1024n_3t {phase} phase: fused "
-            f"{prof['kernel']['phase_ms_per_tick'][phase]:.3f} ms a tick "
-            f"({100 * prof['kernel'][f'{phase}_share']:.1f}%), {rec['phase_launches']} "
+            f"{prof['kernel']['phase_host_ms_per_tick'][phase]:.3f} ms of host time a tick "
+            f"({100 * prof['kernel'][f'{phase}_host_share']:.1f}%), {rec['phase_launches']} "
             f"launches and {rec['phase_ms'] * 1e3:.2f} us of device time a call; {split} "
-            f"{prof[split]['phase_ms_per_tick'][phase]:.3f} ms a tick "
-            f"({100 * prof[split][f'{phase}_share']:.1f}%), {rec[f'{pre}phase_launches']} "
+            f"{prof[split]['phase_host_ms_per_tick'][phase]:.3f} ms of host time a tick "
+            f"({100 * prof[split][f'{phase}_host_share']:.1f}%), {rec[f'{pre}phase_launches']} "
             f"launches and {rec[f'{pre}phase_ms'] * 1e3:.2f} us; device kernels a tick "
             f"{prof['kernel']['kernels_per_tick']:.1f} fused, "
             f"{prof[split]['kernels_per_tick']:.1f} {split}")

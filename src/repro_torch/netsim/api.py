@@ -40,6 +40,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.analysis.trace_guard import Recording, profiled, span
 from repro_torch.netsim import cache as cache_mod
 from repro_torch.netsim import engine, faults as faults_mod, scenarios, shard, state
 from repro_torch.netsim.metrics import jain_fairness
@@ -607,6 +608,9 @@ class Study:
     consts_b: state.Consts    # [P*S]-batched where swept, shared otherwise
     axes: state.Consts        # matching tree: 0 (swept) / None (shared)
     salts: tuple              # P*S ints, lane = p*S + s -> seeds[s]
+    # the spans of planning it, recorded under torch.profiler
+    # (``trace_guard.profiled``); ``run`` records on into it
+    recording: Recording | None = dataclasses.field(default=None, repr=False)
 
     @property
     def n_points(self) -> int:
@@ -655,9 +659,14 @@ class Study:
         (per-lane gating and leaping), so the result is bit-equal to the
         same lanes of a full-grid run."""
         lanes = list(lanes)
-        st = shard.run_lanes(self.sim, self._consts_subset(lanes), self.axes,
-                             self.init(lanes), max_ticks, mesh=mesh)
-        return state.to_numpy(st)
+        with span("study.init"):
+            st = self.init(lanes)
+        st = shard.run_lanes(self.sim, self._consts_subset(lanes), self.axes, st,
+                             max_ticks, mesh=mesh)
+        with span("study.host_copy") as sp:
+            out = state.to_numpy(st)
+            sp.count(bytes=sum(x.nbytes for x in state.tree_leaves(out)))
+        return out
 
     def run_states(self, max_ticks: int | None = None, *,
                    mesh=None) -> state.SimState:
@@ -703,18 +712,20 @@ class Study:
         Every combination is bit-equal to the plain uncached run."""
         mt = self._max_ticks(max_ticks)
         rc = cache_mod.resolve(cache)
-        _sync(self.device)
-        t0 = time.perf_counter()
-        if rc is None and chunk_lanes is None:
-            states_h = self.run_states(mt, mesh=mesh)
-            hits, misses = 0, self.n_lanes
-        else:
-            states_h, hits, misses = self._run_stitched(
-                mt, rc=rc, chunk_lanes=chunk_lanes, mesh=mesh)
-        wall = time.perf_counter() - t0
-        meta = _flow_meta(self.sim)
-        results = [self._lane_result(state.lane(states_h, lane), lane, mt, meta)
-                   for lane in range(self.n_lanes)]
+        with profiled(self.recording), span("study.run", lanes=self.n_lanes):
+            _sync(self.device)
+            t0 = time.perf_counter()
+            if rc is None and chunk_lanes is None:
+                states_h = self.run_states(mt, mesh=mesh)
+                hits, misses = 0, self.n_lanes
+            else:
+                states_h, hits, misses = self._run_stitched(
+                    mt, rc=rc, chunk_lanes=chunk_lanes, mesh=mesh)
+            wall = time.perf_counter() - t0
+            with span("study.results"):
+                meta = _flow_meta(self.sim)
+                results = [self._lane_result(state.lane(states_h, lane), lane, mt, meta)
+                           for lane in range(self.n_lanes)]
         return StudyResult(scenario=self.scenario.name, points=self.points,
                            seeds=self.seeds, results=tuple(results),
                            states=states_h, wall_s=wall,
@@ -770,6 +781,13 @@ def study(sc, points=None, seeds=(0,), device="cuda",
     ``None`` or ``[{}]`` = just the base config); ``seeds`` the per-lane
     salt seeds.  Anything per-point that would change ``Dims`` raises at
     plan time (``KeyError``)."""
+    with profiled() as rec, span("study.plan") as sp:
+        plan = _plan(sc, points, seeds, device, scenario_overrides, rec)
+        sp.count(lanes=plan.n_lanes)
+    return plan
+
+
+def _plan(sc, points, seeds, device, scenario_overrides, recording) -> Study:
     sc = _resolve(sc)
     if scenario_overrides:
         sc = sc.with_(**scenario_overrides)
@@ -799,7 +817,7 @@ def study(sc, points=None, seeds=(0,), device="cuda",
     consts_b, axes = _stack_consts(per_point, len(seeds))
     salts = tuple(np.tile(np.asarray(seeds, np.int64), len(pts)).tolist())
     return Study(scenario=sc, points=pts, seeds=seeds, sim=sim,
-                 consts_b=consts_b, axes=axes, salts=salts)
+                 consts_b=consts_b, axes=axes, salts=salts, recording=recording)
 
 
 def run(sc, *, seed: int = 0, max_ticks: int | None = None, device="cuda",

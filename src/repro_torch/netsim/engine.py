@@ -66,6 +66,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.trace_guard import span
 from repro_torch.core import registry
 from repro_torch.kernels import lanes
 from repro_torch.kernels.arrivals import ops as arrivals_ops
@@ -86,6 +87,11 @@ from repro_torch.netsim.workloads import Workload
 
 I32 = torch.int32
 F32 = torch.float32
+
+
+# the span of each tick phase (``trace_guard.span``), named once
+TICK_SPANS = {name: "tick." + name for name in
+              ("departures", "arrivals", "control", "grants", "sends", "metrics")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,8 +126,9 @@ class Sim:
     def tick(self, c: LaneConsts, st: SimState, k: lanes.Tick) -> SimState:
         """One batched tick: each live lane advances one tick, the others
         are left as they were (consumed: the rings are updated in place)."""
-        for _, phase in self.lane_phases:
-            st = phase(c, st, k)
+        for name, phase in self.lane_phases:
+            with span(TICK_SPANS[name]):
+                st = phase(c, st, k)
         return st._replace(now=st.now + k.live)
 
     def horizon_lanes(self, c: LaneConsts, st: SimState, t):

@@ -57,7 +57,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from repro_torch.analysis.trace_guard import counter
+from repro_torch.analysis.trace_guard import counter, span
 from repro_torch.kernels import build
 from repro_torch.kernels.lanes import Tick
 from repro_torch.netsim import engine, metrics, state
@@ -87,34 +87,38 @@ def _loop(sim, consts_b, axes, max_ticks: int, host=None):
     tick or a leap and let go for the host reads that wait on the device,
     so that one shard's thread issues its tick while the others wait on
     theirs: the threads take turns at the interpreter a tick at a time
-    instead of an operation at a time."""
+    instead of an operation at a time.  The loop's span (``lanes.loop``)
+    counts its batched ticks and lane-ticks."""
     K = max(sim.dims.superstep, 1)
     host = contextlib.nullcontext() if host is None else host
 
-    def run(st: state.SimState) -> state.SimState:
+    def loop(st: state.SimState) -> state.SimState:
         n = int(st.now.shape[0])
         with host:
             c = sim.lanes_of(consts_b, n, axes)
             live = (st.now < max_ticks) & ~torch.all(st.done, dim=-1)
-        now_h = st.now.tolist()
-        live_h = live.tolist()
+        with span("lanes.gate_read"):
+            now_h = st.now.tolist()
+            live_h = live.tolist()
         steps, leaps, batch = [0] * n, [0] * n, 0
         while any(live_h):
             if sim.dims.leap:
-                with host:
-                    h = sim.horizon_lanes(c, st, st.now[:, None])
-                    d = torch.where(live, torch.minimum(h, max_ticks - st.now),
-                                    0).to(torch.int32)
-                d_h = d.tolist()                    # the superstep's host read
-                if any(x > 0 for x in d_h):
+                with span("lanes.leap"):
                     with host:
-                        occ = metrics.isum(st.q_size[:, :-1], -1)
-                        st = st._replace(now=st.now + d,
-                                         m=metrics.leap_account(st.m, d, occ))
-                        live = live & (st.now < max_ticks)
-                    now_h = [a + b for a, b in zip(now_h, d_h)]
-                    leaps = [a + (b > 0) for a, b in zip(leaps, d_h)]
-                    live_h = [g and t < max_ticks for g, t in zip(live_h, now_h)]
+                        h = sim.horizon_lanes(c, st, st.now[:, None])
+                        d = torch.where(live, torch.minimum(h, max_ticks - st.now),
+                                        0).to(torch.int32)
+                    with span("lanes.leap_read"):
+                        d_h = d.tolist()            # the superstep's host read
+                    if any(x > 0 for x in d_h):
+                        with host:
+                            occ = metrics.isum(st.q_size[:, :-1], -1)
+                            st = st._replace(now=st.now + d,
+                                             m=metrics.leap_account(st.m, d, occ))
+                            live = live & (st.now < max_ticks)
+                        now_h = [a + b for a, b in zip(now_h, d_h)]
+                        leaps = [a + (b > 0) for a, b in zip(leaps, d_h)]
+                        live_h = [g and t < max_ticks for g, t in zip(live_h, now_h)]
             for _ in range(K):
                 if not any(live_h):
                     break
@@ -126,10 +130,18 @@ def _loop(sim, consts_b, axes, max_ticks: int, host=None):
                         live = live & (st.now < max_ticks)
                 batch += 1
                 steps = [s + g for s, g in zip(steps, live_h)]
-                live_h = live.tolist()              # the tick's one host read
+                with span("lanes.gate_read"):
+                    live_h = live.tolist()          # the tick's one host read
         sim.stats.update(steps=steps[0], leaps=leaps[0], ticks=now_h[0],
                          lanes=dict(steps=steps, leaps=leaps, ticks=now_h,
                                     batch_ticks=batch, shard_ticks=[batch]))
+        return st
+
+    def run(st: state.SimState) -> state.SimState:
+        with span("lanes.loop") as sp:
+            st = loop(st)
+            lanes = sim.stats["lanes"]
+            sp.count(batch_ticks=lanes["batch_ticks"], lane_ticks=sum(lanes["steps"]))
         return st
 
     return run
@@ -254,10 +266,11 @@ def _run_sharded(sim, consts_b, axes, states: state.SimState, max_ticks: int,
 
     def run(i):
         s, cb, st = shards[i]
-        if streams[i] is None:
-            return _loop(s, cb, axes, max_ticks, host)(st)
-        with torch.cuda.device(devs[i]), torch.cuda.stream(streams[i]):
-            return _loop(s, cb, axes, max_ticks, host)(st)
+        with span("lanes.shard", shard=i):          # the root of the thread's spans
+            if streams[i] is None:
+                return _loop(s, cb, axes, max_ticks, host)(st)
+            with torch.cuda.device(devs[i]), torch.cuda.stream(streams[i]):
+                return _loop(s, cb, axes, max_ticks, host)(st)
 
     with ThreadPoolExecutor(max_workers=D, thread_name_prefix="lanes") as pool:
         futures = [pool.submit(run, i) for i in range(D)]
