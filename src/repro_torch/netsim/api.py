@@ -654,7 +654,8 @@ class Study:
 
     def _run_lane_subset(self, lanes, max_ticks: int, mesh=None) -> state.SimState:
         """Run only ``lanes`` (absolute point-major indices) as one batch and
-        return their ``[len(lanes)]`` final states, copied to the host.
+        return their ``[len(lanes)]`` final states, copied to the host: from
+        a card through one page-locked block (``state.to_host_batch``).
         Each lane's trajectory does not depend on the batch it runs in
         (per-lane gating and leaping), so the result is bit-equal to the
         same lanes of a full-grid run."""
@@ -664,7 +665,8 @@ class Study:
         st = shard.run_lanes(self.sim, self._consts_subset(lanes), self.axes, st,
                              max_ticks, mesh=mesh)
         with span("study.host_copy") as sp:
-            out = state.to_numpy(st)
+            out = (state.to_host_batch(st) if st.now.device.type == "cuda"
+                   else state.to_numpy(st))
             sp.count(bytes=sum(x.nbytes for x in state.tree_leaves(out)))
         return out
 

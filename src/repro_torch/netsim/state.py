@@ -29,6 +29,8 @@ batch, composed by ``engine.build``.
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -692,6 +694,85 @@ def to_numpy(tree):
     """The same NamedTuple structure with every tensor leaf as numpy."""
     return tree_map(lambda x: x.detach().cpu().numpy()
                     if isinstance(x, torch.Tensor) else x, tree)
+
+
+HOST_ALIGN = 64                 # bytes: each leaf's offset in a host block
+_PINNED_NEW = _counter("study.host_copy.pinned_new")
+_PINNED_REUSED = _counter("study.host_copy.pinned_reused")
+
+
+class HostBlocks:
+    """The host blocks a finished lane batch is copied into
+    (:func:`to_host_batch`), kept for the process and reused: page-locked
+    (``pin``), so the card copies into them at the link's rate, and kept,
+    so each is page-locked once.  A block is lent to one batch at a time
+    and comes back when every array viewing it has been freed (they all
+    hang from one numpy array, held here by a weak reference), so a
+    result the caller keeps is never written over.  Blocks are kept by
+    exact size: a size no free block has drops the free blocks of other
+    sizes and allocates one (``study.host_copy.pinned_new``; a free block
+    of the size: ``study.host_copy.pinned_reused``)."""
+
+    def __init__(self, pin: bool = True):
+        self.pin = pin
+        self._blocks = []           # (uint8 tensor, weakref to its lent numpy array)
+        self._lock = threading.Lock()
+
+    def lend(self, nbytes: int):
+        """``(block, root)``: a free uint8 block of ``nbytes`` and the numpy
+        array over it that every view handed out must hang from."""
+        with self._lock:
+            hit = next((e for e in self._blocks
+                        if e[1]() is None and e[0].numel() == nbytes), None)
+            if hit is None:
+                self._blocks = [e for e in self._blocks if e[1]() is not None]
+                block = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pin)
+                _PINNED_NEW.hit()
+            else:
+                self._blocks = [e for e in self._blocks if e is not hit]
+                block = hit[0]
+                _PINNED_REUSED.hit()
+            root = block.numpy()
+            self._blocks.append((block, weakref.ref(root)))
+        return block, root
+
+    def held_bytes(self) -> int:
+        """Bytes of every block kept, lent or free."""
+        with self._lock:
+            return sum(b.numel() for b, _ in self._blocks)
+
+
+HOST_BLOCKS = HostBlocks()      # the process's page-locked blocks
+
+
+def host_offsets(leaves) -> tuple:
+    """``(offsets, total)``: each tensor leaf's byte offset in one host
+    block, in order and aligned to :data:`HOST_ALIGN`, and the block's
+    size."""
+    offs, end = [], 0
+    for x in leaves:
+        offs.append(end)
+        end += -(-x.nbytes // HOST_ALIGN) * HOST_ALIGN
+    return offs, end
+
+
+def to_host_batch(tree, blocks: HostBlocks = HOST_BLOCKS):
+    """:func:`to_numpy` of a lane batch through one host block of
+    ``blocks``: one asynchronous copy a leaf into the leaf's slice
+    (:func:`host_offsets`), one synchronize of each card at the end.  The
+    leaves are writable numpy views of the block, bit-equal to
+    :func:`to_numpy`'s with the same dtypes and shapes; the block stays
+    lent while any view of them lives."""
+    leaves = tree_leaves(tree)
+    offs, total = host_offsets(leaves)
+    block, root = blocks.lend(total)
+    for x, o in zip(leaves, offs):
+        block[o:o + x.nbytes].view(x.dtype).view(x.shape).copy_(x, non_blocking=True)
+    for dev in {x.device for x in leaves if x.device.type == "cuda"}:
+        torch.cuda.current_stream(dev).synchronize()
+    return tree_unflatten(tree, [
+        root[o:o + x.nbytes].view(torch.empty(0, dtype=x.dtype).numpy().dtype)
+        .reshape(x.shape) for x, o in zip(leaves, offs)])
 
 
 def tree_map(fn, tree, *rest):
