@@ -206,6 +206,11 @@ def span(name: str, **counts):
     return Span(rec.spans, name, counts)
 
 
+def recording_open() -> bool:
+    """A recording is open: spans are being recorded."""
+    return _OPEN is not None
+
+
 @contextlib.contextmanager
 def recording(rec: Recording | None = None):
     """Record every thread's spans inside the block into ``rec`` (or a new

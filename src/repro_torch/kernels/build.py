@@ -118,6 +118,8 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()["path"]))
     lib.repro_error_string.argtypes = [ctypes.c_int]
     lib.repro_error_string.restype = ctypes.c_char_p
+    lib.repro_span_mark.argtypes = [ctypes.c_void_p]
+    lib.repro_span_mark.restype = ctypes.c_int
     return lib
 
 
@@ -181,3 +183,10 @@ def stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def span_mark(device) -> None:
+    """Launch the empty ``span_mark_kernel`` (``csrc/common.cu``) on
+    PyTorch's current stream on the CUDA ``device``: a mark in the device
+    trace at an edge of a traced phase."""
+    check(library().repro_span_mark(stream(device)), "span_mark")

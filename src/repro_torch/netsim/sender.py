@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.trace_guard import recording_open, span
+from repro_torch.kernels import build
 from repro_torch.kernels.lanes import Tick
 from repro_torch.kernels.sends import ref as sends_ref
 from repro_torch.netsim.state import HORIZON_INF, Consts, Dims, LaneConsts, SimState
@@ -60,32 +62,47 @@ def grants(dims: Dims, c: LaneConsts, st: SimState, k: Tick, *, arb, ret: int) -
     picked round-robin by ``arb`` (the backend-resolved ``rr_pick``) over
     its ``[N, FRMAX]`` flow table, all lanes' rows in one ``[L * N, FRMAX]``
     pick.  The credit ring slot ``(t + ret) % R`` of each lane is updated
-    in place."""
+    in place.  Three spans split the phase (``trace_guard.span``, recorded
+    only under a recording): ``grants.demand`` (the predicate and the
+    gather), ``grants.pick`` (``arb``) and ``grants.credit`` (the credit
+    ring, ``granted``, the cursors).  Under a recording on a card the
+    phase also launches an empty kernel at each of its edges
+    (``build.span_mark``), so that a device trace tells its operations
+    from those of the phases around it."""
     if not dims.credit_based:
         return st
     NF, N, FRMAX, R = dims.NF, dims.N, dims.FRMAX, dims.R
     n, cb = c.n, c.b
-    demand = _grant_demand(dims, cb, st, k.now[:, None])
-    if not k.all_live:
-        demand = demand & k.live[:, None]
-    dm = torch.cat([demand, demand.new_zeros((n, 1))], dim=-1)[:, cb.flows_by_recv]
-    has_g, sel = arb(dm.reshape(n * N, FRMAX), st.rr_recv.reshape(n * N), FRMAX)
-    has_g, sel = has_g.reshape(n, N), sel.reshape(n, N)
-    gflow = torch.where(has_g, cb.flows_by_recv[cb.node_ids, sel], NF)       # [L, N]
-    credit = torch.where(has_g, float(dims.mtu), 0.0)
-    # the grant return delay is the constant `ret`, so all of a lane's
-    # grants of this tick land in one ring slot; a flow has one receiver,
-    # so every real grant lands on its own column (the idle ones add 0.0
-    # to column NF)
-    lanes_i = torch.arange(n, dtype=I32, device=gflow.device)[:, None]
-    slot = torch.remainder(k.now + ret, R)[:, None]
-    st.credit_ring.view(-1).index_add_(
-        0, ((lanes_i * R + slot) * (NF + 1) + gflow).reshape(-1), credit.reshape(-1))
-    granted = torch.cat([st.granted, st.granted.new_zeros((n, 1))], dim=-1)
-    granted.view(-1).index_add_(0, (lanes_i * (NF + 1) + gflow).reshape(-1),
-                                credit.reshape(-1))
-    rr_recv = torch.where(has_g, torch.remainder(sel + 1, FRMAX), st.rr_recv)
-    return st._replace(granted=granted[:, :NF].contiguous(), rr_recv=rr_recv)
+    marks = recording_open() and st.now.is_cuda
+    if marks:
+        build.span_mark(st.now.device)
+    with span("grants.demand"):
+        demand = _grant_demand(dims, cb, st, k.now[:, None])
+        if not k.all_live:
+            demand = demand & k.live[:, None]
+        dm = torch.cat([demand, demand.new_zeros((n, 1))], dim=-1)[:, cb.flows_by_recv]
+    with span("grants.pick"):
+        has_g, sel = arb(dm.reshape(n * N, FRMAX), st.rr_recv.reshape(n * N), FRMAX)
+    with span("grants.credit"):
+        has_g, sel = has_g.reshape(n, N), sel.reshape(n, N)
+        gflow = torch.where(has_g, cb.flows_by_recv[cb.node_ids, sel], NF)       # [L, N]
+        credit = torch.where(has_g, float(dims.mtu), 0.0)
+        # the grant return delay is the constant `ret`, so all of a lane's
+        # grants of this tick land in one ring slot; a flow has one
+        # receiver, so every real grant lands on its own column (the idle
+        # ones add 0.0 to column NF)
+        lanes_i = torch.arange(n, dtype=I32, device=gflow.device)[:, None]
+        slot = torch.remainder(k.now + ret, R)[:, None]
+        st.credit_ring.view(-1).index_add_(
+            0, ((lanes_i * R + slot) * (NF + 1) + gflow).reshape(-1), credit.reshape(-1))
+        granted = torch.cat([st.granted, st.granted.new_zeros((n, 1))], dim=-1)
+        granted.view(-1).index_add_(0, (lanes_i * (NF + 1) + gflow).reshape(-1),
+                                    credit.reshape(-1))
+        rr_recv = torch.where(has_g, torch.remainder(sel + 1, FRMAX), st.rr_recv)
+        st = st._replace(granted=granted[:, :NF].contiguous(), rr_recv=rr_recv)
+    if marks:
+        build.span_mark(st.now.device)
+    return st
 
 
 def flags(dims: Dims) -> sends_ref.Flags:

@@ -6,7 +6,8 @@ records nothing and ``span`` allocates nothing; on, a tiny-tree study's
 spans nest as the layers do, each batched tick has its six phases and one
 gate read, the loop's counts are the lane counts, and the study's states
 and rows are bit-equal to an unrecorded one; over a mesh each shard's
-spans nest within its own thread; the anchor puts the spans on the clock
+spans nest within its own thread; under EQDS three spans split each
+``tick.grants`` (none under SMaRTT); the anchor puts the spans on the clock
 of torch.profiler's events, and a study under a profiler session records
 itself.  The card's test (``gpu``) holds a span to the device interval of
 the fused kernels it launched."""
@@ -156,6 +157,38 @@ def test_host_copy_counts_its_bytes(recorded):
     assert copy[0][5] == {"bytes": sum(x.nbytes for x in state.tree_leaves(on.states))}
 
 
+GRANTS = ("grants.demand", "grants.pick", "grants.credit")
+
+
+def test_grants_spans_split_the_credit_path():
+    """Under EQDS each ``tick.grants`` span holds one ``grants.demand``,
+    ``grants.pick`` and ``grants.credit`` in that order, none with counts,
+    and the recorded study is bit-equal to an unrecorded one."""
+    off = _study(algo="eqds").run()
+    with recording() as rec:
+        plan = _study(algo="eqds")
+        on = plan.run()
+    _assert_results_equal(off, on)
+    rows = rec.rows()
+    grants = [i for i, r in enumerate(rows) if r[0] == "tick.grants"]
+    assert len(grants) == plan.sim.stats["lanes"]["batch_ticks"]
+    kids = {i: [] for i in grants}
+    for i, (name, s, e, parent, _, counts) in enumerate(rows):
+        if name in GRANTS:
+            kids[parent].append(i)
+            assert rows[parent][1] <= s <= e <= rows[parent][2]
+    for i in grants:
+        assert [rows[j][0] for j in kids[i]] == list(GRANTS)
+        assert all(rows[j][5] == {} for j in kids[i])
+
+
+def test_no_grants_spans_under_smartt(recorded):
+    _, _, plan, rows = recorded
+    assert not plan.sim.dims.credit_based
+    assert not {r[0] for r in rows} & set(GRANTS)
+    assert sum(r[0] == "tick.grants" for r in rows) == plan.sim.stats["lanes"]["batch_ticks"]
+
+
 def test_mesh_shards_nest_within_their_threads():
     """Over ``mesh=["cpu"] * 2`` each shard's thread roots its spans in a
     ``lanes.shard`` span carrying the shard's index: its loop, ticks and
@@ -261,3 +294,27 @@ def test_span_holds_the_kernels_it_launched_on_the_card():
     for ev, _ in launched:
         assert s <= ev.start_ns() + shift and ev.start_ns() + ev.duration_ns() + shift <= e
     assert again.recording is last_profiled() and again.recording is not None
+
+
+@pytest.mark.gpu
+def test_grants_marks_on_the_card():
+    """On the card, a study under a CUDA-only profiler session (the
+    benchmark's traced study) launches two ``span_mark_kernel`` a batched
+    tick under EQDS, around the grants phase's operations, and none under
+    SMaRTT; the marked study is bit-equal to an unmarked one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    for algo, per_tick in (("eqds", 2), ("smartt", 0)):
+        off = api.study("tiny_3t", points=POINTS, seeds=SEEDS, device="cuda", algo=algo).run()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            plan = api.study("tiny_3t", points=POINTS, seeds=SEEDS, device="cuda", algo=algo)
+            on = plan.run()
+        _assert_results_equal(off, on)
+        ops = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                     if e.device_type().name == "CUDA")
+        marks = [i for i, (_, n) in enumerate(ops) if "span_mark_kernel" in n]
+        assert len(marks) == per_tick * plan.sim.stats["lanes"]["batch_ticks"]
+        for a, b in zip(marks[::2], marks[1::2]):
+            assert any("rr_pick_kernel" in n for _, n in ops[a + 1:b])
